@@ -1,0 +1,58 @@
+"""Dense GF(2) linear algebra on NumPy bool arrays.
+
+NumPy path of ``myldpccppapi_tpu/codes/gf2.py`` (the functions the RU
+encoder precompute needs).  Used only for one-time encoder precompute on the
+host; the batched encode runs as a float32 matmul mod 2
+(:mod:`myldpccppapi_torch.codes.encoder`).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["gf2_matmul", "gf2_inv"]
+
+
+def _as_bool(a: np.ndarray) -> np.ndarray:
+    a = np.asarray(a)
+    if a.dtype != np.bool_:
+        a = (a % 2).astype(np.bool_)
+    return a
+
+
+def gf2_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(a @ b) mod 2 for dense 0/1 matrices, returned as bool.
+
+    The product runs in float32 (BLAS): every partial sum is an integer no
+    larger than the inner dimension, exact for inner dims below 2**24.
+    """
+    a = _as_bool(a)
+    b = _as_bool(b)
+    if a.shape[-1] >= 1 << 24:
+        raise ValueError("inner dimension too large for an exact f32 product")
+    return (a.astype(np.float32) @ b.astype(np.float32)) % 2 == 1
+
+
+def gf2_inv(m: np.ndarray) -> np.ndarray:
+    """Invert a square matrix over GF(2) via Gauss-Jordan elimination.
+
+    Raises ``np.linalg.LinAlgError`` if singular.
+    """
+    m = _as_bool(m).copy()
+    n = m.shape[0]
+    if m.shape != (n, n):
+        raise ValueError(f"expected square matrix, got {m.shape}")
+    inv = np.eye(n, dtype=np.bool_)
+    for col in range(n):
+        pivots = np.nonzero(m[col:, col])[0]
+        if pivots.size == 0:
+            raise np.linalg.LinAlgError(f"matrix is singular over GF(2) at column {col}")
+        p = col + pivots[0]
+        if p != col:
+            m[[col, p]] = m[[p, col]]
+            inv[[col, p]] = inv[[p, col]]
+        # eliminate this column from every other row (vectorized row XOR)
+        rows = m[:, col].copy()
+        rows[col] = False
+        m[rows] ^= m[col]
+        inv[rows] ^= inv[col]
+    return inv

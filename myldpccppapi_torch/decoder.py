@@ -1,0 +1,129 @@
+"""High-level decoder facade.
+
+Counterpart of ``myldpccppapi_tpu/decoder.py``: construction resolves the
+implementation and wires the decode callable once; calls then decode
+arbitrary batches on the decoder's device.
+
+Dispatch: on a CUDA device, ``"auto"`` and ``"cuda"`` resolve to the
+hand-written layered kernel (ops/cuda_bp.py) and raise when it does not
+serve the code; they never go to the torch path quietly.  On the CPU,
+``"auto"`` resolves to ``"torch"``.  An explicit ``"torch"`` runs the plain
+tensor path on any device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+
+import torch
+
+from .codes.qc import QCCode
+from .ops import cuda_bp
+from .ops.bp import DecodeResult, decode_layered
+from .ops.triage import decode_two_phase
+from .utils.config import DecoderConfig
+
+__all__ = ["Decoder", "DecodeResult", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for a CUDA device on a machine
+    without CUDA."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available")
+    return device
+
+
+def _implementation(cfg: DecoderConfig, device: torch.device) -> str:
+    if cfg.implementation == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    if cfg.implementation == "cuda" and device.type != "cuda":
+        raise ValueError(
+            'implementation="cuda" runs on a CUDA device; got device='
+            f"{device}"
+        )
+    return cfg.implementation
+
+
+class Decoder:
+    """Batched LDPC decoder bound to one QC code, one configuration and one
+    device.
+
+    >>> dec = Decoder(wimax(576, "3/4B"), DecoderConfig(), device="cuda")
+    >>> result = dec(llr)          # llr: [B, n] float, positive => bit 0
+    >>> info = dec.info_bits(result)
+    """
+
+    def __init__(self, code, config: DecoderConfig | None = None, *,
+                 device="cpu", **overrides):
+        if config is None:
+            config = DecoderConfig()
+        if overrides:
+            config = dataclasses.replace(config, **overrides)
+        device = resolve_device(device)
+        if not isinstance(code, QCCode):
+            raise NotImplementedError(
+                "codes without QC block structure (edge lists) are not "
+                "ported to the PyTorch package yet (ROADMAP Queue 1 item 9)"
+            )
+        self.code = code
+        self.config = config
+        self.device = device
+        impl = _implementation(config, device)
+        if impl == "cuda" and not cuda_bp.supported(code, config, device):
+            raise ValueError(
+                f"the CUDA layered kernel does not serve {code.name}: it "
+                "needs a cyclic, unmasked QCCode without extra blocks, "
+                "with at most 120 circulants and a codeword state that fits "
+                "a thread block's shared memory; use implementation=\"torch\" "
+                "for the plain path"
+            )
+        #: what actually runs: "cuda" (the kernel) or "torch"
+        self.implementation = impl
+        self._fn = self._build_fn(config)
+        if config.triage_iters > 0:
+            self._fn = self._make_triage()
+
+    def _build_fn(self, cfg: DecoderConfig):
+        if self.implementation == "cuda":
+            return partial(cuda_bp.decode_qc_cuda, self.code, cfg)
+        # the reference's decode_qc dispatches on the schedule; only the
+        # layered one is ported, and DecoderConfig refuses the others
+        return partial(decode_layered, self.code, cfg)
+
+    def _make_triage(self):
+        """Wrap the decoder in the two-phase straggler triage
+        (ops/triage.py): fast short pass, then full-budget re-decode of the
+        compacted unconverged frames.  Bit-identical to a single pass."""
+        cfg = self.config
+        fast = self._build_fn(dataclasses.replace(
+            cfg, max_iters=cfg.triage_iters, triage_iters=0))
+        full = self._build_fn(dataclasses.replace(cfg, triage_iters=0))
+
+        def fn(llr):
+            cap = max(8, int(llr.shape[0] * cfg.triage_cap_frac))
+            if cap >= llr.shape[0]:
+                return full(llr)
+            return decode_two_phase(fast, full, llr, cap)
+
+        return fn
+
+    def __call__(self, llr) -> DecodeResult:
+        """Decode [B, n] LLRs (a tensor or array; moved to the decoder's
+        device as float32)."""
+        llr = torch.as_tensor(llr, dtype=torch.float32, device=self.device)
+        if llr.ndim != 2 or llr.shape[-1] != self.code.n:
+            raise ValueError(
+                f"expected llr of shape [batch, {self.code.n}], got "
+                f"{tuple(llr.shape)}"
+            )
+        return self._fn(llr.contiguous())
+
+    def info_bits(self, result: DecodeResult) -> torch.Tensor:
+        """Information bits of the decoded codewords: [B, k_info]."""
+        if self.code.info_cols is None:
+            return result.bits[:, : self.code.k]
+        pos = torch.as_tensor(self.code.info_positions, device=result.bits.device)
+        return result.bits[:, pos]

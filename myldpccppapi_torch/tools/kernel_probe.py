@@ -1,0 +1,187 @@
+"""Probe where the layered BP kernel's time goes on one CUDA GPU.
+
+    python -m myldpccppapi_torch.tools.kernel_probe [--out probe.json]
+
+At bench.py's operating point (wimax 576 r3/4B, batch 8192, layered NMS
+alpha 0.75, 40 iterations, triage 5; noise from a torch.Generator on the
+card) it measures, with CUDA events (median of 9 after a warm-up, with the
+min and max):
+
+- the kernel's single pass at 5 dB with early exit on and off, and the
+  frames' iteration counts;
+- one thread block alone and one full wave of blocks (one block per SM),
+  early exit off, at 40 sweeps and at 1 sweep: (t40 - t1) / 39 of the lone
+  block is one block's latency per sweep;
+- the triage ``Decoder`` call, its fast pass and its straggler pass;
+- the device's busy share of the ``Decoder`` call, from one
+  ``torch.profiler`` window: the union of the device events' intervals over
+  the wall time of the same calls (the profiler's own host cost lengthens
+  that wall time, so the share is a lower bound);
+- the single pass and the ``Decoder`` call at 2 dB;
+- a tile sweep: single pass and triage decode for several codewords per
+  thread block, each held bit-exact against the largest tile.
+
+It prints one line per measurement and, with ``--out``, writes them as JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import time
+
+import torch
+import torch.profiler
+
+from .. import Decoder, DecoderConfig, Encoder, wimax
+from ..ops.channel import transmit
+from ..ops.cuda_bp import _launch, decode_qc_cuda, tile_size
+from ..ops.triage import decode_two_phase
+
+BATCH = 8192
+#: bench.py's operating point
+BENCH_CFG = DecoderConfig(normalization=0.75, max_iters=40, triage_iters=5)
+SINGLE = dataclasses.replace(BENCH_CFG, triage_iters=0)
+FAST = dataclasses.replace(SINGLE, max_iters=BENCH_CFG.triage_iters)
+NO_EXIT = dataclasses.replace(SINGLE, early_exit=False)
+TILES = (1, 2, 4, 8, 12, 16)
+FIELDS = ("bits", "converged", "iterations", "total_iters")
+
+
+def timed(fn, reps: int = 9) -> dict:
+    """CUDA-event milliseconds of ``fn()``: median, min and max of ``reps``
+    calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return {"median": statistics.median(times), "min": min(times), "max": max(times)}
+
+
+def busy_share(fn, calls: int = 5) -> dict:
+    """Device busy time over wall time of ``calls`` calls of ``fn``, both
+    from one torch.profiler window; plus device time per kernel name."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    per_name: dict[str, float] = {}
+    for e in device:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"calls": calls, "device_events": len(device),
+            "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / wall_us if device else None,
+            "device_ms_by_kernel": {k[:90]: v / 1e3 for k, v in top}}
+
+
+def channel(code, snr_db: float, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randint(0, 2, (BATCH, code.k), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    llr, _ = transmit(gen, Encoder(code, device="cuda")(u), snr_db)
+    return llr.contiguous()
+
+
+def same(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in FIELDS)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=20260816)
+    ap.add_argument("--out", help="write the measurements as JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_probe: CUDA is not available")
+    out: dict = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]}
+    print(out["card"], flush=True)
+    code = wimax(576, "3/4B")
+    tile = tile_size(code, torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out.update(tile=tile, sms=sms)
+    llr5 = channel(code, 5.0, args.seed)
+    llr2 = channel(code, 2.0, args.seed + 1)
+    dec = Decoder(code, BENCH_CFG, device="cuda")
+
+    res = decode_qc_cuda(code, SINGLE, llr5)
+    iters = res.iterations
+    out["iterations_5dB"] = {
+        "mean": iters.float().mean().item(),
+        "frames_at_max_iters": int((iters == SINGLE.max_iters).sum()),
+        "unconverged": int((~res.converged).sum())}
+    out["single_5dB"] = timed(lambda: decode_qc_cuda(code, SINGLE, llr5))
+    out["single_5dB_no_exit"] = timed(lambda: decode_qc_cuda(code, NO_EXIT, llr5))
+    one_sweep = dataclasses.replace(NO_EXIT, max_iters=1)
+    for name, batch in (("one_block", tile), ("one_wave", sms * tile)):
+        x = llr5[:batch].contiguous()
+        out[f"{name}_40_sweeps"] = timed(lambda: decode_qc_cuda(code, NO_EXIT, x))
+        out[f"{name}_1_sweep"] = timed(lambda: decode_qc_cuda(code, one_sweep, x))
+    out["sweep_latency_us"] = 1e3 * (out["one_block_40_sweeps"]["median"]
+                                     - out["one_block_1_sweep"]["median"]) / 39
+
+    out["decoder_5dB"] = timed(lambda: dec(llr5))
+    bad = ~decode_qc_cuda(code, FAST, llr5).ok
+    cap = max(8, int(BATCH * BENCH_CFG.triage_cap_frac))
+    stragglers = llr5[torch.argsort((~bad).to(torch.uint8), stable=True)[:cap]]
+    out["fast_pass_failures"] = int(bad.sum())
+    out["straggler_cap"] = cap
+    out["fast_pass_5dB"] = timed(lambda: decode_qc_cuda(code, FAST, llr5))
+    out["straggler_pass_5dB"] = timed(lambda: decode_qc_cuda(code, SINGLE, stragglers))
+    out["decoder_5dB_profiled"] = busy_share(lambda: dec(llr5))
+
+    out["single_2dB"] = timed(lambda: decode_qc_cuda(code, SINGLE, llr2))
+    out["decoder_2dB"] = timed(lambda: dec(llr2))
+
+    want = {snr: decode_qc_cuda(code, SINGLE, x) for snr, x in ((5, llr5), (2, llr2))}
+    sweep = {}
+    for t in sorted(set(TILES) | {tile}):
+        def single(x, t=t):
+            return _launch(code, SINGLE, x, t)
+
+        def triage(x, t=t):
+            return decode_two_phase(lambda y: _launch(code, FAST, y, t), single,
+                                    x, cap)
+
+        sweep[t] = {
+            "exact": (same(single(llr5), want[5]) and same(single(llr2), want[2])
+                      and same(triage(llr5), want[5])),
+            "single_5dB": timed(lambda: single(llr5))["median"],
+            "triage_5dB": timed(lambda: triage(llr5))["median"],
+            "single_2dB": timed(lambda: single(llr2))["median"],
+        }
+    out["tile_sweep_ms"] = sweep
+
+    for key, val in out.items():
+        print(f"{key}: {json.dumps(val)}", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

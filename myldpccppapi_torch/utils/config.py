@@ -1,0 +1,148 @@
+"""Dataclass configuration objects.
+
+Counterpart of ``myldpccppapi_tpu/utils/config.py``: the same
+:class:`DecoderConfig` fields and validation.  Implementation names map
+``"jnp"`` -> ``"torch"`` and ``"pallas"`` -> ``"cuda"``.  Configurations
+the port does not serve yet raise :class:`NotImplementedError` naming the
+ROADMAP item that brings them, instead of being approximated.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+__all__ = ["DecoderConfig"]
+
+#: implementation names the port knows: served now, or still to port
+_IMPLEMENTATIONS = ("auto", "torch", "cuda")
+_IMPLEMENTATIONS_LATER = ("cuda_long", "edgelist")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    """Belief-propagation decoder configuration.
+
+    algorithm:    "min-sum" ("sum-product" is still to port)
+    schedule:     "layered" (TDMP; "flooding" is still to port)
+    max_iters:    iteration cap (the reference C++ library uses 40)
+    normalization: alpha for normalized min-sum (1.0 = plain min-sum);
+                  a scalar or one value per base row (layer)
+    offset:       beta for offset min-sum (0.0 = none); scalar or per layer
+    early_exit:   stop when every codeword of the batch (on the CUDA
+                  kernel: of the thread block) satisfies all parity checks
+    implementation: "auto" | "torch" | "cuda"
+                  (cuda = hand-written layered kernel for short QC codes,
+                  csrc/bp_layered.cu; torch = plain tensor ops, any device;
+                  auto = cuda on a CUDA device, torch on the CPU)
+    triage_iters: when > 0, decode the batch with this short budget first,
+                  then re-decode only the unconverged frames at max_iters
+                  (ops/triage.py; bit-identical to a single pass)
+    triage_cap_frac: straggler buffer as a fraction of the batch; beyond
+                  it the full batch is re-decoded
+    The remaining fields (self_correction, msg_dtype, crc, crc_span, outer,
+    soft_output, syndrome_mode) exist for parity with the reference and
+    must keep their defaults until their ROADMAP items are ported.
+    """
+
+    algorithm: str = "min-sum"
+    schedule: str = "layered"
+    max_iters: int = 40
+    normalization: "float | tuple" = 1.0
+    offset: "float | tuple" = 0.0
+    early_exit: bool = True
+    implementation: str = "auto"
+    triage_iters: int = 0
+    triage_cap_frac: float = 0.125
+    self_correction: bool = False
+    msg_dtype: str = "float32"
+    crc: Optional[str] = None
+    crc_span: Optional[int] = None
+    outer: Optional[Tuple[str, int, int]] = None
+    soft_output: bool = False
+    syndrome_mode: str = "exact"
+
+    def __post_init__(self):
+        # coerce (possibly nested) weight lists/arrays to hashable tuples
+        for f in ("normalization", "offset"):
+            w = getattr(self, f)
+            if not isinstance(w, (int, float)):
+                w = tuple(
+                    x if isinstance(x, (int, float)) else tuple(x) for x in w
+                )
+                object.__setattr__(self, f, w)
+        if self.algorithm not in ("min-sum", "sum-product"):
+            raise ValueError(f"unknown algorithm {self.algorithm!r}")
+        if self.schedule not in ("flooding", "layered"):
+            raise ValueError(f"unknown schedule {self.schedule!r}")
+        if self.implementation not in _IMPLEMENTATIONS + _IMPLEMENTATIONS_LATER:
+            raise ValueError(f"unknown implementation {self.implementation!r}")
+        if self.msg_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown msg_dtype {self.msg_dtype!r}")
+        if self.algorithm == "sum-product" and (
+            self.normalization != 1.0 or self.offset != 0.0
+        ):
+            raise ValueError(
+                "normalization/offset are min-sum knobs; the sum-product "
+                "check update has no such correction (they would be "
+                "silently ignored)"
+            )
+        if self.syndrome_mode not in ("exact", "lazy"):
+            raise ValueError(f"unknown syndrome_mode {self.syndrome_mode!r}")
+        if self.self_correction and (
+            self.algorithm != "min-sum" or self.schedule != "flooding"
+        ):
+            raise ValueError(
+                "self_correction is the SCMS rule for min-sum FLOODING "
+                f"(got {self.algorithm!r}/{self.schedule!r}); layered "
+                "schedules have no per-iteration message memory to "
+                "compare against"
+            )
+        if self.crc_span is not None:
+            if self.crc is None:
+                raise ValueError("crc_span requires crc to be set")
+            if self.crc_span <= 0:
+                raise ValueError(f"crc_span must be positive, got {self.crc_span}")
+        if self.outer is not None and (
+            len(self.outer) != 3
+            or self.outer[0] != "bch"
+            or not all(isinstance(x, int) for x in self.outer[1:])
+        ):
+            raise ValueError(f'outer must be ("bch", m, t), got {self.outer!r}')
+        self._refuse_unported()
+
+    def _refuse_unported(self):
+        if self.implementation in _IMPLEMENTATIONS_LATER:
+            raise _not_ported(
+                f"implementation={self.implementation!r}",
+                "Queue 1 item 9 (long codes, edge lists)",
+            )
+        if self.algorithm == "sum-product":
+            raise _not_ported("sum-product", "Queue 1 item 3 / Queue 2 kernel A")
+        if self.schedule == "flooding":
+            raise _not_ported("the flooding schedule",
+                              "Queue 1 item 3 / Queue 2 kernel A")
+        if self.self_correction:
+            raise _not_ported("self-corrected min-sum (SCMS)",
+                              "Queue 1 item 3 / Queue 2 kernel A")
+        if self.msg_dtype != "float32":
+            raise _not_ported("bfloat16 messages", "Queue 2 kernel A")
+        if self.crc is not None or self.outer is not None:
+            raise _not_ported("CRC/outer-code-aided acceptance",
+                              "Queue 1 item 7")
+        if self.soft_output:
+            raise _not_ported("soft output", "Queue 1 item 3 / Queue 2 kernel A")
+        if self.syndrome_mode != "exact":
+            raise _not_ported("the lazy syndrome", "Queue 2 kernel C")
+        for f in ("normalization", "offset"):
+            w = getattr(self, f)
+            if not isinstance(w, (int, float)) and not all(
+                isinstance(x, (int, float)) for x in w
+            ):
+                raise _not_ported(f"per-iteration {f} weights",
+                                  "Queue 1 item 3")
