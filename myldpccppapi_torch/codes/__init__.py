@@ -1,6 +1,16 @@
 """Code construction: base matrices, QC lifting, GF(2) algebra, encoders."""
 from .qc import QCCode
 from .encoder import Encoder, EncoderMatrices, encode_numpy, ru_precompute
+from .nr import (
+    harq_combine,
+    nr_base_graph,
+    nr_code,
+    rate_match_bits,
+    rate_match_llr,
+    rv_start,
+    triangular_encode_fn,
+    triangular_encode_numpy,
+)
 from .wimax import wimax
 
 __all__ = [
@@ -8,6 +18,14 @@ __all__ = [
     "Encoder",
     "EncoderMatrices",
     "encode_numpy",
+    "harq_combine",
+    "nr_base_graph",
+    "nr_code",
+    "rate_match_bits",
+    "rate_match_llr",
     "ru_precompute",
+    "rv_start",
+    "triangular_encode_fn",
+    "triangular_encode_numpy",
     "wimax",
 ]

@@ -4,11 +4,14 @@ Counterpart of ``myldpccppapi_tpu/decoder.py``: construction resolves the
 implementation and wires the decode callable once; calls then decode
 arbitrary batches on the decoder's device.
 
-Dispatch: on a CUDA device, ``"auto"`` and ``"cuda"`` resolve to the
-hand-written layered kernel (ops/cuda_bp.py) and raise when it does not
-serve the code; they never go to the torch path quietly.  On the CPU,
-``"auto"`` resolves to ``"torch"``.  An explicit ``"torch"`` runs the plain
-tensor path on any device.
+Dispatch, in the reference's order (``myldpccppapi_tpu/decoder.py``): on a
+CUDA device ``"auto"`` resolves to the short-code kernel (``"cuda"``,
+ops/cuda_bp.py) when it serves the code, else to the long-code kernel
+(``"cuda_long"``, ops/cuda_long.py), else it raises; it never goes to the
+torch path quietly.  An explicit ``"cuda"`` or ``"cuda_long"`` that does not
+serve the code raises at construction.  On the CPU, ``"auto"`` resolves to
+``"torch"``.  An explicit ``"torch"`` runs the plain tensor path on any
+device.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from functools import partial
 import torch
 
 from .codes.qc import QCCode
-from .ops import cuda_bp
+from .ops import cuda_bp, cuda_long
 from .ops.bp import DecodeResult, decode_layered
 from .ops.triage import decode_two_phase
 from .utils.config import DecoderConfig
@@ -36,15 +39,34 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _implementation(cfg: DecoderConfig, device: torch.device) -> str:
-    if cfg.implementation == "auto":
-        return "cuda" if device.type == "cuda" else "torch"
-    if cfg.implementation == "cuda" and device.type != "cuda":
+#: the kernels by implementation name, in auto-dispatch order
+_KERNELS = {"cuda": cuda_bp, "cuda_long": cuda_long}
+
+
+def _implementation(code, cfg: DecoderConfig, device: torch.device) -> str:
+    impl = cfg.implementation
+    if impl == "torch" or (impl == "auto" and device.type != "cuda"):
+        return "torch"
+    if device.type != "cuda":
         raise ValueError(
-            'implementation="cuda" runs on a CUDA device; got device='
+            f"implementation={impl!r} runs on a CUDA device; got device="
             f"{device}"
         )
-    return cfg.implementation
+    if impl == "auto":
+        for name, kernel in _KERNELS.items():
+            if kernel.supported(code, cfg, device):
+                return name
+        raise ValueError(
+            f"no CUDA kernel serves {code.name} under this config: the "
+            f"short-code kernel (\"cuda\") needs {cuda_bp.REQUIREMENTS}; the "
+            f"long-code kernel (\"cuda_long\") needs {cuda_long.REQUIREMENTS}; "
+            "use implementation=\"torch\" for the plain path")
+    if not _KERNELS[impl].supported(code, cfg, device):
+        raise ValueError(
+            f"the {impl!r} kernel does not serve {code.name} under this "
+            f"config: it needs {_KERNELS[impl].REQUIREMENTS}; use "
+            "implementation=\"torch\" for the plain path")
+    return impl
 
 
 class Decoder:
@@ -71,16 +93,8 @@ class Decoder:
         self.code = code
         self.config = config
         self.device = device
-        impl = _implementation(config, device)
-        if impl == "cuda" and not cuda_bp.supported(code, config, device):
-            raise ValueError(
-                f"the CUDA layered kernel does not serve {code.name}: it "
-                "needs a cyclic, unmasked QCCode without extra blocks, "
-                "with at most 120 circulants and a codeword state that fits "
-                "a thread block's shared memory; use implementation=\"torch\" "
-                "for the plain path"
-            )
-        #: what actually runs: "cuda" (the kernel) or "torch"
+        impl = _implementation(code, config, device)
+        #: what actually runs: "cuda" or "cuda_long" (a kernel) or "torch"
         self.implementation = impl
         self._fn = self._build_fn(config)
         if config.triage_iters > 0:
@@ -89,6 +103,8 @@ class Decoder:
     def _build_fn(self, cfg: DecoderConfig):
         if self.implementation == "cuda":
             return partial(cuda_bp.decode_qc_cuda, self.code, cfg)
+        if self.implementation == "cuda_long":
+            return partial(cuda_long.decode_qc_long, self.code, cfg)
         # the reference's decode_qc dispatches on the schedule; only the
         # layered one is ported, and DecoderConfig refuses the others
         return partial(decode_layered, self.code, cfg)

@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels of ``myldpccppapi_torch/csrc``.
 
 The sources have a plain ``extern "C"`` interface and include no PyTorch
-header, so ``nvcc`` builds them in seconds into a shared library that
-:mod:`ctypes` loads.  The library goes into ``myldpccppapi_torch/_build/``
-(listed in ``.gitignore``), named by a hash of the sources and flags, and is
-built at first use, never at import.  A machine with CUDA but without
-``nvcc`` raises: there is no fallback.
+header, so ``nvcc`` compiles each in seconds; :func:`build` starts one
+``nvcc`` per source, all together, and links the objects into one shared
+library that :mod:`ctypes` loads.  The library goes into
+``myldpccppapi_torch/_build/`` (listed in ``.gitignore``), named by a hash
+of every source and the flags, and is built at first use, never at import.
+A machine with CUDA but without ``nvcc`` raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -17,23 +18,38 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 
-__all__ = ["load", "find_nvcc"]
+__all__ = ["build", "load", "find_nvcc", "SOURCES"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
+#: the kernel sources, each compiled by its own nvcc process
+SOURCES = ("bp_layered.cu", "bp_long.cu")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # keep the f32 operation order: no contracted multiply-adds
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signature of ldpc_bp_layered: ten tensors, eight ints, the stream
-_BP_LAYERED_ARGTYPES = [_P] * 10 + [_I] * 8 + [_P]
+#: C signatures: (argtypes, restype) per exported function
+_SIGNATURES = {
+    # ten tensors, eight ints, the stream
+    "ldpc_bp_layered": ([_P] * 10 + [_I] * 8 + [_P], _I),
+    # (n, z, m_b, num_blocks, device) -> codewords per thread block
+    "ldpc_bp_layered_tile": ([_I] * 5, _I),
+    # eleven tensors, seven ints, the stream
+    "ldpc_bp_long": ([_P] * 11 + [_I] * 7 + [_P], _I),
+    # (n, z, m_b, num_blocks, max_row_degree, device) -> 1 fits / 0 not
+    "ldpc_bp_long_fits": ([_I] * 6, _I),
+    # (n, z, m_b, num_blocks) -> resident blocks per SM
+    "ldpc_bp_long_blocks_per_sm": ([_I] * 4, _I),
+}
 
 
 def find_nvcc() -> str:
@@ -55,37 +71,59 @@ def find_nvcc() -> str:
     )
 
 
+def _lib_path() -> pathlib.Path:
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for name in SOURCES:
+        digest.update(name.encode())
+        digest.update((_CSRC / name).read_bytes())
+    return _BUILD / f"libldpc_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def _compile(nvcc: str, name: str, obj: str) -> float:
+    """Compile one source to ``obj``; returns its wall seconds."""
+    t0 = time.perf_counter()
+    run = subprocess.run([nvcc, *_NVCC_FLAGS, "-c", "-o", obj, str(_CSRC / name)],
+                         capture_output=True, text=True)
+    if run.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name}:\n{run.stdout}{run.stderr}")
+    return time.perf_counter() - t0
+
+
+def build() -> tuple[pathlib.Path, dict]:
+    """Build the kernel library unless it exists.  Returns its path and the
+    wall seconds of each step: one entry per source (its nvcc runs
+    alongside the others) and ``"link"``; empty when it was already
+    built."""
+    lib_path = _lib_path()
+    if lib_path.exists():
+        return lib_path, {}
+    nvcc = find_nvcc()
+    _BUILD.mkdir(exist_ok=True)
+    # objects and the library go to private names first: a concurrent
+    # build never sees a half-written library
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+        objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            times = pool.map(functools.partial(_compile, nvcc), SOURCES, objs)
+            seconds = dict(zip(SOURCES, times))
+        t0 = time.perf_counter()
+        tmp_lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *_NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link the kernel library:\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp_lib, lib_path)
+        seconds["link"] = time.perf_counter() - t0
+    return lib_path, seconds
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """Build (once per source hash) and load ``csrc/bp_layered.cu``."""
-    src = _CSRC / "bp_layered.cu"
-    digest = hashlib.sha256(src.read_bytes())
-    digest.update(" ".join(_NVCC_FLAGS).encode())
-    lib_path = _BUILD / f"libbp_layered-{digest.hexdigest()[:16]}.so"
-    if not lib_path.exists():
-        nvcc = find_nvcc()
-        _BUILD.mkdir(exist_ok=True)
-        # build to a private name, then rename: a concurrent builder never
-        # sees a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc, *_NVCC_FLAGS, "-o", tmp, str(src)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {src.name}:\n{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(lib_path))
-    lib.ldpc_bp_layered.argtypes = _BP_LAYERED_ARGTYPES
-    lib.ldpc_bp_layered.restype = ctypes.c_int
-    # (n, z, m_b, num_blocks, device) -> codewords per thread block
-    lib.ldpc_bp_layered_tile.argtypes = [_I] * 5
-    lib.ldpc_bp_layered_tile.restype = ctypes.c_int
+    """Build (once per source hash) and load the kernel library."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib

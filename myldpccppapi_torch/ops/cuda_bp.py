@@ -19,11 +19,18 @@ from ..utils.config import DecoderConfig
 from . import _build
 from .bp import DecodeResult, decode_layered, layer_weights
 
-__all__ = ["decode_qc_cuda", "decode_qc_cuda_plain", "supported", "tile_size"]
+__all__ = ["REQUIREMENTS", "decode_qc_cuda", "decode_qc_cuda_plain",
+           "supported", "tile_size"]
 
 #: same block-count gate as the TPU kernel's auto dispatch
 #: (pallas_bp._DYN_BLOCK_THRESHOLD)
 _MAX_BLOCKS = 120
+#: what :func:`supported` asks of a code and a config, for error messages
+REQUIREMENTS = (
+    f"a cyclic, unmasked QCCode without extra blocks, at most {_MAX_BLOCKS} "
+    "circulants, a codeword state that fits a thread block's shared memory, "
+    "and layered min-sum f32"
+)
 
 
 def _device_index(device) -> int:
@@ -106,10 +113,7 @@ def decode_qc_cuda(code: QCCode, cfg: DecoderConfig,
     if not supported(code, cfg, llr.device):
         raise ValueError(
             f"the CUDA layered kernel does not serve {code.name} under this "
-            "config: it needs a cyclic, unmasked QCCode without extra "
-            f"blocks, at most {_MAX_BLOCKS} circulants, a codeword state "
-            "that fits a thread block's shared memory, and layered min-sum "
-            "f32"
+            f"config: it needs {REQUIREMENTS}"
         )
     return _launch(code, cfg, llr, tile_size(code, llr.device.index))
 

@@ -1,0 +1,117 @@
+"""End-to-end Monte-Carlo simulation step on one device.
+
+Counterpart of ``myldpccppapi_tpu/parallel/sim.py`` for one device: a step
+simulates one batch — random info bits, encode (the code's matmul encoder,
+or a family-specific ``encode_fn`` such as NR's triangular
+back-substitution), BPSK/AWGN, decode, and exact integer error counts
+against the known truth.  Randomness comes from a ``torch.Generator`` on the
+simulation's device, so a step is reproducible from its seed (but draws
+other numbers than the reference's threefry keys).
+
+Not ported yet: the CRC and outer-code acceptance branches (ROADMAP Queue 1
+item 7), non-BPSK modulation and BICM-ID (item 11), and the multi-device
+campaign step ``make_sharded_campaign_step`` (item 10).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from .ops.channel import channel_llr, sigma_from_snr_db
+from .utils.config import DecoderConfig
+
+__all__ = ["SimStats", "matmul_encode_fn", "make_decode_fn", "sim_step"]
+
+
+class SimStats(NamedTuple):
+    """Exact error statistics for one simulated batch (per SNR point), as
+    0-d int64 tensors on the simulation's device.
+
+    ``frame_errors`` counts every frame with info-bit errors; the
+    detected/undetected split distinguishes errors the receiver KNOWS about
+    (frame not accepted) from silently wrong accepted frames:
+    ``detected = frame_errors - undetected_errors``.
+    """
+
+    frames: torch.Tensor        # codewords simulated
+    frame_errors: torch.Tensor  # codewords with >=1 info-bit error
+    bit_errors: torch.Tensor    # wrong info bits
+    info_bits: torch.Tensor     # info bits simulated (frames * k_info)
+    iterations: torch.Tensor    # total BP iterations used (sum over frames)
+    unconverged: torch.Tensor   # frames that hit the iteration cap
+    #: frames ACCEPTED (syndrome) yet wrong — the receiver cannot see these
+    undetected_errors: torch.Tensor = 0
+    #: converged frames an acceptance check rejected (0 without CRC/outer)
+    crc_rejected: torch.Tensor = 0
+
+
+def matmul_encode_fn(code, *, device="cpu") -> Callable:
+    """[B, k] info bits -> [B, n] codeword bits with the code's Encoder
+    (float32 matmul mod 2 on ``device``)."""
+    from .codes.encoder import Encoder
+
+    return Encoder(code, device=device)
+
+
+def make_decode_fn(code, cfg: DecoderConfig, *, device="cpu"):
+    """The implementation-dispatched decode callable: the Decoder facade,
+    so simulations take the same dispatch as everything else (the CUDA
+    kernels on a card, the torch path on the CPU)."""
+    from .decoder import Decoder
+
+    return Decoder(code, cfg, device=device)
+
+
+def sim_step(
+    code,
+    cfg: DecoderConfig,
+    gen: torch.Generator,
+    snr_db: float,
+    batch: int,
+    encode_fn: Optional[Callable] = None,
+    decode_fn: Optional[Callable] = None,
+) -> SimStats:
+    """Simulate one batch at one SNR point on ``gen``'s device.
+
+    Noise sigma follows the reference CLI convention sigma = 10^(-snr/20)
+    (``Test.cpp:57``).  Draws, in order from ``gen``: the [batch, k_info]
+    info bits (``torch.randint``), then the [batch, n] standard normal
+    noise (``torch.randn``).  Only the BPSK branch is ported: the
+    reference's ``outer``, ``mod``, ``demap`` and ``id_outer`` arguments
+    wait for ROADMAP Queue 1 items 7 and 11, and its ``llr_scale`` for a
+    caller that sets it.
+    """
+    if cfg.crc is not None or cfg.outer is not None:
+        raise NotImplementedError(
+            "CRC/outer-code-aided simulation is not ported to the PyTorch "
+            "package yet (ROADMAP Queue 1 item 7)")
+    device = gen.device
+    if encode_fn is None:
+        encode_fn = matmul_encode_fn(code, device=device)
+    if decode_fn is None:
+        decode_fn = make_decode_fn(code, cfg, device=device)
+    info_pos = torch.as_tensor(code.info_positions, device=device)
+    kbits = len(info_pos)
+    u = torch.randint(0, 2, (batch, kbits), generator=gen, device=device,
+                      dtype=torch.uint8)
+    cw = encode_fn(u)  # [B, n] 0/1
+    sigma = sigma_from_snr_db(snr_db).to(device)
+    sym = 1.0 - 2.0 * cw.to(torch.float32)
+    y = sym + sigma * torch.randn(sym.shape, generator=gen, device=device,
+                                  dtype=torch.float32)
+    res = decode_fn(channel_llr(y, sigma))
+    decoded_info = res.bits[:, info_pos]
+    bit_err = (decoded_info != u).sum(dim=-1)  # [B]
+    accepted = res.ok  # the syndrome (no CRC in the port yet)
+    i64 = torch.int64
+    return SimStats(
+        frames=torch.tensor(batch, dtype=i64, device=device),
+        frame_errors=(bit_err > 0).sum().to(i64),
+        bit_errors=bit_err.sum().to(i64),
+        info_bits=torch.tensor(batch * kbits, dtype=i64, device=device),
+        iterations=res.iterations.sum().to(i64),
+        unconverged=(~res.converged).sum().to(i64),
+        undetected_errors=((bit_err > 0) & accepted).sum().to(i64),
+        crc_rejected=(res.converged & ~accepted).sum().to(i64),
+    )

@@ -1,7 +1,9 @@
-"""Probe where the layered BP kernel's time goes on one CUDA GPU.
+"""Probe where a layered BP kernel's time goes on one CUDA GPU.
 
     python -m myldpccppapi_torch.tools.kernel_probe [--out probe.json]
+    python -m myldpccppapi_torch.tools.kernel_probe --long [--out probe.json]
 
+Without ``--long`` it probes the short-code kernel (csrc/bp_layered.cu).
 At bench.py's operating point (wimax 576 r3/4B, batch 8192, layered NMS
 alpha 0.75, 40 iterations, triage 5; noise from a torch.Generator on the
 card) it measures, with CUDA events (median of 9 after a warm-up, with the
@@ -21,6 +23,20 @@ min and max):
 - a tile sweep: single pass and triage decode for several codewords per
   thread block, each held bit-exact against the largest tile.
 
+With ``--long`` it probes the long-code kernel (csrc/bp_long.cu) at the
+NR path's operating point (NR BG1 Z=384, rv0 over the full buffer, layered
+NMS alpha 0.8, 30 iterations, 5 dB; noise from a torch.Generator on the
+card), with CUDA events as above:
+
+- one thread block alone and one full wave of blocks (the blocks every SM
+  holds at once, from the kernel library's occupancy query), early exit
+  off, at 30 sweeps and at 1 sweep: (t30 - t1) / 29 is the time of one
+  sweep of each;
+- batch 512 with early exit off, per sweep, beside the bytes of the
+  messages R read and written per sweep and the rate that makes;
+- batch 512 at 5 dB with early exit on, its iteration counts, and the
+  ``Decoder`` call with its device busy share from one profiler window.
+
 It prints one line per measurement and, with ``--out``, writes them as JSON.
 """
 from __future__ import annotations
@@ -35,9 +51,12 @@ import time
 import torch
 import torch.profiler
 
-from .. import Decoder, DecoderConfig, Encoder, wimax
+from .. import Decoder, DecoderConfig, Encoder, nr_code, wimax
+from ..codes.nr import rate_match_bits, rate_match_llr, triangular_encode_fn
+from ..ops import _build
 from ..ops.channel import transmit
 from ..ops.cuda_bp import _launch, decode_qc_cuda, tile_size
+from ..ops.cuda_long import decode_qc_long
 from ..ops.triage import decode_two_phase
 
 BATCH = 8192
@@ -48,6 +67,10 @@ FAST = dataclasses.replace(SINGLE, max_iters=BENCH_CFG.triage_iters)
 NO_EXIT = dataclasses.replace(SINGLE, early_exit=False)
 TILES = (1, 2, 4, 8, 12, 16)
 FIELDS = ("bits", "converged", "iterations", "total_iters")
+#: the NR path's operating point (benchmarks/run_baseline.py config 4)
+LONG_BATCH = 512
+LONG_CFG = DecoderConfig(normalization=0.8, max_iters=30)
+LONG_NO_EXIT = dataclasses.replace(LONG_CFG, early_exit=False)
 
 
 def timed(fn, reps: int = 9) -> dict:
@@ -107,9 +130,63 @@ def same(a, b) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in FIELDS)
 
 
+def nr_channel(code, batch: int, snr_db: float, seed: int) -> torch.Tensor:
+    """Rate-matched (rv0, full buffer) BPSK/AWGN LLRs of random NR
+    codewords, made on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randint(0, 2, (batch, code.k), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    e = code.n - code.punctured_front
+    tx = rate_match_bits(code, triangular_encode_fn(code)(u), e)
+    llr_e, _ = transmit(gen, tx, snr_db)
+    return rate_match_llr(code, llr_e, e).contiguous()
+
+
+def probe_long(seed: int) -> dict:
+    code = nr_code(384, 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = _build.load().ldpc_bp_long_blocks_per_sm(
+        code.n, code.z, code.m_b, code.num_blocks)
+    if per_sm < 1:
+        raise RuntimeError(f"bp_long occupancy query returned {per_sm}")
+    out: dict = {"code": code.name, "sms": sms, "blocks_per_sm": per_sm,
+                 "batch": LONG_BATCH}
+    wave = sms * per_sm
+    llr_all = nr_channel(code, max(wave, LONG_BATCH), 5.0, seed)
+    llr = llr_all[:LONG_BATCH].contiguous()
+    one_sweep = dataclasses.replace(LONG_NO_EXIT, max_iters=1)
+    sweeps = LONG_NO_EXIT.max_iters
+    for name, batch in (("one_block", 1), ("one_wave", wave),
+                        ("batch", LONG_BATCH)):
+        x = llr_all[:batch].contiguous()
+        full = timed(lambda: decode_qc_long(code, LONG_NO_EXIT, x))
+        one = timed(lambda: decode_qc_long(code, one_sweep, x))
+        per_sweep = (full["median"] - one["median"]) / (sweeps - 1)
+        # R: each sweep after the first reads and writes every message
+        r_bytes = 2 * batch * code.num_blocks * code.z * 4
+        out[name] = {"codewords": batch, f"{sweeps}_sweeps": full,
+                     "1_sweep": one, "ms_per_sweep": per_sweep,
+                     "r_bytes_per_sweep": r_bytes,
+                     "r_gbytes_per_s": r_bytes / (per_sweep * 1e-3) / 1e9}
+    res = decode_qc_long(code, LONG_CFG, llr)
+    out["iterations_5dB"] = {
+        "mean": res.iterations.float().mean().item(),
+        "max": int(res.iterations.max()), "total_iters": int(res.total_iters),
+        "unconverged": int((~res.converged).sum())}
+    out["kernel_5dB"] = timed(lambda: decode_qc_long(code, LONG_CFG, llr))
+    dec = Decoder(code, LONG_CFG, device="cuda")
+    if dec.implementation != "cuda_long":
+        raise RuntimeError(f"NR Decoder resolved to {dec.implementation}")
+    out["decoder_5dB"] = timed(lambda: dec(llr))
+    out["decoder_5dB_profiled"] = busy_share(lambda: dec(llr))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=20260816)
+    ap.add_argument("--long", action="store_true",
+                    help="probe the long-code kernel at NR BG1 Z=384")
     ap.add_argument("--out", help="write the measurements as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -119,12 +196,26 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]}
     print(out["card"], flush=True)
+    if args.long:
+        out.update(probe_long(args.seed))
+    else:
+        out.update(probe_short(args.seed))
+    for key, val in out.items():
+        print(f"{key}: {json.dumps(val)}", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+def probe_short(seed: int) -> dict:
+    out: dict = {}
     code = wimax(576, "3/4B")
     tile = tile_size(code, torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out.update(tile=tile, sms=sms)
-    llr5 = channel(code, 5.0, args.seed)
-    llr2 = channel(code, 2.0, args.seed + 1)
+    llr5 = channel(code, 5.0, seed)
+    llr2 = channel(code, 2.0, seed + 1)
     dec = Decoder(code, BENCH_CFG, device="cuda")
 
     res = decode_qc_cuda(code, SINGLE, llr5)
@@ -174,13 +265,7 @@ def main(argv=None) -> int:
             "single_2dB": timed(lambda: single(llr2))["median"],
         }
     out["tile_sweep_ms"] = sweep
-
-    for key, val in out.items():
-        print(f"{key}: {json.dumps(val)}", flush=True)
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(out, f, indent=1)
-    return 0
+    return out
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 Counterpart of ``myldpccppapi_tpu/utils/config.py``: the same
 :class:`DecoderConfig` fields and validation.  Implementation names map
-``"jnp"`` -> ``"torch"`` and ``"pallas"`` -> ``"cuda"``.  Configurations
+``"jnp"`` -> ``"torch"``, ``"pallas"`` -> ``"cuda"`` and
+``"pallas_zlane"`` -> ``"cuda_long"``.  Configurations
 the port does not serve yet raise :class:`NotImplementedError` naming the
 ROADMAP item that brings them, instead of being approximated.
 """
@@ -14,8 +15,8 @@ from typing import Optional, Tuple
 __all__ = ["DecoderConfig"]
 
 #: implementation names the port knows: served now, or still to port
-_IMPLEMENTATIONS = ("auto", "torch", "cuda")
-_IMPLEMENTATIONS_LATER = ("cuda_long", "edgelist")
+_IMPLEMENTATIONS = ("auto", "torch", "cuda", "cuda_long")
+_IMPLEMENTATIONS_LATER = ("edgelist",)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -36,10 +37,13 @@ class DecoderConfig:
     offset:       beta for offset min-sum (0.0 = none); scalar or per layer
     early_exit:   stop when every codeword of the batch (on the CUDA
                   kernel: of the thread block) satisfies all parity checks
-    implementation: "auto" | "torch" | "cuda"
+    implementation: "auto" | "torch" | "cuda" | "cuda_long"
                   (cuda = hand-written layered kernel for short QC codes,
-                  csrc/bp_layered.cu; torch = plain tensor ops, any device;
-                  auto = cuda on a CUDA device, torch on the CPU)
+                  csrc/bp_layered.cu; cuda_long = hand-written layered
+                  kernel for long QC codes such as 5G NR, csrc/bp_long.cu;
+                  torch = plain tensor ops, any device; auto = on a CUDA
+                  device the first kernel that serves the code, cuda then
+                  cuda_long, else an error; torch on the CPU)
     triage_iters: when > 0, decode the batch with this short budget first,
                   then re-decode only the unconverged frames at max_iters
                   (ops/triage.py; bit-identical to a single pass)
@@ -120,7 +124,7 @@ class DecoderConfig:
         if self.implementation in _IMPLEMENTATIONS_LATER:
             raise _not_ported(
                 f"implementation={self.implementation!r}",
-                "Queue 1 item 9 (long codes, edge lists)",
+                "Queue 1 item 9 (edge lists)",
             )
         if self.algorithm == "sum-product":
             raise _not_ported("sum-product", "Queue 1 item 3 / Queue 2 kernel A")
@@ -138,7 +142,9 @@ class DecoderConfig:
         if self.soft_output:
             raise _not_ported("soft output", "Queue 1 item 3 / Queue 2 kernel A")
         if self.syndrome_mode != "exact":
-            raise _not_ported("the lazy syndrome", "Queue 2 kernel C")
+            raise _not_ported("the lazy syndrome",
+                              "Queue 1 item 8, the DVB-S2 slice, on Queue 2 "
+                              "kernel C")
         for f in ("normalization", "offset"):
             w = getattr(self, f)
             if not isinstance(w, (int, float)) and not all(

@@ -27,7 +27,10 @@ def _run(code: str, env=None) -> subprocess.CompletedProcess:
 def test_import_leaves_jax_out():
     proc = _run(
         "import sys, myldpccppapi_torch, myldpccppapi_torch.cli, "
-        "myldpccppapi_torch.interop, myldpccppapi_torch.ops.cuda_bp\n"
+        "myldpccppapi_torch.interop, myldpccppapi_torch.ops.cuda_bp, "
+        "myldpccppapi_torch.ops.cuda_long, myldpccppapi_torch.sim, "
+        "myldpccppapi_torch.campaign, myldpccppapi_torch.codes.nr, "
+        "myldpccppapi_torch.codes.tables, myldpccppapi_torch.tools.kernel_probe\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'myldpccppapi_tpu')]\n"
         "assert not bad, bad\n"
@@ -52,7 +55,7 @@ def test_cuda_wrapper_imports_without_nvcc_and_builds_nothing():
     env["PATH"] = "/nonexistent"
     proc = _run(
         "import os\n"
-        "from myldpccppapi_torch.ops import _build, cuda_bp\n"
+        "from myldpccppapi_torch.ops import _build, cuda_bp, cuda_long\n"
         "assert _build.load.cache_info().currsize == 0\n"
         "before = sorted(os.listdir(_build._BUILD)) "
         "if _build._BUILD.exists() else []\n"
@@ -60,7 +63,8 @@ def test_cuda_wrapper_imports_without_nvcc_and_builds_nothing():
         "after = sorted(os.listdir(_build._BUILD)) "
         "if _build._BUILD.exists() else []\n"
         "assert before == after, (before, after)\n"
-        "assert cuda_bp.decode_qc_cuda.launches == 0\n",
+        "assert cuda_bp.decode_qc_cuda.launches == 0\n"
+        "assert cuda_long.decode_qc_long.launches == 0\n",
         env=env,
     )
     assert proc.returncode == 0, proc.stderr
