@@ -3,17 +3,28 @@
 A quasi-cyclic LDPC channel-coding framework for one NVIDIA GPU: 802.16e QC
 parity-check construction, systematic Richardson-Urbanke encoding,
 5G NR-style BG1/BG2 codes with triangular encoding and rate matching,
-BPSK/AWGN channel simulation, batched layered normalized/offset min-sum
-decoding with per-codeword syndrome early termination and two-phase
+DVB-S2 IRA codes in z=360 QC form with accumulator encoding, BPSK/AWGN
+channel simulation, batched layered normalized/offset min-sum decoding
+with per-codeword syndrome early termination (exact or lazy) and two-phase
 straggler triage, and resumable BER/FER waterfall campaigns.  The decode
 runs in hand-written CUDA kernels on a CUDA device (``csrc/bp_layered.cu``
 for short codes, ``csrc/bp_long.cu`` for long ones) and as plain torch ops
-elsewhere.
+on the CPU.  Entry points run on the card unless given ``device="cpu"``.
 
 The JAX package ``myldpccppapi_tpu`` is the reference this port is held
 against; this package never imports it or JAX.
 """
-from .codes import Encoder, QCCode, nr_code, wimax
+from .codes import (
+    Encoder,
+    QCCode,
+    dvbs2,
+    dvbs2_ira_qc,
+    ira_encode_fn,
+    ira_encode_numpy,
+    nr_code,
+    std_interleave,
+    wimax,
+)
 from .decoder import DecodeResult, Decoder
 from .utils.config import DecoderConfig
 from .coder import Coder
@@ -27,7 +38,12 @@ __all__ = [
     "DecoderConfig",
     "Encoder",
     "QCCode",
+    "dvbs2",
+    "dvbs2_ira_qc",
+    "ira_encode_fn",
+    "ira_encode_numpy",
     "nr_code",
+    "std_interleave",
     "wimax",
     "__version__",
 ]

@@ -11,12 +11,16 @@ Counterpart of the ``test`` and ``waterfall`` subcommands of
                 checkpoint/resume and CSV/JSON output; the same per-point
                 lines as the reference.
 
+Both run on the card; ``--device cpu`` is the only way onto the CPU.
+
 Examples::
 
-    python -m myldpccppapi_torch test 4320 64 3.0 TDMPCL --device cuda
+    python -m myldpccppapi_torch test 4320 64 3.0 TDMPCL
     python -m myldpccppapi_torch waterfall --family nr --z 384 --bg 1 \
         --snr 1,1.5 --batch 512 --target-errors 50 --max-iters 30 \
-        --normalization 0.8 --checkpoint ck.json --out nr.csv --device cuda
+        --normalization 0.8 --checkpoint ck.json --out nr.csv
+    python -m myldpccppapi_torch waterfall --family dvbs2 --n 16200 \
+        --rate 1/2 --snr 1.5,2 --batch 256 --max-iters 30 --normalization 0.85
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from .coder import DECODE_TYPES
+from .utils.device import DEFAULT_DEVICE
 
 
 def cmd_test(args) -> int:
@@ -83,6 +88,10 @@ def _make_code(args):
         from .codes import wimax
 
         return wimax(args.n, args.rate)
+    if args.family == "dvbs2":
+        from .codes import dvbs2
+
+        return dvbs2(args.n, args.rate)
     from .codes import nr_code
 
     return nr_code(z=args.z, bg=args.bg)
@@ -91,11 +100,16 @@ def _make_code(args):
 def cmd_waterfall(args) -> int:
     """BER/FER waterfall over an SNR grid on one device."""
     from .campaign import CampaignConfig, WaterfallCampaign
+    from .codes.dvbs2 import ira_encode_fn
     from .codes.nr import triangular_encode_fn
-    from .decoder import resolve_device
     from .sim import make_decode_fn, matmul_encode_fn, sim_step
     from .utils.config import DecoderConfig
+    from .utils.device import resolve_device
 
+    if args.bch:
+        raise SystemExit("--bch (the DVB-S2 outer BCH acceptance) is not "
+                         "ported to the PyTorch package yet (ROADMAP Queue 1 "
+                         "item 7)")
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 encode matmul
     device = resolve_device(args.device)
     code = _make_code(args)
@@ -105,6 +119,8 @@ def cmd_waterfall(args) -> int:
     # the encoder is family-specific
     if args.family == "nr":
         encode_fn = triangular_encode_fn(code)
+    elif args.family == "dvbs2":
+        encode_fn = ira_encode_fn(code)  # O(n) accumulator encode
     else:
         encode_fn = matmul_encode_fn(code, device=device)
     decode_fn = make_decode_fn(code, cfg, device=device)
@@ -169,15 +185,16 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--k", type=int, default=432)
     t.add_argument("--rate", default="3/4B")
     t.add_argument("--seed", type=int, default=0)
-    t.add_argument("--device",
-                   default="cuda" if torch.cuda.is_available() else "cpu",
-                   help="torch device (default: cuda when available)")
+    t.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="torch device (default: cuda; cpu for the CPU)")
     t.set_defaults(fn=cmd_test)
 
     w = sub.add_parser("waterfall", help="BER/FER waterfall campaign")
-    w.add_argument("--family", default="wimax", choices=["wimax", "nr"])
-    w.add_argument("--n", type=int, default=576)
-    w.add_argument("--rate", default="1/2")
+    w.add_argument("--family", default="wimax",
+                   choices=["wimax", "nr", "dvbs2"])
+    w.add_argument("--n", type=int, default=576,
+                   help="code length (wimax; dvbs2: 16200 or 64800)")
+    w.add_argument("--rate", default="1/2", help="wimax or dvbs2 rate")
     w.add_argument("--z", type=int, default=384, help="NR lifting size")
     w.add_argument("--bg", type=int, default=1, choices=[1, 2],
                    help="NR base graph")
@@ -190,10 +207,12 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--seed", type=int, default=0)
     w.add_argument("--checkpoint", default=None)
     w.add_argument("--out", default=None, help=".csv or .json")
+    w.add_argument("--bch", action="store_true",
+                   help="DVB-S2 outer BCH acceptance (not ported yet: "
+                        "ROADMAP Queue 1 item 7)")
     w.add_argument("-v", "--verbose", action="store_true")
-    w.add_argument("--device",
-                   default="cuda" if torch.cuda.is_available() else "cpu",
-                   help="torch device (default: cuda when available)")
+    w.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="torch device (default: cuda; cpu for the CPU)")
     w.set_defaults(fn=cmd_waterfall)
     return p
 

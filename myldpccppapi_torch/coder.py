@@ -28,11 +28,12 @@ import torch
 
 from .codes.encoder import Encoder, encode_numpy
 from .codes.wimax import wimax
-from .decoder import Decoder, resolve_device
+from .decoder import Decoder
 from .ops import golden
 from .ops.channel import awgn, bpsk_modulate
 from .ops.packing import pack_bits_np, unpack_bits_np
 from .utils.config import DecoderConfig
+from .utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["Coder", "DECODE_TYPES"]
 
@@ -60,11 +61,12 @@ class Coder:
     ``Coder(k, n, rate)`` is the reference-compatible constructor (``rate``
     in "1/2", "2/3A", "2/3B", "3/4A", "3/4B", "5/6").  The byte stream is
     chunked into ``k // 8`` bytes per codeword.  Encoding, the channel
-    noise of :meth:`test` and the decoders run on ``device``.
+    noise of :meth:`test` and the decoders run on ``device``, the card
+    unless ``device="cpu"``.
     """
 
     def __init__(self, ldpc_k: int, ldpc_n: int, rate: str,
-                 max_iters: int = 40, *, device="cpu"):
+                 max_iters: int = 40, *, device=DEFAULT_DEVICE):
         code = wimax(ldpc_n, rate)
         if code.k != ldpc_k:
             raise ValueError(

@@ -1,6 +1,13 @@
 """Code construction: base matrices, QC lifting, GF(2) algebra, encoders."""
 from .qc import QCCode
 from .encoder import Encoder, EncoderMatrices, encode_numpy, ru_precompute
+from .dvbs2 import (
+    dvbs2,
+    dvbs2_ira_qc,
+    ira_encode_fn,
+    ira_encode_numpy,
+    std_interleave,
+)
 from .nr import (
     harq_combine,
     nr_base_graph,
@@ -15,16 +22,21 @@ from .wimax import wimax
 
 __all__ = [
     "QCCode",
+    "dvbs2",
+    "dvbs2_ira_qc",
     "Encoder",
     "EncoderMatrices",
     "encode_numpy",
     "harq_combine",
+    "ira_encode_fn",
+    "ira_encode_numpy",
     "nr_base_graph",
     "nr_code",
     "rate_match_bits",
     "rate_match_llr",
     "ru_precompute",
     "rv_start",
+    "std_interleave",
     "triangular_encode_fn",
     "triangular_encode_numpy",
     "wimax",

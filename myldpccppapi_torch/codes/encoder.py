@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .gf2 import gf2_inv, gf2_matmul
 from .qc import QCCode
 
@@ -94,10 +95,10 @@ def encode_numpy(mats: EncoderMatrices, info_bits: np.ndarray) -> np.ndarray:
 
 class Encoder:
     """Batched systematic encoder: [B, k] info bits -> [B, n] codeword bits
-    on ``device``."""
+    on ``device``, the card unless ``device="cpu"``."""
 
     def __init__(self, code: QCCode, mats: EncoderMatrices | None = None,
-                 *, device="cpu"):
+                 *, device=DEFAULT_DEVICE):
         self.code = code
         if mats is None:
             if getattr(code, "info_cols", None) is not None:
@@ -109,7 +110,7 @@ class Encoder:
             mats = ru_precompute(code)
         self.mats = mats
         self.k = self.mats.w.shape[1]
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # [k, n_parity] 0/1 in float32 (see the module docstring)
         self._wt = torch.as_tensor(
             self.mats.w.T.astype(np.float32), device=self.device

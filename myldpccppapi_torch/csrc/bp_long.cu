@@ -1,39 +1,84 @@
 // Layered normalized/offset min-sum decode of a batch of LONG QC-LDPC
-// codewords (5G NR, later DVB-S2), the whole iterative decode in one launch.
+// codewords (5G NR, DVB-S2), the whole iterative decode in one launch.
 //
-// Replaces the TPU kernel myldpccppapi_tpu/ops/pallas_zlane.py::_build_kernel
-// (launched by decode_qc_zlane) in its layered min-sum f32 mode with the
-// exact syndrome: scalar or per-layer alpha/beta, a syndrome check after
-// every sweep, a per-codeword latch of bits and iterations, early exit on
-// or off, single-circulant cells only (no extra_blocks, no masked rows).
+// Replaces two TPU kernels, as modes of one sweep:
+// * myldpccppapi_tpu/ops/pallas_zlane.py::_build_kernel (kernel C, launched
+//   by decode_qc_zlane) in its layered min-sum f32 mode: scalar or
+//   per-layer alpha/beta, multi-edge base cells (extra_blocks), row-masked
+//   partial circulants (masked_rows), the exact or the lazy syndrome, a
+//   per-codeword latch of bits and iterations, early exit on or off.  The
+//   posterior lives in shared memory ("shared placement").
+// * myldpccppapi_tpu/ops/pallas_stream.py::_build_stream_kernel (kernel D),
+//   the TPU's answer for codes whose posterior does not fit on chip: here
+//   the same sweep with the posterior in a global-memory scratch ("global
+//   placement"), for every code the shared placement cannot hold (DVB-S2
+//   64800 first).  D's TPU-only devices -- the 128-codeword lane tile, the
+//   double-buffered layer DMA with its `safe` RAW table, the dummy pad
+//   block, _neg_roll -- have no counterpart: within a block __syncthreads()
+//   orders the block's own global writes, and blocks share nothing.
 // The plain version of the same function is
-// myldpccppapi_torch/ops/bp.py::decode_layered.
+// myldpccppapi_torch/ops/cuda_long.py::decode_qc_long_plain.
 //
 // Work split: one thread block per codeword, one thread per check row r in
 // [0, z).  The TPU kernel's z-on-lanes layout, lane padding, relative
 // alignment plan and 8/16-codeword sublane tile exist to save lane rolls;
 // here a thread indexes variable j*z + (r + s) % z directly and the
-// posterior stays in canonical order.  Within one layer every (layer, block
-// column) pair has exactly one circulant, so the z rows of a layer touch
-// disjoint posterior entries and need no atomics; a __syncthreads()
-// separates layers.
+// posterior stays in canonical order.  A __syncthreads() separates layers.
 //
-// Memory: the posterior P [n] f32 lives in shared memory (104,448 B at NR
-// BG1 Z=384, so two blocks fit an SM).  The check-to-variable messages R do
-// not fit on chip (310 x 384 x 4 = 476,160 B per NR BG1 codeword) and live
-// in global memory as [batch][num_blocks][z], so the z threads of a layer
-// read and write them coalesced.  R is never initialised: the first sweep
-// uses r_old = 0 without reading it.  Each thread keeps its row's r_old of
-// the current layer in registers between the two passes over the row (row
-// degree <= kMaxDeg), so R is read once and written once per edge and
-// sweep, and the reads of a layer are all in flight together.
+// Plain layers (one circulant per (layer, column) cell) touch disjoint
+// posterior entries from the z rows, so each thread updates its entries in
+// place with no barrier: pass 1 reads P, pass 2 re-reads it and writes.  A
+// MULTI-EDGE layer (flagged by the host) has two circulants of one column:
+// thread r writes entry v through circulant 1 while thread r' still reads v
+// through circulant 2.  The reference order is P_new = (P_old + d1) + d2
+// with every q taken from the layer's P_old and the deltas added in block
+// order (ops/bp.py; pallas_zlane.py:299-309).  So such a layer computes all
+// its r_new from P_old first, keeps each delta in the register that held
+// r_old, waits at a barrier, and then adds the deltas edge by edge, with a
+// barrier after an edge whose column the next edge shares.
 //
-// What bounds it on Hopper: the R traffic.  Per codeword and sweep it reads
-// and writes 2 x 476,160 B ~ 0.95 MB at NR BG1 Z=384, about 0.49 GB per
-// sweep at batch 512 (~0.15 ms at 3.35 TB/s).  Later options: keep R
-// compressed per row (m1, m2, argmin index and sign bits rebuild r_old
-// bit-exactly, ~16 B per row and layer instead of 4 B per edge), or stage R
-// through shared memory or a cluster's distributed shared memory.
+// A MASKED row of a partial circulant (the DVB-S2 accumulator's wrap block
+// misses its row 0) enters its row's min as q = 1e30 with a positive sign,
+// writes no delta, and takes no part in either syndrome (ops/bp.py;
+// pallas_zlane.py:281-286, :304-305, :322-323).  Its live-row bits sit in a
+// small shared table, one word per 32 rows per masked block, reached from
+// the block's shift word (bits 16.. hold the mask slot, 0 = full).
+//
+// LAZY SYNDROME, per codeword: in pass 1 each row XORs `P <= 0` over its
+// unmasked edges, from the values that give q; an odd row marks the
+// codeword pre_bad for the sweep.  After the sweep a codeword that is not
+// done runs the exact syndrome only if pre_bad is clear, and latches only
+// on that exact syndrome; its iteration count is t+1 on every sweep until
+// then.  The TPU kernel instead runs the exact pass for its whole
+// 8-codeword tile once any live codeword of the tile passes the pre-check
+// (pallas_zlane.py:335-347, pallas_stream.py:343-352), so its iteration
+// counts depend on the tiling; both meet the reference's lazy contract
+// (converged => zero syndrome, lazy iterations >= exact iterations).
+//
+// Memory: the check-to-variable messages R live in global memory as
+// [batch][num_blocks][z] (the z threads of a layer read and write them
+// coalesced).  R is never initialised: the first sweep uses r_old = 0
+// without reading it.  Each thread keeps its row's r_old of the current
+// layer in registers between the two passes (row degree <= kPlainDeg, or
+// <= kWideDeg in an instantiation with one block per SM), so R is
+// read once and written once per edge and sweep.  The posterior P [n] f32
+// lives in shared memory when it fits with the tables (104,448 B at NR BG1
+// Z=384, 64,800 B at DVB-S2 16200), else in a [batch, n] global scratch
+// that the wrapper allocates (259,200 B per DVB-S2 64800 codeword, past a
+// block's 232,448 B).
+//
+// What bounds it on Hopper: the global-memory traffic per sweep.  At NR
+// BG1 Z=384 the R traffic, 2 x 310 x 384 x 4 B = 0.95 MB per codeword, is
+// all of it.  At DVB-S2 64800 r1/2 (630 blocks, 17 of them extra, 90
+// layers, mean row degree 7, widest row 14), per codeword and sweep: R
+// read and written, 2 x 630 x 360 x 4 B = 1.81 MB; in the global
+// placement P read and written at least once per edge, another 1.81 MB
+// (pass 2's re-read should mostly hit L1, little shared memory being in
+// use); the exact syndrome, 0.91 MB of P reads, which the lazy mode skips
+// on most sweeps.  At batch 1024 that is 3.7-4.6 GB per all-frame sweep,
+// 1.1-1.4 ms at 3.35 TB/s.  Later options: compressed R per row (m1, m2,
+// argmin index, sign bits), or P split over a 2-block cluster's
+// distributed shared memory in place of the global scratch.
 //
 // Arithmetic order follows the TPU kernel's check update
 // (pallas_bp.py::_check_update_rows): a running m1/m2 min, alpha/beta
@@ -51,37 +96,62 @@
 namespace {
 
 constexpr float kInf = 1e30f;
-// The largest row degree (circulants per base row) the kernel serves: a
-// row's r_old values stay in registers between the two passes.
-constexpr int kMaxDeg = 32;
-// Threads per block (= z) the kernel is built for, two such blocks per SM.
+// Row degrees (circulants per base row) of the instantiations: a row's
+// r_old values stay in registers between the two passes.  At two blocks
+// per SM (85 registers a thread) the plain sweep holds 32 of them and the
+// general sweep, whose masks, flags and parity cost registers, 24; wider
+// rows take an instantiation at one block per SM.
+constexpr int kPlainDeg = 32;
+constexpr int kGeneralDeg = 24;
+constexpr int kWideDeg = 64;
+// Threads per block (= z) the kernel is built for.
 constexpr int kMaxThreads = 384;
+// Posterior placements, as the fit query reports them.
+constexpr int kPlaceNone = 0;
+constexpr int kPlaceGlobal = 1;
+constexpr int kPlaceShared = 2;
+// layer_flags bits
+constexpr int kMultiEdge = 1;
+constexpr int kHasMask = 2;
 
-// Shared-memory bytes of one block: P [n], alpha/beta [m_b] each, block
-// column/shift [num_blocks] each, layer pointers [m_b + 1].
-inline size_t smem_bytes(int n, int m_b, int num_blocks) {
-  return 4 * ((size_t)n + 2 * (size_t)m_b + 2 * (size_t)num_blocks + (size_t)m_b + 1);
+__host__ __device__ inline int mask_words(int z) { return (z + 31) / 32; }
+
+// Shared-memory bytes of one block: P [n] in the shared placement, then
+// alpha/beta [m_b] each, block column/shift [num_blocks] each, layer
+// pointers [m_b + 1], layer flags [m_b], live-row bits of the masked blocks.
+inline size_t smem_bytes(int n, int z, int m_b, int num_blocks, int n_masks,
+                         bool global_p) {
+  return 4 * ((global_p ? 0 : (size_t)n) + 2 * (size_t)m_b +
+              2 * (size_t)num_blocks + (size_t)m_b + 1 + (size_t)m_b +
+              (size_t)n_masks * mask_words(z));
 }
 
-__global__ void __launch_bounds__(kMaxThreads, 2) bp_long_kernel(
+// kGeneral = false is the plain sweep that 5G NR takes: no masks, no
+// multi-edge layers, the exact syndrome only.
+template <bool kGlobalP, int kMaxDeg, int kMinBlocks, bool kGeneral>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_long_kernel(
     const float* __restrict__ llr, uint8_t* __restrict__ bits,
     uint8_t* __restrict__ converged, int32_t* __restrict__ iterations,
-    int32_t* __restrict__ executed, float* __restrict__ R_all,
+    int32_t* __restrict__ executed, float* __restrict__ R_all, float* P_all,
     const int32_t* __restrict__ blk_col, const int32_t* __restrict__ blk_shift,
-    const int32_t* __restrict__ layer_ptr, const float* __restrict__ alpha,
+    const int32_t* __restrict__ layer_ptr, const int32_t* __restrict__ layer_flags,
+    const uint32_t* __restrict__ live_rows, const float* __restrict__ alpha,
     const float* __restrict__ beta, int n_b, int z, int m_b, int num_blocks,
-    int max_iters, int early_exit) {
+    int n_masks, int max_iters, int early_exit, int lazy) {
   extern __shared__ float smem[];
   const int r = threadIdx.x;  // check row within a circulant
   const int n = n_b * z;
   const int64_t b = blockIdx.x;  // codeword
+  const int words = mask_words(z);
 
-  float* P = smem;                                    // [n]
-  float* s_alpha = P + n;                             // [m_b]
+  float* P = kGlobalP ? P_all + b * n : smem;         // [n]
+  float* s_alpha = kGlobalP ? smem : smem + n;        // [m_b]
   float* s_beta = s_alpha + m_b;                      // [m_b]
   int* s_col = reinterpret_cast<int*>(s_beta + m_b);  // [num_blocks]
   int* s_shift = s_col + num_blocks;                  // [num_blocks]
   int* s_ptr = s_shift + num_blocks;                  // [m_b + 1]
+  int* s_flags = s_ptr + m_b + 1;                     // [m_b]
+  uint32_t* s_live = reinterpret_cast<uint32_t*>(s_flags + m_b);
   float* R = R_all + b * (int64_t)num_blocks * z;     // [num_blocks][z]
 
   for (int i = r; i < num_blocks; i += z) {
@@ -91,80 +161,135 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bp_long_kernel(
   for (int i = r; i < m_b; i += z) {
     s_alpha[i] = alpha[i];
     s_beta[i] = beta[i];
+    s_flags[i] = layer_flags[i];
   }
   for (int i = r; i <= m_b; i += z) s_ptr[i] = layer_ptr[i];
+  for (int i = r; i < n_masks * words; i += z) s_live[i] = live_rows[i];
   for (int v = r; v < n; v += z) P[v] = llr[b * n + v];
   __syncthreads();
 
   // P index of this thread's edge in block e: variable j*z + (r + s) % z
   auto p_index = [&](int e) -> int {
-    int rs = r + s_shift[e];
+    int rs = r + (kGeneral ? (s_shift[e] & 0xFFFF) : s_shift[e]);
     if (rs >= z) rs -= z;
     return s_col[e] * z + rs;
+  };
+  // whether this thread's row is an edge of block e (false only for the
+  // excluded rows of a masked block)
+  auto live = [&](int e) -> bool {
+    if (!kGeneral) return true;
+    const int slot = s_shift[e] >> 16;
+    return slot == 0 || ((s_live[(slot - 1) * words + (r >> 5)] >> (r & 31)) & 1u);
   };
 
   bool done = false;  // the same value in every thread of the block
   int it = 0;
   int t = 0;
   while (t < max_iters && !(early_exit && done)) {
+    bool pre_bad = false;  // lazy mode: some row of this thread failed
     for (int i = 0; i < m_b; ++i) {
       const int p0 = s_ptr[i];
       const int deg = s_ptr[i + 1] - p0;
+      const int flags = kGeneral ? s_flags[i] : 0;
+      const bool masked = flags & kHasMask;
       float* Ri = R + (size_t)p0 * z + r;  // this row's message of edge p0
       float r_old[kMaxDeg];
 #pragma unroll
       for (int k = 0; k < kMaxDeg; ++k) {
         if (k >= deg) break;
-        r_old[k] = t == 0 ? 0.0f : Ri[(size_t)k * z];
+        r_old[k] = t == 0 || (masked && !live(p0 + k)) ? 0.0f : Ri[(size_t)k * z];
       }
       float m1 = kInf;
       float m2 = kInf;
       bool neg_total = false;
+      bool par = false;
 #pragma unroll
       for (int k = 0; k < kMaxDeg; ++k) {
         if (k >= deg) break;
-        const float q = P[p_index(p0 + k)] - r_old[k];
+        float q = kInf;  // a masked row: the min-sum identity, positive
+        if (!masked || live(p0 + k)) {
+          const float p = P[p_index(p0 + k)];
+          q = p - r_old[k];
+          if (kGeneral) par ^= (p <= 0.0f);
+        }
         const float a = fabsf(q);
         m2 = fminf(m2, fmaxf(m1, a));
         m1 = fminf(m1, a);
         neg_total ^= (q < 0.0f);
       }
+      if (kGeneral) pre_bad |= par;
       const float al = s_alpha[i];
       const float be = s_beta[i];
       const float m1s = al * fmaxf(m1 - be, 0.0f);
       const float m2s = al * fmaxf(m2 - be, 0.0f);
-      // second pass: q is recomputed from the same, still unchanged, P
-      // entries (no other thread touches them within this layer)
+      if (!(flags & kMultiEdge)) {
+        // second pass: q is recomputed from the same, still unchanged, P
+        // entries (no other thread touches them within this layer)
 #pragma unroll
-      for (int k = 0; k < kMaxDeg; ++k) {
-        if (k >= deg) break;
-        const int pi = p_index(p0 + k);
-        const float q = P[pi] - r_old[k];
-        const float mag = fabsf(q) == m1 ? m2s : m1s;
-        const float r_new = (neg_total ^ (q < 0.0f)) ? -mag : mag;
-        P[pi] = P[pi] + (r_new - r_old[k]);
-        Ri[(size_t)k * z] = r_new;
+        for (int k = 0; k < kMaxDeg; ++k) {
+          if (k >= deg) break;
+          if (masked && !live(p0 + k)) continue;
+          const int pi = p_index(p0 + k);
+          const float q = P[pi] - r_old[k];
+          const float mag = fabsf(q) == m1 ? m2s : m1s;
+          const float r_new = (neg_total ^ (q < 0.0f)) ? -mag : mag;
+          P[pi] = P[pi] + (r_new - r_old[k]);
+          Ri[(size_t)k * z] = r_new;
+        }
+      } else {
+        // multi-edge layer: every r_new from P_old, each delta kept in
+        // r_old's register ...
+#pragma unroll
+        for (int k = 0; k < kMaxDeg; ++k) {
+          if (k >= deg) break;
+          if (masked && !live(p0 + k)) {
+            r_old[k] = 0.0f;  // no delta
+            continue;
+          }
+          const float q = P[p_index(p0 + k)] - r_old[k];
+          const float mag = fabsf(q) == m1 ? m2s : m1s;
+          const float r_new = (neg_total ^ (q < 0.0f)) ? -mag : mag;
+          Ri[(size_t)k * z] = r_new;
+          r_old[k] = r_new - r_old[k];
+        }
+        __syncthreads();  // every read of P_old before any write
+        // ... then added in block order, a column's circulants one after
+        // the other (they are adjacent in block order)
+#pragma unroll
+        for (int k = 0; k < kMaxDeg; ++k) {
+          if (k >= deg) break;
+          if (!masked || live(p0 + k)) {
+            const int pi = p_index(p0 + k);
+            P[pi] = P[pi] + r_old[k];
+          }
+          if (k + 1 < deg && s_col[p0 + k + 1] == s_col[p0 + k]) __syncthreads();
+        }
       }
       __syncthreads();
     }
-    // exact syndrome of the hard decisions (P <= 0) over this thread's row
-    // in every layer, reduced over the block
-    bool fail = false;
-    for (int i = 0; i < m_b; ++i) {
-      bool par = false;
-      for (int e = s_ptr[i]; e < s_ptr[i + 1]; ++e) par ^= (P[p_index(e)] <= 0.0f);
-      fail |= par;
-    }
-    const bool any_fail = __syncthreads_or(fail);
-    if (!done) {
+    if (!done) {  // (uniform branch)
       it = t + 1;
-      if (!any_fail) {
-        // latch: write the codeword's bits as of its converging sweep
-        done = true;
-        for (int j = 0; j < n_b; ++j) bits[b * n + j * z + r] = P[j * z + r] <= 0.0f;
-        // (uniform branch) no thread may update P in the next sweep before
-        // every thread has read its bits
-        __syncthreads();
+      // lazy mode: the exact syndrome only where no row failed on the fly
+      const bool check = !(kGeneral && lazy) || !__syncthreads_or(pre_bad);
+      if (check) {
+        // exact syndrome of the hard decisions (P <= 0) over this thread's
+        // row in every layer, reduced over the block
+        bool fail = false;
+        for (int i = 0; i < m_b; ++i) {
+          bool par = false;
+          for (int e = s_ptr[i]; e < s_ptr[i + 1]; ++e) {
+            if (live(e)) par ^= (P[p_index(e)] <= 0.0f);
+          }
+          fail |= par;
+        }
+        if (!__syncthreads_or(fail)) {
+          // latch: write the codeword's bits as of its converging sweep
+          done = true;
+          for (int j = 0; j < n_b; ++j) bits[b * n + j * z + r] = P[j * z + r] <= 0.0f;
+          // (uniform branch) no thread may update P in the next sweep
+          // before every thread has read its bits
+          __syncthreads();
+        }
       }
     }
     ++t;
@@ -182,57 +307,115 @@ __global__ void __launch_bounds__(kMaxThreads, 2) bp_long_kernel(
   }
 }
 
+using KernelFn = void (*)(const float*, uint8_t*, uint8_t*, int32_t*, int32_t*,
+                          float*, float*, const int32_t*, const int32_t*,
+                          const int32_t*, const int32_t*, const uint32_t*,
+                          const float*, const float*, int, int, int, int, int,
+                          int, int, int);
+
+// The instantiation that serves a code: its placement, whether it needs
+// the general sweep (masks, multi-edge layers, the lazy syndrome), and its
+// widest row (two blocks per SM up to kPlainDeg or kGeneralDeg, else
+// kWideDeg at one).
+KernelFn pick(int placement, int max_row_degree, bool general) {
+  const bool narrow = max_row_degree <= (general ? kGeneralDeg : kPlainDeg);
+  if (placement == kPlaceShared) {
+    if (!narrow) return bp_long_kernel<false, kWideDeg, 1, true>;
+    return general ? bp_long_kernel<false, kGeneralDeg, 2, true>
+                   : bp_long_kernel<false, kPlainDeg, 2, false>;
+  }
+  if (!narrow) return bp_long_kernel<true, kWideDeg, 1, true>;
+  return general ? bp_long_kernel<true, kGeneralDeg, 2, true>
+                 : bp_long_kernel<true, kPlainDeg, 2, false>;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Decode llr [batch, n] (float32, positive => bit 0) into bits [batch, n]
 // (uint8), converged [batch] (uint8 0/1), iterations [batch] (int32) and
-// executed [batch] (int32 sweeps run by each codeword's block).  r_scratch
-// is [batch, num_blocks, z] float32 of any content.  Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
+// executed [batch] (int32 sweeps run by each codeword's block).
+// r_scratch is [batch, num_blocks, z] float32 of any content; p_scratch is
+// [batch, n] float32 of any content in the global placement (placement 1)
+// and unused (may be null) in the shared one (placement 2).  blk_shift
+// holds each block's shift in bits 0..15 and its mask slot (0 = full, else
+// 1 + its index into live_rows) in bits 16..; live_rows is [n_masks,
+// (z + 31) / 32] uint32, bit r set where row r is an edge; layer_flags
+// [m_b] has bit 0 for a multi-edge layer and bit 1 for a layer with a
+// masked block.  multi_edge says whether any layer is multi-edge.
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a placement or row degree it does not serve.
 int ldpc_bp_long(const float* llr, uint8_t* bits, uint8_t* converged,
                  int32_t* iterations, int32_t* executed, float* r_scratch,
-                 const int32_t* blk_col, const int32_t* blk_shift,
-                 const int32_t* layer_ptr, const float* alpha, const float* beta,
-                 int batch, int n_b, int z, int m_b, int num_blocks, int max_iters,
-                 int early_exit, void* stream) {
-  const size_t smem = smem_bytes(n_b * z, m_b, num_blocks);
+                 float* p_scratch, const int32_t* blk_col, const int32_t* blk_shift,
+                 const int32_t* layer_ptr, const int32_t* layer_flags,
+                 const uint32_t* live_rows, const float* alpha, const float* beta,
+                 int batch, int n_b, int z, int m_b, int num_blocks, int n_masks,
+                 int multi_edge, int max_row_degree, int max_iters, int early_exit,
+                 int lazy, int placement, void* stream) {
+  if ((placement != kPlaceShared && placement != kPlaceGlobal) ||
+      max_row_degree > kWideDeg || z < 1 || z > kMaxThreads ||
+      (placement == kPlaceGlobal && p_scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool general = n_masks > 0 || multi_edge || lazy;
+  const KernelFn kernel = pick(placement, max_row_degree, general);
+  const size_t smem = smem_bytes(n_b * z, z, m_b, num_blocks, n_masks,
+                                 placement == kPlaceGlobal);
   cudaError_t err = cudaFuncSetAttribute(
-      bp_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bp_long_kernel<<<batch, z, smem, static_cast<cudaStream_t>(stream)>>>(
-      llr, bits, converged, iterations, executed, r_scratch, blk_col, blk_shift,
-      layer_ptr, alpha, beta, n_b, z, m_b, num_blocks, max_iters, early_exit);
+  kernel<<<batch, z, smem, static_cast<cudaStream_t>(stream)>>>(
+      llr, bits, converged, iterations, executed, r_scratch, p_scratch, blk_col,
+      blk_shift, layer_ptr, layer_flags, live_rows, alpha, beta, n_b, z, m_b,
+      num_blocks, n_masks, max_iters, early_exit, lazy);
   return (int)cudaGetLastError();
 }
 
-// Thread blocks of this kernel that one SM holds at once for a code (its
-// occupancy at z threads and the code's shared memory), on the current
-// device; minus the CUDA error code on failure.
-int ldpc_bp_long_blocks_per_sm(int n, int z, int m_b, int num_blocks) {
-  const size_t smem = smem_bytes(n, m_b, num_blocks);
+// Thread blocks that one SM holds at once for a code in a placement (the
+// occupancy of the instantiation that serves it, at z threads and its
+// shared memory), on the current device; minus the CUDA error code on
+// failure.
+int ldpc_bp_long_blocks_per_sm(int n, int z, int m_b, int num_blocks, int n_masks,
+                               int multi_edge, int max_row_degree, int lazy,
+                               int placement) {
+  if ((placement != kPlaceShared && placement != kPlaceGlobal) ||
+      max_row_degree > kWideDeg) {
+    return -(int)cudaErrorInvalidValue;
+  }
+  const KernelFn kernel = pick(placement, max_row_degree,
+                               n_masks > 0 || multi_edge || lazy);
+  const size_t smem = smem_bytes(n, z, m_b, num_blocks, n_masks,
+                                 placement == kPlaceGlobal);
   cudaError_t err = cudaFuncSetAttribute(
-      bp_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int blocks = 0;
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bp_long_kernel, z, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, z, smem);
   }
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// 1 if the kernel serves a code on `device`: z threads per block within the
-// kernel's thread bound, the widest row within kMaxDeg circulants, and the
-// posterior plus tables within the block's opt-in shared memory; else 0.
+// The posterior placement that serves a code on `device`: 2 (shared) when
+// P and the tables fit the block's opt-in shared memory, 1 (global) when
+// only the tables do, 0 when the kernel cannot serve it (z threads past
+// the kernel's thread bound, or a row wider than kWideDeg circulants).
 // Returns minus the CUDA error code if the device cannot be queried.
-int ldpc_bp_long_fits(int n, int z, int m_b, int num_blocks, int max_row_degree,
-                      int device) {
+int ldpc_bp_long_fits(int n, int z, int m_b, int num_blocks, int n_masks,
+                      int max_row_degree, int device) {
   int smem_limit = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return -(int)err;
-  return z >= 1 && z <= kMaxThreads && max_row_degree <= kMaxDeg &&
-         smem_bytes(n, m_b, num_blocks) <= (size_t)smem_limit;
+  if (z < 1 || z > kMaxThreads || max_row_degree > kWideDeg) return kPlaceNone;
+  if (smem_bytes(n, z, m_b, num_blocks, n_masks, false) <= (size_t)smem_limit) {
+    return kPlaceShared;
+  }
+  if (smem_bytes(n, z, m_b, num_blocks, n_masks, true) <= (size_t)smem_limit) {
+    return kPlaceGlobal;
+  }
+  return kPlaceNone;
 }
 
 }  // extern "C"

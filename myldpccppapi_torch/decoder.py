@@ -4,14 +4,21 @@ Counterpart of ``myldpccppapi_tpu/decoder.py``: construction resolves the
 implementation and wires the decode callable once; calls then decode
 arbitrary batches on the decoder's device.
 
+The device defaults to the card (``"cuda"``); without CUDA that raises,
+and ``device="cpu"`` is the only way onto the CPU.
+
 Dispatch, in the reference's order (``myldpccppapi_tpu/decoder.py``): on a
 CUDA device ``"auto"`` resolves to the short-code kernel (``"cuda"``,
 ops/cuda_bp.py) when it serves the code, else to the long-code kernel
 (``"cuda_long"``, ops/cuda_long.py), else it raises; it never goes to the
-torch path quietly.  An explicit ``"cuda"`` or ``"cuda_long"`` that does not
-serve the code raises at construction.  On the CPU, ``"auto"`` resolves to
-``"torch"``.  An explicit ``"torch"`` runs the plain tensor path on any
-device.
+torch path quietly.  The long-code kernel serves 5G NR and DVB-S2 (multi-edge
+cells, masked rows, the exact or the lazy syndrome), with the posterior in
+shared memory where it fits (NR, DVB-S2 16200) and in global memory
+otherwise (DVB-S2 64800).  An explicit ``"cuda"`` or ``"cuda_long"`` that
+does not serve the code raises at construction.  On the CPU, ``"auto"``
+resolves to ``"torch"``.  An explicit ``"torch"`` runs the plain tensor path
+on any device; like the reference's jnp path it checks the exact syndrome
+whatever ``syndrome_mode`` says.
 """
 from __future__ import annotations
 
@@ -25,18 +32,9 @@ from .ops import cuda_bp, cuda_long
 from .ops.bp import DecodeResult, decode_layered
 from .ops.triage import decode_two_phase
 from .utils.config import DecoderConfig
+from .utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["Decoder", "DecodeResult", "resolve_device"]
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises for a CUDA device on a machine
-    without CUDA."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not "
-                           "available")
-    return device
 
 
 #: the kernels by implementation name, in auto-dispatch order
@@ -73,13 +71,13 @@ class Decoder:
     """Batched LDPC decoder bound to one QC code, one configuration and one
     device.
 
-    >>> dec = Decoder(wimax(576, "3/4B"), DecoderConfig(), device="cuda")
+    >>> dec = Decoder(wimax(576, "3/4B"), DecoderConfig())  # on the card
     >>> result = dec(llr)          # llr: [B, n] float, positive => bit 0
     >>> info = dec.info_bits(result)
     """
 
     def __init__(self, code, config: DecoderConfig | None = None, *,
-                 device="cpu", **overrides):
+                 device=DEFAULT_DEVICE, **overrides):
         if config is None:
             config = DecoderConfig()
         if overrides:

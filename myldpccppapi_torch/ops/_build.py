@@ -43,12 +43,14 @@ _SIGNATURES = {
     "ldpc_bp_layered": ([_P] * 10 + [_I] * 8 + [_P], _I),
     # (n, z, m_b, num_blocks, device) -> codewords per thread block
     "ldpc_bp_layered_tile": ([_I] * 5, _I),
-    # eleven tensors, seven ints, the stream
-    "ldpc_bp_long": ([_P] * 11 + [_I] * 7 + [_P], _I),
-    # (n, z, m_b, num_blocks, max_row_degree, device) -> 1 fits / 0 not
-    "ldpc_bp_long_fits": ([_I] * 6, _I),
-    # (n, z, m_b, num_blocks) -> resident blocks per SM
-    "ldpc_bp_long_blocks_per_sm": ([_I] * 4, _I),
+    # fourteen tensors (the P scratch may be null), twelve ints, the stream
+    "ldpc_bp_long": ([_P] * 14 + [_I] * 12 + [_P], _I),
+    # (n, z, m_b, num_blocks, n_masks, max_row_degree, device)
+    #   -> 2 posterior in shared memory / 1 in global memory / 0 not served
+    "ldpc_bp_long_fits": ([_I] * 7, _I),
+    # (n, z, m_b, num_blocks, n_masks, multi_edge, max_row_degree, lazy,
+    #  placement) -> resident blocks per SM
+    "ldpc_bp_long_blocks_per_sm": ([_I] * 9, _I),
 }
 
 

@@ -1,11 +1,12 @@
 """Layered belief-propagation decoder for QC-LDPC codes, plain torch path.
 
 Counterpart of the layered part of ``myldpccppapi_tpu/ops/bp.py`` and the
-**plain version** of the CUDA kernel in ``csrc/bp_layered.cu``: the same
-function written as ordinary tensor ops, run on any device.  The f32
-operation order is the reference jnp path's, so the results are bit-exact
-with it (tests/test_torch_decode.py) and with the kernel
-(``chip_smoke.py``):
+**plain version** of the CUDA kernels in ``csrc/bp_layered.cu`` and
+``csrc/bp_long.cu`` (whose lazy-syndrome mode it serves through the private
+``_decode_layered(..., lazy=True)``): the same function written as
+ordinary tensor ops, run on any device.  The f32 operation order is the
+reference jnp path's, so the results are bit-exact with it
+(tests/test_torch_decode.py) and with the kernels (``chip_smoke.py``):
 
 * the check update copies the jnp form: argmin, m2 over the rest, the clamp
   of ``mag`` to 1e30, then beta, then alpha;
@@ -142,7 +143,21 @@ def _syndrome_fail(bits_blocks: torch.Tensor, layers, masks_t) -> torch.Tensor:
 def decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> DecodeResult:
     """Layered/TDMP min-sum: the posterior is refreshed after each base row
     (the reference C++ library's DecodeTDMP, ``decodeCL.c:203-300``).
-    ``llr``: [B, n] float32, positive => bit 0."""
+    ``llr``: [B, n] float32, positive => bit 0.  Like the reference's jnp
+    path it checks the exact syndrome after every sweep whatever
+    ``cfg.syndrome_mode`` says."""
+    return _decode_layered(code, cfg, llr, lazy=False)
+
+
+def _decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
+                    lazy: bool) -> DecodeResult:
+    """The layered loop of :func:`decode_layered`.  With ``lazy`` a frame
+    latches on a sweep only if its on-the-fly parity check passed on that
+    sweep too: the parity, per check row and layer, of ``P <= 0`` over the
+    row's unmasked edges, read from the same row-aligned posterior tiles
+    that give q (so before the layer's write-back).  That is the long-code
+    kernel's lazy syndrome (ops/cuda_long.py, its only caller with
+    ``lazy``)."""
     n_b, z = code.n_b, code.z
     bsz = llr.shape[0]
     dev = llr.device
@@ -162,13 +177,22 @@ def decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Decod
     iters = torch.zeros((bsz,), dtype=torch.int32, device=dev)
     t = 0
     while t < cfg.max_iters and not (cfg.early_exit and bool(done.all())):
+        if lazy:
+            pre_bad = torch.zeros((bsz,), dtype=torch.bool, device=dev)
         for li, (p0, entries) in enumerate(layers):
             qs = []
+            par = None
             for (e, j, s, _) in entries:
-                q = _row_align(post[j], s) - r[e]
+                x = _row_align(post[j], s)
+                q = x - r[e]
                 if e in masks_t:
                     q = torch.where(masks_t[e], q, _Q_INF)
                 qs.append(q)
+                if lazy:
+                    bit = (x <= 0).to(torch.int32)
+                    if e in masks_t:
+                        bit = torch.where(masks_t[e], bit, 0)
+                    par = bit if par is None else par + bit
             r_new = _check_update_minsum(torch.stack(qs), alphas[li], betas[li])
             # delta-accumulate writeback, in row-major block order
             for idx, (e, j, s, _) in enumerate(entries):
@@ -177,11 +201,15 @@ def decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Decod
                     delta = torch.where(masks_t[e], delta, 0.0)
                 post[j] += _col_align(delta, s)
             r[p0:p0 + len(entries)] = r_new
+            if lazy:
+                pre_bad |= ((par & 1) == 1).any(dim=0)
         bits = post <= 0
-        fail = _syndrome_fail(bits, layers, masks_t)
+        latch = ~done & ~_syndrome_fail(bits, layers, masks_t)
+        if lazy:
+            latch &= ~pre_bad
         bits_out = torch.where(done.view(1, 1, -1), bits_out, bits)
         iters = torch.where(done, iters, t + 1)
-        done = done | ~fail
+        done = done | latch
         t += 1
     return DecodeResult(
         bits=_from_blocks(bits_out).to(torch.uint8),
@@ -189,4 +217,3 @@ def decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Decod
         iterations=iters,
         total_iters=torch.tensor(t, dtype=torch.int32, device=dev),
     )
-

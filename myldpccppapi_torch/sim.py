@@ -3,7 +3,8 @@
 Counterpart of ``myldpccppapi_tpu/parallel/sim.py`` for one device: a step
 simulates one batch — random info bits, encode (the code's matmul encoder,
 or a family-specific ``encode_fn`` such as NR's triangular
-back-substitution), BPSK/AWGN, decode, and exact integer error counts
+back-substitution or DVB-S2's accumulator encode, ``ira_encode_fn``),
+BPSK/AWGN, decode, and exact integer error counts
 against the known truth.  Randomness comes from a ``torch.Generator`` on the
 simulation's device, so a step is reproducible from its seed (but draws
 other numbers than the reference's threefry keys).
@@ -20,6 +21,7 @@ import torch
 
 from .ops.channel import channel_llr, sigma_from_snr_db
 from .utils.config import DecoderConfig
+from .utils.device import DEFAULT_DEVICE
 
 __all__ = ["SimStats", "matmul_encode_fn", "make_decode_fn", "sim_step"]
 
@@ -46,18 +48,18 @@ class SimStats(NamedTuple):
     crc_rejected: torch.Tensor = 0
 
 
-def matmul_encode_fn(code, *, device="cpu") -> Callable:
+def matmul_encode_fn(code, *, device=DEFAULT_DEVICE) -> Callable:
     """[B, k] info bits -> [B, n] codeword bits with the code's Encoder
-    (float32 matmul mod 2 on ``device``)."""
+    (float32 matmul mod 2 on ``device``, the card unless ``"cpu"``)."""
     from .codes.encoder import Encoder
 
     return Encoder(code, device=device)
 
 
-def make_decode_fn(code, cfg: DecoderConfig, *, device="cpu"):
+def make_decode_fn(code, cfg: DecoderConfig, *, device=DEFAULT_DEVICE):
     """The implementation-dispatched decode callable: the Decoder facade,
     so simulations take the same dispatch as everything else (the CUDA
-    kernels on a card, the torch path on the CPU)."""
+    kernels on the card, the torch path with ``device="cpu"``)."""
     from .decoder import Decoder
 
     return Decoder(code, cfg, device=device)

@@ -23,19 +23,23 @@ min and max):
 - a tile sweep: single pass and triage decode for several codewords per
   thread block, each held bit-exact against the largest tile.
 
-With ``--long`` it probes the long-code kernel (csrc/bp_long.cu) at the
-NR path's operating point (NR BG1 Z=384, rv0 over the full buffer, layered
-NMS alpha 0.8, 30 iterations, 5 dB; noise from a torch.Generator on the
-card), with CUDA events as above:
+With ``--long`` it probes the long-code kernel (csrc/bp_long.cu) at two
+operating points, with CUDA events as above: the NR path's (NR BG1 Z=384,
+rv0 over the full buffer, layered NMS alpha 0.8, 30 iterations, batch 512,
+5 dB; posterior in shared memory) and BASELINE config 3's (DVB-S2 64800
+r1/2, alpha 0.85, 30 iterations, lazy syndrome, batch 1024, 1.4 dB;
+posterior in global memory, the port of kernel D); noise from a
+torch.Generator on the card.  For each:
 
-- one thread block alone and one full wave of blocks (the blocks every SM
-  holds at once, from the kernel library's occupancy query), early exit
-  off, at 30 sweeps and at 1 sweep: (t30 - t1) / 29 is the time of one
-  sweep of each;
-- batch 512 with early exit off, per sweep, beside the bytes of the
-  messages R read and written per sweep and the rate that makes;
-- batch 512 at 5 dB with early exit on, its iteration counts, and the
-  ``Decoder`` call with its device busy share from one profiler window.
+- one thread block alone, one full wave of blocks (the blocks every SM
+  holds at once, from the kernel library's occupancy query) and the full
+  batch, early exit off, at 30 sweeps and at 1 sweep: (t30 - t1) / 29 is
+  the time of one sweep of each, beside the bytes of the messages R (and,
+  in global memory, of the posterior P: one read and one write per edge)
+  moved per sweep and the rate that makes;
+- the batch with early exit on, its iteration counts, and the ``Decoder``
+  call with its device busy share from one profiler window; for DVB-S2
+  also the kernel in exact mode.
 
 It prints one line per measurement and, with ``--out``, writes them as JSON.
 """
@@ -51,12 +55,13 @@ import time
 import torch
 import torch.profiler
 
-from .. import Decoder, DecoderConfig, Encoder, nr_code, wimax
+from .. import Decoder, DecoderConfig, Encoder, dvbs2, nr_code, wimax
+from ..codes.dvbs2 import ira_encode_fn
 from ..codes.nr import rate_match_bits, rate_match_llr, triangular_encode_fn
 from ..ops import _build
 from ..ops.channel import transmit
 from ..ops.cuda_bp import _launch, decode_qc_cuda, tile_size
-from ..ops.cuda_long import decode_qc_long
+from ..ops.cuda_long import GLOBAL, blocks_per_sm, decode_qc_long, placement
 from ..ops.triage import decode_two_phase
 
 BATCH = 8192
@@ -70,7 +75,9 @@ FIELDS = ("bits", "converged", "iterations", "total_iters")
 #: the NR path's operating point (benchmarks/run_baseline.py config 4)
 LONG_BATCH = 512
 LONG_CFG = DecoderConfig(normalization=0.8, max_iters=30)
-LONG_NO_EXIT = dataclasses.replace(LONG_CFG, early_exit=False)
+#: BASELINE config 3 (benchmarks/run_baseline.py config3)
+DVB_BATCH = 1024
+DVB_CFG = DecoderConfig(normalization=0.85, max_iters=30, syndrome_mode="lazy")
 
 
 def timed(fn, reps: int = 9) -> dict:
@@ -142,43 +149,74 @@ def nr_channel(code, batch: int, snr_db: float, seed: int) -> torch.Tensor:
     return rate_match_llr(code, llr_e, e).contiguous()
 
 
-def probe_long(seed: int) -> dict:
-    code = nr_code(384, 1)
+def dvbs2_channel(code, batch: int, snr_db: float, seed: int) -> torch.Tensor:
+    """BPSK/AWGN LLRs of random DVB-S2 codewords, encoded on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randint(0, 2, (batch, code.k), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    llr, _ = transmit(gen, ira_encode_fn(code)(u), snr_db)
+    return llr.contiguous()
+
+
+def iteration_stats(res) -> dict:
+    return {"mean": res.iterations.float().mean().item(),
+            "max": int(res.iterations.max()), "total_iters": int(res.total_iters),
+            "unconverged": int((~res.converged).sum())}
+
+
+def probe_long_code(code, cfg, batch: int, llr_all) -> dict:
+    """Per-sweep times of one block, one full wave and the batch (early
+    exit off), the bytes they move, and the batch decoded with early exit
+    (kernel and ``Decoder``), for ``code`` under ``cfg``, from the rows of
+    ``llr_all`` (repeated where a wave needs more)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    per_sm = _build.load().ldpc_bp_long_blocks_per_sm(
-        code.n, code.z, code.m_b, code.num_blocks)
-    if per_sm < 1:
-        raise RuntimeError(f"bp_long occupancy query returned {per_sm}")
-    out: dict = {"code": code.name, "sms": sms, "blocks_per_sm": per_sm,
-                 "batch": LONG_BATCH}
+    place = placement(code, torch.cuda.current_device())
+    per_sm = blocks_per_sm(code, cfg, place)
     wave = sms * per_sm
-    llr_all = nr_channel(code, max(wave, LONG_BATCH), 5.0, seed)
-    llr = llr_all[:LONG_BATCH].contiguous()
-    one_sweep = dataclasses.replace(LONG_NO_EXIT, max_iters=1)
-    sweeps = LONG_NO_EXIT.max_iters
-    for name, batch in (("one_block", 1), ("one_wave", wave),
-                        ("batch", LONG_BATCH)):
-        x = llr_all[:batch].contiguous()
-        full = timed(lambda: decode_qc_long(code, LONG_NO_EXIT, x))
+    out: dict = {"code": code.name, "placement": "global" if place == GLOBAL else "shared",
+                 "syndrome_mode": cfg.syndrome_mode, "sms": sms,
+                 "blocks_per_sm": per_sm, "batch": batch}
+    no_exit = dataclasses.replace(cfg, early_exit=False)
+    one_sweep = dataclasses.replace(no_exit, max_iters=1)
+    sweeps = no_exit.max_iters
+    for name, n_cw in (("one_block", 1), ("one_wave", wave), ("batch", batch)):
+        x = llr_all[torch.arange(n_cw, device=llr_all.device) % len(llr_all)]
+        full = timed(lambda: decode_qc_long(code, no_exit, x))
         one = timed(lambda: decode_qc_long(code, one_sweep, x))
         per_sweep = (full["median"] - one["median"]) / (sweeps - 1)
-        # R: each sweep after the first reads and writes every message
-        r_bytes = 2 * batch * code.num_blocks * code.z * 4
-        out[name] = {"codewords": batch, f"{sweeps}_sweeps": full,
+        # each sweep after the first reads and writes every message of R,
+        # and in global memory reads and writes P once per edge
+        r_bytes = 2 * n_cw * code.num_blocks * code.z * 4
+        p_bytes = 2 * n_cw * code.num_edges * 4 if place == GLOBAL else 0
+        out[name] = {"codewords": n_cw, f"{sweeps}_sweeps": full,
                      "1_sweep": one, "ms_per_sweep": per_sweep,
                      "r_bytes_per_sweep": r_bytes,
-                     "r_gbytes_per_s": r_bytes / (per_sweep * 1e-3) / 1e9}
-    res = decode_qc_long(code, LONG_CFG, llr)
-    out["iterations_5dB"] = {
-        "mean": res.iterations.float().mean().item(),
-        "max": int(res.iterations.max()), "total_iters": int(res.total_iters),
-        "unconverged": int((~res.converged).sum())}
-    out["kernel_5dB"] = timed(lambda: decode_qc_long(code, LONG_CFG, llr))
-    dec = Decoder(code, LONG_CFG, device="cuda")
+                     "r_gbytes_per_s": r_bytes / (per_sweep * 1e-3) / 1e9,
+                     "p_bytes_per_sweep": p_bytes,
+                     "rp_gbytes_per_s": (r_bytes + p_bytes) / (per_sweep * 1e-3) / 1e9}
+    llr = llr_all[:batch].contiguous()
+    out["iterations"] = iteration_stats(decode_qc_long(code, cfg, llr))
+    out["kernel"] = timed(lambda: decode_qc_long(code, cfg, llr))
+    dec = Decoder(code, cfg, device="cuda")
     if dec.implementation != "cuda_long":
-        raise RuntimeError(f"NR Decoder resolved to {dec.implementation}")
-    out["decoder_5dB"] = timed(lambda: dec(llr))
-    out["decoder_5dB_profiled"] = busy_share(lambda: dec(llr))
+        raise RuntimeError(f"{code.name} Decoder resolved to {dec.implementation}")
+    out["decoder"] = timed(lambda: dec(llr))
+    out["decoder_profiled"] = busy_share(lambda: dec(llr))
+    return out
+
+
+def probe_long(seed: int) -> dict:
+    code = nr_code(384, 1)
+    llr_all = nr_channel(code, LONG_BATCH, 5.0, seed)
+    out = {"nr_5dB": probe_long_code(code, LONG_CFG, LONG_BATCH, llr_all)}
+    code = dvbs2(64800, "1/2")
+    llr_all = dvbs2_channel(code, DVB_BATCH, 1.4, seed + 1)
+    out["dvbs2_64800_1.4dB"] = probe_long_code(code, DVB_CFG, DVB_BATCH, llr_all)
+    exact = dataclasses.replace(DVB_CFG, syndrome_mode="exact")
+    out["dvbs2_64800_1.4dB"]["exact_iterations"] = iteration_stats(
+        decode_qc_long(code, exact, llr_all))
+    out["dvbs2_64800_1.4dB"]["exact_kernel"] = timed(
+        lambda: decode_qc_long(code, exact, llr_all))
     return out
 
 
@@ -186,7 +224,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=20260816)
     ap.add_argument("--long", action="store_true",
-                    help="probe the long-code kernel at NR BG1 Z=384")
+                    help="probe the long-code kernel at NR BG1 Z=384 and "
+                         "DVB-S2 64800 r1/2")
     ap.add_argument("--out", help="write the measurements as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

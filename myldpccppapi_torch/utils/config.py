@@ -49,9 +49,17 @@ class DecoderConfig:
                   (ops/triage.py; bit-identical to a single pass)
     triage_cap_frac: straggler buffer as a fraction of the batch; beyond
                   it the full batch is re-decoded
+    syndrome_mode: convergence check of the long-code kernel ("cuda_long"):
+                  "exact" runs the full syndrome after every sweep; "lazy"
+                  runs it only for a codeword whose on-the-fly parity
+                  check (the sign of the posterior each edge reads during
+                  the sweep) passed on that sweep, so it latches only on
+                  the exact syndrome, possibly a sweep later than "exact".
+                  The torch path, like the reference's jnp path, always
+                  checks exactly.
     The remaining fields (self_correction, msg_dtype, crc, crc_span, outer,
-    soft_output, syndrome_mode) exist for parity with the reference and
-    must keep their defaults until their ROADMAP items are ported.
+    soft_output) exist for parity with the reference and must keep their
+    defaults until their ROADMAP items are ported.
     """
 
     algorithm: str = "min-sum"
@@ -141,10 +149,6 @@ class DecoderConfig:
                               "Queue 1 item 7")
         if self.soft_output:
             raise _not_ported("soft output", "Queue 1 item 3 / Queue 2 kernel A")
-        if self.syndrome_mode != "exact":
-            raise _not_ported("the lazy syndrome",
-                              "Queue 1 item 8, the DVB-S2 slice, on Queue 2 "
-                              "kernel C")
         for f in ("normalization", "offset"):
             w = getattr(self, f)
             if not isinstance(w, (int, float)) and not all(

@@ -127,7 +127,7 @@ def _recount(code, cfg, state, snr_db, batch, encode):
 def test_sim_step_counts_match_a_numpy_recount(family):
     if family == "wimax":
         code, snr = wimax(576, "1/2"), 1.5
-        encode = Encoder(code)
+        encode = Encoder(code, device="cpu")
     else:
         code, snr = nr_code(16, 1), -1.0
         encode = triangular_encode_fn(code)

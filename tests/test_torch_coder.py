@@ -34,7 +34,7 @@ def test_decode_matches_reference_coder(stream, de_type, monkeypatch):
     monkeypatch.setattr(ref_native, "decode_golden_native",
                         lambda *a, **k: None)
     src, _, post = stream
-    mine = Coder(432, 576, "3/4B")
+    mine = Coder(432, 576, "3/4B", device="cpu")
     theirs = ref.Coder(432, 576, "3/4B")
     for c in (mine, theirs):
         c.for_decoder(batch_size=8)
@@ -51,7 +51,7 @@ def test_decode_matches_reference_coder(stream, de_type, monkeypatch):
 @pytest.mark.parametrize("length", [200, 54 * 300 + 7])
 def test_encode_matches_reference_coder(length):
     """Below 256 codewords the NumPy encode runs, above it the torch one."""
-    mine, theirs = Coder(432, 576, "3/4B"), ref.Coder(432, 576, "3/4B")
+    mine, theirs = Coder(432, 576, "3/4B", device="cpu"), ref.Coder(432, 576, "3/4B")
     mine.for_encoder()
     theirs.for_encoder()
     src = _plaintext(length)
@@ -60,13 +60,13 @@ def test_encode_matches_reference_coder(length):
 
 @pytest.mark.parametrize("length", [0, 1, 54, 55, 108, 1000])
 def test_size_queries_match_reference(length):
-    mine, theirs = Coder(432, 576, "3/4B"), ref.Coder(432, 576, "3/4B")
+    mine, theirs = Coder(432, 576, "3/4B", device="cpu"), ref.Coder(432, 576, "3/4B")
     for q in ("get_code_size", "get_prior_code_length", "get_post_code_length"):
         assert getattr(mine, q)(length) == getattr(theirs, q)(length), q
 
 
 def test_roundtrip_and_refusals():
-    coder = Coder(432, 576, "3/4B")
+    coder = Coder(432, 576, "3/4B", device="cpu")
     coder.for_encoder()
     src = _plaintext(200)
     post = coder.test(coder.encode(src), 10 ** (-8.0 / 20), seed=0)
@@ -79,9 +79,9 @@ def test_roundtrip_and_refusals():
     with pytest.raises(ValueError):
         coder.add_decode_type("BOGUS")
     with pytest.raises(ValueError):
-        Coder(431, 576, "3/4B")
+        Coder(431, 576, "3/4B", device="cpu")
     with pytest.raises(RuntimeError):
-        Coder(432, 576, "3/4B").encode(src)
+        Coder(432, 576, "3/4B", device="cpu").encode(src)
 
 
 @pytest.mark.parametrize("algo", ["CPU", "TDMP", "TDMPCL"])

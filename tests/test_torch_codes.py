@@ -48,7 +48,7 @@ def test_encode_matches_reference(rate):
     ref_enc = ref.Encoder(ref.wimax(576, rate))
     u = np.random.default_rng(7).integers(0, 2, size=(24, code.k), dtype=np.uint8)
     want = np.asarray(ref_enc(jnp.asarray(u)))
-    got = Encoder(code)(torch.from_numpy(u)).numpy()
+    got = Encoder(code, device="cpu")(torch.from_numpy(u)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(encode_numpy(ru_precompute(code), u), want)
     assert not code.syndrome(got).any()
@@ -101,15 +101,15 @@ def test_information_set_encoder_via_interop():
     u = np.random.default_rng(1).integers(0, 2, size=(5, mine.k_info),
                                           dtype=np.uint8)
     want = ref_encoder.encode_numpy(ref_mats, u)
-    got = Encoder(mine, mats)(torch.from_numpy(u)).numpy()
+    got = Encoder(mine, mats, device="cpu")(torch.from_numpy(u)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(encode_numpy(mats, u), want)
     assert not mine.syndrome(got).any()
-    dec = Decoder(mine)
+    dec = Decoder(mine, device="cpu")
     res = dec(4.0 * (1.0 - 2.0 * got.astype(np.float32)))
     np.testing.assert_array_equal(dec.info_bits(res).numpy(), u)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Encoder(mine)
+        Encoder(mine, device="cpu")
 
 
 @pytest.mark.parametrize("snr_db", [5.0, 2.0, -1.5])

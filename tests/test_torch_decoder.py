@@ -32,7 +32,7 @@ def _llr(snr_db, batch, seed):
 
 @pytest.fixture(scope="module")
 def decoders():
-    return (Decoder(CODE, DecoderConfig(**BENCH)),
+    return (Decoder(CODE, DecoderConfig(**BENCH), device="cpu"),
             ref.Decoder(REF_CODE, ref.DecoderConfig(**BENCH)))
 
 
@@ -65,7 +65,7 @@ def test_triage_decoder_matches_reference(decoders, snr_db, branch):
 def test_small_batch_skips_triage():
     """A batch no larger than the straggler buffer decodes in one pass."""
     _, llr = _llr(4.0, 8, seed=5)
-    got = Decoder(CODE, DecoderConfig(**BENCH))(torch.from_numpy(llr))
+    got = Decoder(CODE, DecoderConfig(**BENCH), device="cpu")(torch.from_numpy(llr))
     want = decode_layered(CODE, DecoderConfig(normalization=0.75),
                           torch.from_numpy(llr))
     for f in FIELDS:
@@ -80,15 +80,29 @@ def test_small_batch_skips_triage():
     dict(crc="16"),
     dict(outer=("bch", 16, 12)),
     dict(soft_output=True),
-    dict(syndrome_mode="lazy"),
-    # the long-code kernel is ported in its exact-syndrome mode only
-    dict(implementation="cuda_long", syndrome_mode="lazy"),
     dict(implementation="edgelist"),
     dict(normalization=((0.7,), (0.8,))),
 ])
 def test_unported_configs_raise_not_implemented(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecoderConfig(**kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(syndrome_mode="lazy"),
+    dict(implementation="cuda_long", syndrome_mode="lazy"),
+])
+def test_lazy_syndrome_configs_are_accepted(kwargs):
+    """The long-code kernel serves the lazy syndrome; the torch path, like
+    the reference's jnp path, checks exactly whatever the mode says."""
+    cfg = DecoderConfig(**kwargs)
+    assert cfg.syndrome_mode == "lazy"
+    if cfg.implementation == "auto":
+        _, llr = _llr(4.0, 8, seed=5)
+        got = Decoder(CODE, cfg, device="cpu")(torch.from_numpy(llr))
+        want = decode_layered(CODE, DecoderConfig(), torch.from_numpy(llr))
+        for f in FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -111,13 +125,14 @@ def test_decoder_refusals():
     with pytest.raises(ValueError, match="CUDA device"):
         Decoder(CODE, DecoderConfig(implementation="cuda"), device="cpu")
     with pytest.raises(ValueError, match="per-layer"):
-        Decoder(CODE, normalization=(0.75, 0.8))(np.zeros((1, CODE.n), np.float32))
+        Decoder(CODE, device="cpu", normalization=(0.75, 0.8))(
+            np.zeros((1, CODE.n), np.float32))
     with pytest.raises(ValueError, match="shape"):
-        Decoder(CODE)(np.zeros((2, CODE.n - 1), np.float32))
+        Decoder(CODE, device="cpu")(np.zeros((2, CODE.n - 1), np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Decoder(REF_CODE)
+        Decoder(REF_CODE, device="cpu")
     dense = type(CODE)(name="dense", base=np.zeros((12, 24), np.int32), z=24)
-    assert Decoder(dense).implementation == "torch"  # auto on the CPU
+    assert Decoder(dense, device="cpu").implementation == "torch"  # auto on the CPU
 
 
 def test_cuda_decoder_without_cuda_raises():

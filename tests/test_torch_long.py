@@ -109,6 +109,10 @@ SUPPORT_CASES = {
     "nr_bg1_z48": (ref_nr.nr_code(48, 1), {}),
     "per-layer": (_random_qc(128), dict(normalization=(0.7, 0.8, 0.75, 0.85))),
     "offset": (_random_qc(128), dict(offset=0.25)),
+    # kernel C's multi-edge, masked-row and lazy modes (the DVB-S2 slice)
+    "multi-edge": (_random_qc(150, extra=True), {}),
+    "masked-row": (_random_qc(150, masked=True), {}),
+    "dvbs2-16200": (ref_dvbs2(16200, "1/2"), dict(syndrome_mode="lazy")),
 }
 
 
@@ -126,12 +130,9 @@ def test_supported_agrees_with_zlane(case):
     assert cuda_long.supported(code, DecoderConfig(**kw)) is verdict
 
 
-#: served by the TPU kernel, refused by the port on purpose until the
-#: DVB-S2 slice ports those modes of kernel C (ROADMAP Queue 2)
+#: served by the TPU kernel, refused by the port on purpose until a later
+#: slice ports that mode of kernel C (ROADMAP Queue 2)
 REFUSED_ON_PURPOSE = {
-    "multi-edge": (_random_qc(150, extra=True), {}),
-    "masked-row": (_random_qc(150, masked=True), {}),
-    "dvbs2-16200": (ref_dvbs2(16200, "1/2"), {}),
     "sum-product": (_random_qc(128), dict(algorithm="sum-product")),
 }
 
@@ -153,8 +154,7 @@ def test_supported_refuses_on_purpose(case):
 def test_supported_refuses_unserved_configs():
     code = nr.nr_code(64, 1)
     assert cuda_long.supported(code, DecoderConfig())
-    for bad in (dict(soft_output=True), dict(msg_dtype="bfloat16"),
-                dict(syndrome_mode="lazy")):
+    for bad in (dict(soft_output=True), dict(msg_dtype="bfloat16")):
         cfg = object.__new__(DecoderConfig)  # past __post_init__'s refusals
         for f in DecoderConfig.__dataclass_fields__.values():
             object.__setattr__(cfg, f.name, bad.get(f.name, f.default))
@@ -256,7 +256,7 @@ def test_nr_decoder_slice_matches_reference():
     ref_llr = ref_nr.rate_match_llr(rcode, jnp.asarray(llr_e))
     np.testing.assert_array_equal(llr.numpy(), np.asarray(ref_llr))
 
-    dec = Decoder(code, DecoderConfig(**SLICE_CFG))
+    dec = Decoder(code, DecoderConfig(**SLICE_CFG), device="cpu")
     assert dec.implementation == "torch"
     got = dec(llr)
     want = ref.Decoder(rcode, ref.DecoderConfig(**SLICE_CFG))(ref_llr)
@@ -269,7 +269,8 @@ def test_nr_decoder_slice_matches_reference():
 @pytest.mark.parametrize("impl", ["cuda", "cuda_long"])
 def test_decoder_kernels_need_a_cuda_device(impl):
     with pytest.raises(ValueError, match="CUDA device"):
-        Decoder(nr.nr_code(64, 1), DecoderConfig(implementation=impl))
+        Decoder(nr.nr_code(64, 1), DecoderConfig(implementation=impl),
+                device="cpu")
 
 
 @pytest.mark.parametrize("short_ok,long_ok,want", [
