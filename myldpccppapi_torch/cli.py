@@ -21,6 +21,8 @@ Examples::
         --normalization 0.8 --checkpoint ck.json --out nr.csv
     python -m myldpccppapi_torch waterfall --family dvbs2 --n 16200 \
         --rate 1/2 --snr 1.5,2 --batch 256 --max-iters 30 --normalization 0.85
+    python -m myldpccppapi_torch waterfall --family wimax --n 576 \
+        --rate 1/2 --snr 2,3 --schedule flooding --self-correction
 """
 from __future__ import annotations
 
@@ -113,8 +115,10 @@ def cmd_waterfall(args) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 encode matmul
     device = resolve_device(args.device)
     code = _make_code(args)
-    cfg = DecoderConfig(max_iters=args.max_iters,
-                        normalization=args.normalization)
+    cfg = DecoderConfig(algorithm=args.algorithm, schedule=args.schedule,
+                        max_iters=args.max_iters,
+                        normalization=args.normalization,
+                        self_correction=args.self_correction)
     # the decoder comes from the standard implementation dispatch; only
     # the encoder is family-specific
     if args.family == "nr":
@@ -200,8 +204,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="NR base graph")
     w.add_argument("--snr", default="0:4:0.5", help='grid "a:b:step" or "1,2,3"')
     w.add_argument("--batch", type=int, default=1024)
+    w.add_argument("--algorithm", default="min-sum",
+                   choices=["min-sum", "sum-product"])
+    w.add_argument("--schedule", default="layered",
+                   choices=["layered", "flooding"])
     w.add_argument("--max-iters", type=int, default=40)
     w.add_argument("--normalization", type=float, default=1.0)
+    w.add_argument("--self-correction", action="store_true",
+                   dest="self_correction",
+                   help="SCMS (Savin): sign-flip message erasure; min-sum "
+                        "flooding only")
     w.add_argument("--target-errors", type=int, default=100)
     w.add_argument("--max-frames", type=int, default=1_000_000)
     w.add_argument("--seed", type=int, default=0)

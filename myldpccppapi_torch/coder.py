@@ -12,12 +12,23 @@ Decode-type names map onto decoder configurations:
 reference    here
 ==========  =====================================================
 DecodeCPU    numpy golden flooding min-sum (ops/golden.py)
+DecodeMS     flooding min-sum, plain torch path
+DecodeSP     flooding sum-product, plain torch path; the soft stream
+             is scaled by 8.0 unless ``llr_scale`` says otherwise
 DecodeTDMP   layered min-sum, plain torch path
+DecodeMSCL   flooding min-sum, 120 iterations, the CUDA kernel on a
+             CUDA device (the reference's fused ``decodeOnceMS``)
 DecodeTDMPCL layered min-sum, the CUDA kernel on a CUDA device
+SCMS         self-corrected flooding min-sum, the CUDA kernel on a
+             CUDA device
 ==========  =====================================================
 
-The reference's other types (MS, SP, MSCL, BF, SCMS) raise
-:class:`NotImplementedError` until their ROADMAP items are ported.
+The reference's ``BF`` (GDBF) raises :class:`NotImplementedError` until its
+ROADMAP item is ported.  The reference substitutes the layered schedule for
+``MSCL`` where its fused flooding kernel cannot hold a code
+(``myldpccppapi_tpu/coder.py::_resolve_mscl``); every 802.16e code fits the
+short-code kernel's flooding state, so for this 802.16e ``Coder`` that
+substitution never fires and ``MSCL`` always decodes by flooding.
 """
 from __future__ import annotations
 
@@ -39,20 +50,28 @@ __all__ = ["Coder", "DECODE_TYPES"]
 
 DECODE_TYPES = {
     "CPU": None,
+    "MS": DecoderConfig(algorithm="min-sum", schedule="flooding",
+                        implementation="torch"),
+    "SP": DecoderConfig(algorithm="sum-product", schedule="flooding",
+                        implementation="torch"),
     "TDMP": DecoderConfig(algorithm="min-sum", schedule="layered",
                           implementation="torch"),
+    # the fused flooding kernel keeps the reference's own 120-iteration cap
+    "MSCL": DecoderConfig(algorithm="min-sum", schedule="flooding",
+                          max_iters=120, implementation="auto"),
     "TDMPCL": DecoderConfig(algorithm="min-sum", schedule="layered",
                             implementation="auto"),
+    "SCMS": DecoderConfig(algorithm="min-sum", schedule="flooding",
+                          self_correction=True, implementation="auto"),
 }
 
 #: the reference's decode types still to port, with their ROADMAP items
 _NOT_PORTED = {
-    "MS": "Queue 1 item 3 (flooding)",
-    "SP": "Queue 1 item 3 (sum-product)",
-    "MSCL": "Queue 2 kernel A (flooding mode)",
     "BF": "Queue 1 item 12 (GDBF)",
-    "SCMS": "Queue 2 kernel A (SCMS mode)",
 }
+#: the reference's channel scale for sum-product, 2/sigma^2 at sigma^2 =
+#: 0.25 (decodeCL.c:9): min-sum is scale-invariant, sum-product is not
+_SP_LLR_SCALE = 8.0
 
 
 class Coder:
@@ -99,7 +118,9 @@ class Coder:
                              f"{sorted(DECODE_TYPES)}")
         if de_type == "CPU":
             return
-        cfg = dataclasses.replace(DECODE_TYPES[de_type], max_iters=self.max_iters)
+        cfg = DECODE_TYPES[de_type]
+        if de_type != "MSCL":  # MSCL keeps its own iteration cap
+            cfg = dataclasses.replace(cfg, max_iters=self.max_iters)
         self._decoders[de_type] = Decoder(self.code, cfg, device=self.device)
 
     # -- size queries (same rounding contract as MyLdpc.cpp:620-631) -------
@@ -160,7 +181,9 @@ class Coder:
         """Soft stream [ncw*n] -> decoded source bytes [src_length].
 
         Like the reference, the raw channel value is fed to min-sum as the
-        LLR (min-sum is scale-invariant); ``llr_scale`` multiplies it.
+        LLR (min-sum is scale-invariant); ``llr_scale`` multiplies it.  For
+        ``SP`` it defaults to the reference's 8.0 = 2/sigma^2 at sigma^2 =
+        0.25; pass a calibrated ``2 / sigma**2`` instead.
         """
         if src_length == 0:
             decoded = np.zeros(0, dtype=np.uint8)
@@ -171,7 +194,9 @@ class Coder:
             return decoded
         # a private copy: the stream may be a read-only array
         post = np.array(post_code, dtype=np.float32).reshape(-1, self.code.n)
-        if llr_scale is not None and llr_scale != 1.0:
+        if llr_scale is None:
+            llr_scale = _SP_LLR_SCALE if de_type == "SP" else 1.0
+        if llr_scale != 1.0:
             post = post * np.float32(llr_scale)
         ncw = self.get_code_size(src_length)
         if post.shape[0] != ncw:

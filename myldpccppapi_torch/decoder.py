@@ -9,16 +9,23 @@ and ``device="cpu"`` is the only way onto the CPU.
 
 Dispatch, in the reference's order (``myldpccppapi_tpu/decoder.py``): on a
 CUDA device ``"auto"`` resolves to the short-code kernel (``"cuda"``,
-ops/cuda_bp.py) when it serves the code, else to the long-code kernel
-(``"cuda_long"``, ops/cuda_long.py), else it raises; it never goes to the
-torch path quietly.  The long-code kernel serves 5G NR and DVB-S2 (multi-edge
-cells, masked rows, the exact or the lazy syndrome), with the posterior in
-shared memory where it fits (NR, DVB-S2 16200) and in global memory
-otherwise (DVB-S2 64800).  An explicit ``"cuda"`` or ``"cuda_long"`` that
+ops/cuda_bp.py) when it serves the code and the config, else to the
+long-code kernel (``"cuda_long"``, ops/cuda_long.py), else it raises; it
+never goes to the torch path quietly.  The short-code kernel serves the
+layered and flooding schedules, min-sum, sum-product, SCMS and soft output
+on codes of up to 120 circulants, and layered min-sum on the small-z 5G NR
+codes (z < 64, kernel B's route).  The long-code kernel serves layered
+min-sum on 5G NR and DVB-S2 (multi-edge cells, masked rows, the exact or
+the lazy syndrome), with the posterior in shared memory where it fits (NR,
+DVB-S2 16200) and in global memory otherwise (DVB-S2 64800).  An explicit ``"cuda"`` or ``"cuda_long"`` that
 does not serve the code raises at construction.  On the CPU, ``"auto"``
 resolves to ``"torch"``.  An explicit ``"torch"`` runs the plain tensor path
 on any device; like the reference's jnp path it checks the exact syndrome
 whatever ``syndrome_mode`` says.
+
+Refused at construction, as the reference refuses them: soft output with
+triage (the two-phase wrapper merges hard outputs only) and SCMS on the
+long-code kernel.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ import torch
 
 from .codes.qc import QCCode
 from .ops import cuda_bp, cuda_long
-from .ops.bp import DecodeResult, decode_layered
+from .ops.bp import DecodeResult, decode_qc
 from .ops.triage import decode_two_phase
 from .utils.config import DecoderConfig
 from .utils.device import DEFAULT_DEVICE, resolve_device
@@ -88,6 +95,18 @@ class Decoder:
                 "codes without QC block structure (edge lists) are not "
                 "ported to the PyTorch package yet (ROADMAP Queue 1 item 9)"
             )
+        if config.soft_output and config.triage_iters > 0:
+            raise ValueError(
+                "soft_output + triage is not supported: the two-phase "
+                "wrapper merges hard outputs only"
+            )
+        if config.self_correction and config.implementation == "cuda_long":
+            raise ValueError(
+                "self_correction (SCMS) is served by the torch path and the "
+                "short-code kernel's flooding mode (requested "
+                'implementation="cuda_long"); use implementation="auto", '
+                '"torch", or "cuda"'
+            )
         self.code = code
         self.config = config
         self.device = device
@@ -103,9 +122,7 @@ class Decoder:
             return partial(cuda_bp.decode_qc_cuda, self.code, cfg)
         if self.implementation == "cuda_long":
             return partial(cuda_long.decode_qc_long, self.code, cfg)
-        # the reference's decode_qc dispatches on the schedule; only the
-        # layered one is ported, and DecoderConfig refuses the others
-        return partial(decode_layered, self.code, cfg)
+        return partial(decode_qc, self.code, cfg)
 
     def _make_triage(self):
         """Wrap the decoder in the two-phase straggler triage

@@ -41,9 +41,11 @@ def code_from_reference(obj) -> QCCode:
 
 
 def config_from_reference(cfg) -> DecoderConfig:
-    """A reference ``DecoderConfig`` -> the port's, field by field, with the
-    implementation name mapped (jnp -> torch, pallas -> cuda).  Fields the
-    port does not serve yet raise as the port's DecoderConfig does."""
+    """A reference ``DecoderConfig`` -> the port's, field by field (the
+    schedule, algorithm, weights, SCMS and soft-output fields included),
+    with the implementation name mapped (jnp -> torch, pallas -> cuda,
+    pallas_zlane -> cuda_long).  Fields the port does not serve yet raise
+    as the port's DecoderConfig does."""
     fields = {f.name: getattr(cfg, f.name)
               for f in DecoderConfig.__dataclass_fields__.values()}
     impl = fields["implementation"]

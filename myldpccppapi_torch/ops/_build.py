@@ -39,10 +39,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures: (argtypes, restype) per exported function
 _SIGNATURES = {
-    # ten tensors, eight ints, the stream
-    "ldpc_bp_layered": ([_P] * 10 + [_I] * 8 + [_P], _I),
-    # (n, z, m_b, num_blocks, device) -> codewords per thread block
-    "ldpc_bp_layered_tile": ([_I] * 5, _I),
+    # thirteen tensors (the posterior output may be null), nine ints, the
+    # stream
+    "ldpc_bp_layered": ([_P] * 13 + [_I] * 9 + [_P], _I),
+    # (n, z, m_b, num_blocks, mode, device) -> codewords per thread block
+    "ldpc_bp_layered_tile": ([_I] * 6, _I),
     # fourteen tensors (the P scratch may be null), twelve ints, the stream
     "ldpc_bp_long": ([_P] * 14 + [_I] * 12 + [_P], _I),
     # (n, z, m_b, num_blocks, n_masks, max_row_degree, device)

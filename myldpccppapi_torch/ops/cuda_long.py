@@ -38,23 +38,23 @@ import torch
 
 from ..codes.qc import QCCode
 from ..utils.config import DecoderConfig
+from ..utils.device import cuda_index
 from . import _build
 from .bp import DecodeResult, _decode_layered, layer_weights
-from .cuda_bp import _device_index
 
-__all__ = ["GLOBAL", "REQUIREMENTS", "SHARED", "blocks_per_sm",
+__all__ = ["GLOBAL", "MIN_Z", "REQUIREMENTS", "SHARED", "blocks_per_sm",
            "decode_qc_long", "decode_qc_long_plain", "placement", "supported"]
 
 #: the reference kernel's gate (pallas_zlane.zlane_supported): below half a
 #: 128-lane tile the TPU layout wastes the VPU, and small-z codes go to the
-#: short-code kernels there
-_MIN_Z = 64
+#: short-code kernels there (ops/cuda_bp.py serves kernel B's route below it)
+MIN_Z = 64
 #: posterior placements, as the kernel library's fit query reports them
 SHARED, GLOBAL = 2, 1
 #: what :func:`supported` asks of a code and a config, for error messages;
 #: the kernel's own bounds stay in csrc/bp_long.cu, behind its fit query
 REQUIREMENTS = (
-    f"a QCCode with z >= {_MIN_Z} that the kernel library's fit query "
+    f"a QCCode with z >= {MIN_Z} that the kernel library's fit query "
     "accepts (z threads per block and the widest row within the kernel's "
     "bounds, its tables within a thread block's shared memory), and "
     "layered min-sum f32"
@@ -103,15 +103,16 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
 
     Refused on purpose for now, though the TPU kernel serves them:
     sum-product, soft output and bf16 messages (ROADMAP Queue 2,
-    kernel C)."""
-    if not isinstance(code, QCCode) or code.z < _MIN_Z:
+    kernel C).  The flooding schedule, and SCMS with it, is the TPU
+    short-code kernel's, as here (ops/cuda_bp.py)."""
+    if not isinstance(code, QCCode) or code.z < MIN_Z:
         return False
     if cfg is not None and not (
             cfg.schedule == "layered" and cfg.algorithm == "min-sum"
             and cfg.msg_dtype == "float32" and not cfg.soft_output
             and cfg.crc is None and cfg.outer is None):
         return False
-    return device is None or placement(code, _device_index(device)) > 0
+    return device is None or placement(code, cuda_index(device)) > 0
 
 
 def decode_qc_long_plain(code: QCCode, cfg: DecoderConfig,
@@ -206,7 +207,7 @@ def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
             f"the CUDA long-code kernel does not serve {code.name} under "
             f"this config: it needs {REQUIREMENTS}"
         )
-    place = GLOBAL if _force_global else placement(code, _device_index(llr.device))
+    place = GLOBAL if _force_global else placement(code, cuda_index(llr.device))
     batch = llr.shape[0]
     dev = llr.device
     bits = torch.empty((batch, code.n), dtype=torch.uint8, device=dev)

@@ -2,6 +2,7 @@
 
     python -m myldpccppapi_torch.tools.kernel_probe [--out probe.json]
     python -m myldpccppapi_torch.tools.kernel_probe --long [--out probe.json]
+    python -m myldpccppapi_torch.tools.kernel_probe --modes [--out probe.json]
 
 Without ``--long`` it probes the short-code kernel (csrc/bp_layered.cu).
 At bench.py's operating point (wimax 576 r3/4B, batch 8192, layered NMS
@@ -41,6 +42,15 @@ torch.Generator on the card.  For each:
   call with its device busy share from one profiler window; for DVB-S2
   also the kernel in exact mode.
 
+With ``--modes`` it probes the short-code kernel's modes at the same
+operating point (batch 8192, 5 dB, 40 iterations, single pass): layered
+min-sum alpha 0.75 (the reference row), flooding min-sum alpha 0.75, SCMS,
+flooding and layered sum-product, and layered and flooding soft output.
+For each, with CUDA events as above: the tile (codewords per block), the
+batch with early exit on and its iteration counts, and one thread block
+alone and the batch with early exit off at 40 sweeps and at 1 sweep, whose
+difference over 39 is the time of one sweep.
+
 It prints one line per measurement and, with ``--out``, writes them as JSON.
 """
 from __future__ import annotations
@@ -60,7 +70,7 @@ from ..codes.dvbs2 import ira_encode_fn
 from ..codes.nr import rate_match_bits, rate_match_llr, triangular_encode_fn
 from ..ops import _build
 from ..ops.channel import transmit
-from ..ops.cuda_bp import _launch, decode_qc_cuda, tile_size
+from ..ops.cuda_bp import _launch, decode_qc_cuda, mode, tile_size
 from ..ops.cuda_long import GLOBAL, blocks_per_sm, decode_qc_long, placement
 from ..ops.triage import decode_two_phase
 
@@ -205,6 +215,41 @@ def probe_long_code(code, cfg, batch: int, llr_all) -> dict:
     return out
 
 
+#: the short-code kernel's modes (--modes), at bench.py's operating point
+#: without triage
+MODES = {
+    "layered": SINGLE,
+    "flooding": DecoderConfig(schedule="flooding", normalization=0.75, max_iters=40),
+    "scms": DecoderConfig(schedule="flooding", self_correction=True, max_iters=40),
+    "sp_flooding": DecoderConfig(schedule="flooding", algorithm="sum-product",
+                                 max_iters=40),
+    "sp_layered": DecoderConfig(algorithm="sum-product", max_iters=40),
+    "soft_layered": DecoderConfig(normalization=0.75, max_iters=40, soft_output=True),
+    "soft_flooding": DecoderConfig(schedule="flooding", normalization=0.75,
+                                   max_iters=40, soft_output=True),
+}
+
+
+def probe_modes(seed: int) -> dict:
+    code = wimax(576, "3/4B")
+    llr = channel(code, 5.0, seed)
+    out: dict = {}
+    for name, cfg in MODES.items():
+        no_exit = dataclasses.replace(cfg, early_exit=False)
+        one_sweep = dataclasses.replace(no_exit, max_iters=1)
+        tile = tile_size(code, torch.cuda.current_device(), mode(cfg))
+        row = {"tile": tile,
+               "iterations": iteration_stats(decode_qc_cuda(code, cfg, llr)),
+               "batch": timed(lambda: decode_qc_cuda(code, cfg, llr))}
+        for what, x in (("one_block", llr[:tile].contiguous()), ("batch_no_exit", llr)):
+            full = timed(lambda: decode_qc_cuda(code, no_exit, x))
+            one = timed(lambda: decode_qc_cuda(code, one_sweep, x))
+            row[what] = {"40_sweeps": full, "1_sweep": one,
+                         "ms_per_sweep": (full["median"] - one["median"]) / 39}
+        out[f"mode_{name}"] = row
+    return out
+
+
 def probe_long(seed: int) -> dict:
     code = nr_code(384, 1)
     llr_all = nr_channel(code, LONG_BATCH, 5.0, seed)
@@ -226,6 +271,9 @@ def main(argv=None) -> int:
     ap.add_argument("--long", action="store_true",
                     help="probe the long-code kernel at NR BG1 Z=384 and "
                          "DVB-S2 64800 r1/2")
+    ap.add_argument("--modes", action="store_true",
+                    help="probe the short-code kernel's flooding, SCMS, "
+                         "sum-product and soft-output modes")
     ap.add_argument("--out", help="write the measurements as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -237,6 +285,8 @@ def main(argv=None) -> int:
     print(out["card"], flush=True)
     if args.long:
         out.update(probe_long(args.seed))
+    elif args.modes:
+        out.update(probe_modes(args.seed))
     else:
         out.update(probe_short(args.seed))
     for key, val in out.items():

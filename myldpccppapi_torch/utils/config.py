@@ -29,8 +29,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class DecoderConfig:
     """Belief-propagation decoder configuration.
 
-    algorithm:    "min-sum" ("sum-product" is still to port)
-    schedule:     "layered" (TDMP; "flooding" is still to port)
+    algorithm:    "min-sum" | "sum-product" (log-domain phi transform;
+                  takes no normalization/offset)
+    schedule:     "layered" (TDMP) | "flooding"
     max_iters:    iteration cap (the reference C++ library uses 40)
     normalization: alpha for normalized min-sum (1.0 = plain min-sum);
                   a scalar or one value per base row (layer)
@@ -57,9 +58,16 @@ class DecoderConfig:
                   the exact syndrome, possibly a sweep later than "exact".
                   The torch path, like the reference's jnp path, always
                   checks exactly.
-    The remaining fields (self_correction, msg_dtype, crc, crc_span, outer,
-    soft_output) exist for parity with the reference and must keep their
-    defaults until their ROADMAP items are ported.
+    self_correction: SCMS (Savin 2008) for min-sum flooding: a
+                  variable-to-check message whose sign flips against the
+                  previously sent one is erased (sent as 0)
+    soft_output:  also return the [B, n] posterior LLRs, latched at each
+                  frame's convergence like the bits (DecodeResult.
+                  posteriors); served by the torch path and the
+                  short-code kernel, not with triage
+    The remaining fields (msg_dtype, crc, crc_span, outer) exist for
+    parity with the reference and must keep their defaults until their
+    ROADMAP items are ported.
     """
 
     algorithm: str = "min-sum"
@@ -134,21 +142,11 @@ class DecoderConfig:
                 f"implementation={self.implementation!r}",
                 "Queue 1 item 9 (edge lists)",
             )
-        if self.algorithm == "sum-product":
-            raise _not_ported("sum-product", "Queue 1 item 3 / Queue 2 kernel A")
-        if self.schedule == "flooding":
-            raise _not_ported("the flooding schedule",
-                              "Queue 1 item 3 / Queue 2 kernel A")
-        if self.self_correction:
-            raise _not_ported("self-corrected min-sum (SCMS)",
-                              "Queue 1 item 3 / Queue 2 kernel A")
         if self.msg_dtype != "float32":
             raise _not_ported("bfloat16 messages", "Queue 2 kernel A")
         if self.crc is not None or self.outer is not None:
             raise _not_ported("CRC/outer-code-aided acceptance",
                               "Queue 1 item 7")
-        if self.soft_output:
-            raise _not_ported("soft output", "Queue 1 item 3 / Queue 2 kernel A")
         for f in ("normalization", "offset"):
             w = getattr(self, f)
             if not isinstance(w, (int, float)) and not all(

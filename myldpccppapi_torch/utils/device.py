@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "cuda_index", "resolve_device"]
 
 #: the device of every entry point unless the caller names another
 DEFAULT_DEVICE = "cuda"
@@ -24,3 +24,12 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available; pass device=\"cpu\" for the CPU")
     return device
+
+
+def cuda_index(device) -> int:
+    """The index of CUDA ``device`` (the current device's when it names
+    none); raises for any other device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"expected a CUDA device, got {device}")
+    return device.index if device.index is not None else torch.cuda.current_device()

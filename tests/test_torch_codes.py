@@ -86,8 +86,13 @@ def test_interop_round_trips():
     assert interop.config_from_reference(
         dataclasses.replace(ref_cfg, implementation="pallas")
     ).implementation == "cuda"
+    scms = ref.DecoderConfig(schedule="flooding", self_correction=True,
+                             soft_output=True, implementation="pallas")
+    assert interop.config_from_reference(scms) == DecoderConfig(
+        schedule="flooding", self_correction=True, soft_output=True,
+        implementation="cuda")
     with pytest.raises(NotImplementedError):
-        interop.config_from_reference(ref.DecoderConfig(schedule="flooding"))
+        interop.config_from_reference(ref.DecoderConfig(msg_dtype="bfloat16"))
 
 
 def test_information_set_encoder_via_interop():

@@ -130,11 +130,16 @@ def test_masked_and_multi_edge_codes_match_jnp():
 
 
 def test_kernel_gate():
-    """supported(): the same gate as the TPU kernel's auto dispatch."""
+    """supported(): the TPU kernels' split at 120 circulants; past it only
+    kernel B's route (layered min-sum, z < 64, where kernel C does not
+    serve)."""
     assert all(cuda_bp.supported(wimax(n, r))
                for n, r in [(576, "1/2"), (576, "3/4B"), (2304, "5/6")])
     dense = type(CODE)(name="dense", base=np.zeros((12, 24), np.int32), z=24)
-    assert dense.num_blocks > 120 and not cuda_bp.supported(dense)
+    assert dense.num_blocks > 120 and cuda_bp.supported(dense)
+    assert not cuda_bp.supported(dense, DecoderConfig(schedule="flooding"))
+    wide = type(CODE)(name="wide", base=np.zeros((12, 24), np.int32), z=64)
+    assert not cuda_bp.supported(wide)
     multi = type(CODE)(name="multi", base=CODE.base, z=CODE.z,
                        extra_blocks=((0, 0, 5),))
     assert not cuda_bp.supported(multi)

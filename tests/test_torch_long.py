@@ -121,19 +121,15 @@ def test_supported_agrees_with_zlane(case):
     rcode, kw = SUPPORT_CASES[case]
     verdict = zlane_supported(rcode, ref.DecoderConfig(**kw))
     code = interop.code_from_reference(rcode)
-    if kw.get("schedule") == "flooding":
-        # both refuse; the port's DecoderConfig refuses flooding itself
-        assert verdict is False
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DecoderConfig(**kw)
-        return
     assert cuda_long.supported(code, DecoderConfig(**kw)) is verdict
 
 
-#: served by the TPU kernel, refused by the port on purpose until a later
-#: slice ports that mode of kernel C (ROADMAP Queue 2)
+#: served by the TPU kernel, refused by the port's kernel C on purpose
+#: until a later slice ports that mode (ROADMAP Queue 2); the torch path and
+#: kernel A serve them
 REFUSED_ON_PURPOSE = {
     "sum-product": (_random_qc(128), dict(algorithm="sum-product")),
+    "soft-output": (_random_qc(128), dict(soft_output=True)),
 }
 
 
@@ -142,13 +138,9 @@ def test_supported_refuses_on_purpose(case):
     rcode, kw = REFUSED_ON_PURPOSE[case]
     assert zlane_supported(rcode, ref.DecoderConfig(schedule="layered", **kw))
     code = interop.code_from_reference(rcode)
-    if kw:
-        # the code is served; the configuration is refused
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DecoderConfig(**kw)
-        assert cuda_long.supported(code)
-    else:
-        assert not cuda_long.supported(code, DecoderConfig())
+    # the code is served; the configuration is refused
+    assert cuda_long.supported(code)
+    assert not cuda_long.supported(code, DecoderConfig(**kw))
 
 
 def test_supported_refuses_unserved_configs():
