@@ -6,22 +6,23 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Device: print the ``nvidia-smi`` name and power limit; require CUDA.
-2. Build: compile both kernels (csrc/bp_layered.cu, csrc/bp_long.cu), one
-   nvcc per source started together, and print each build time.
+2. Build: compile both kernels (csrc/bp_layered.cu, csrc/bp_long.cu as
+   its min-sum and its sum-product halves), one nvcc per object started
+   together, and print each build time.
 3. Short-code kernel vs plain: the kernel on CUDA against its plain
    version (``decode_qc_cuda_plain``) on the CPU and on CUDA, at batch 1000
    (a ragged tail) for all six 802.16e rates at n=576 plus n=2304 rate
-   1/2, 5 and 2 dB, a per-layer alpha tuple, early exit on and off (alpha
-   0.75 is phase 3d's "soft layered" case).  Bits, converged, iterations
-   and total_iters must be equal.
+   1/2, 5 and 2 dB, a per-layer alpha tuple, early exit on, and off at 5
+   dB (:func:`exits`; alpha 0.75 is phase 3d's "soft layered" case): 21
+   cases.  Bits, converged, iterations and total_iters must be equal.
 3b. Long-code kernel vs plain: the kernel against ``decode_qc_long_plain``
    on CUDA (batch 101) and on the CPU (batch 16), for nr_code(384, 1),
    nr_code(384, 2) and nr_code(208, 1), rate-matched rv0 LLRs at an SNR
    where nearly every frame converges and one where most run 30
-   iterations, alpha 0.8 and a per-layer alpha tuple, early exit on and
-   off; and at the main path's batch of 512 on nr_code(384, 1), past one
-   wave of resident blocks, the hard SNR with early exit off.  The same
-   four fields must be equal.
+   iterations, alpha 0.8 and a per-layer alpha tuple, early exit on, and
+   off at the easy SNR; and at the main path's batch of 512 on
+   nr_code(384, 1), past one wave of resident blocks, the hard SNR with
+   early exit off: 19 cases.  The same four fields must be equal.
 3c. The same kernel on DVB-S2 (multi-edge cells, the masked wrap row) and
    in its global-posterior mode (kernel D's port), against its plain
    version (the lazy-aware one in lazy mode) on CUDA and, for 16200, on
@@ -29,34 +30,52 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    of 35 circulants) in shared memory, dvbs2(64800, "1/2") and
    dvbs2(64800, "3/4") in global memory, at an SNR where nearly every
    frame converges and one where most run 30 iterations, exact and lazy,
-   alpha 0.85 and per layer, early exit on and off; dvbs2(64800, "9/10")
+   alpha 0.85 and per layer, early exit on, and off at the easy SNR;
+   dvbs2(64800, "9/10")
    (rows of 40) once; a plain staircase QC code whose posterior passes
    shared memory (kernel D's own domain), on all-zero-codeword LLRs from
    hopeless to easy; the global mode forced on
    nr_code(384, 1) and dvbs2(16200, "1/2"), equal to the shared mode; and
-   the main path's batch of 1024, lazy, early exit off.
+   the main path's batch of 1024, lazy, early exit off: 50 cases.
 3d. Kernel A's new modes vs plain: flooding min-sum (alpha 1.0, alpha 0.75,
    per-layer alpha, beta 0.25), SCMS, sum-product (flooding and layered)
    and soft output (min-sum layered and flooding, sum-product layered and
-   flooding), at 5 and 2 dB, early exit on and off, on all six 802.16e
-   rates at n=576 plus n=2304 rate 1/2: the kernel at batch 1000 (a ragged
-   tail) against its plain version on CUDA, and at batch 16 against it on
-   the CPU.  Bits, converged, iterations, total_iters and the posteriors of
-   every frame must be equal, with one tolerance: torch's CPU exp/log1p are
-   not its CUDA ones (the phase counts the phi inputs where they differ),
-   so sum-product is held against the CPU only at 5 dB, to equal bits and
-   converged flags and iterations within 1 (its CPU posteriors' largest
-   difference is logged).  Against the plain version on CUDA, sum-product
-   is held bit-exact like every other mode.
+   flooding), at 5 and 2 dB, early exit on, and off at 5 dB (210 cases),
+   on all six 802.16e rates at n=576 plus n=2304 rate 1/2: the kernel at
+   batch 1000 (a ragged tail) against its plain version on CUDA, and at 5
+   dB at batch 16 against it on the CPU.  Bits, converged, iterations,
+   total_iters and the posteriors of every frame must be equal, with one
+   tolerance: torch's CPU exp/log1p are not its CUDA ones (the phase
+   counts the phi inputs where they differ), so sum-product is held
+   against the CPU to equal bits and converged flags and iterations
+   within 1 (its CPU posteriors' largest difference is logged).  Against
+   the plain version on CUDA, sum-product is held bit-exact like every
+   other mode.
 3e. Kernel B's route (the same kernel, table-driven, on 5G NR codes of more
    than 120 circulants with z < 64): nr_code(z, 1) for z in 16, 32, 56 and
    nr_code(z, 2) for z in 8, 40, rate-matched rv0 LLRs with LLR-0
    punctured columns, at an SNR where nearly every frame converges and one
-   where most run 30 iterations, early exit on and off, against the plain
-   version on CUDA (batch 101) and the CPU (batch 16); ``Decoder(...,
+   where most run 30 iterations, early exit on, and off at the easy SNR
+   (15 cases), against the plain version on CUDA (batch 101) and the CPU
+   (batch 16); ``Decoder(...,
    device="cuda")`` must resolve to ``"cuda"`` there.  Then the route's main
    path: nr_code(32, 1) encoded on the card at batch 4096, 3 dB, through
    ``Decoder``, with bench.py's gates.
+3f. Kernel C's sum-product and soft-output modes vs plain: sum-product,
+   soft output (alpha 0.8) and both, on nr_code(384, 1) and nr_code(64, 2)
+   (rate-matched rv0 LLRs, LLR-0 punctured columns) at batch 64,
+   dvbs2(16200, "1/2") (multi-edge, masked rows; shared) at batch 64 and
+   dvbs2(64800, "1/2") (global) at batch 16, at an SNR where nearly every
+   frame converges and one where many run 30 iterations, exact and lazy
+   syndrome, early exit on and off; one case forced into the global
+   placement on NR (equal to the shared one too) and one at
+   ``max_iters=0`` (the posterior is the channel LLR): 17 cases.  Bits,
+   converged, iterations, total_iters and the posteriors of every frame
+   must equal the plain version's on CUDA, and the launch counters must
+   show the placement and mode; sum-product is held against the CPU at a
+   converging point to equal bits and converged flags, iterations within
+   1 (torch's CPU exp/log1p are not its CUDA ones), min-sum soft output
+   bit-exact.
 4. Short-code main path: ``Decoder(wimax(576, "3/4B"), bench config,
    device="cuda")`` at batch 8192, 5 dB, noise from a torch.Generator on
    the card; then the ``Coder`` TDMPCL byte-stream round trip of the CLI
@@ -66,42 +85,77 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    de-rate-matched and decoded by ``Decoder(..., device="cuda")`` (layered
    NMS alpha 0.8, 30 iterations, batch 512), which must resolve to
    ``cuda_long``; bench.py's gates at each point, and the torch path on
-   the same LLRs at 5 dB.  Then the CLI ``waterfall --family nr --z 384
-   --bg 1`` for two SNR points, and again from its checkpoint, which must
-   run no new step.
+   the same LLRs at 5 dB.  ``Decoder(..., soft_output=True)`` on the same
+   code resolves to ``cuda_long`` (kernel C's soft mode) and equals the
+   torch path, posteriors included; soft output on nr_code(48, 1), which
+   neither kernel serves (z < 64), is refused on the card; the
+   sum-product ``Decoder`` runs kernel C's sum-product mode at 3-6 dB
+   with the same gates and equals the torch path at 5 dB.  Then the CLI
+   ``waterfall --family nr --z 384 --bg 1`` for two SNR points, and again
+   from its checkpoint, which must run no new step.
 4c. DVB-S2 main path (BASELINE config 3): dvbs2(64800, "1/2") encoded on
    the card (``ira_encode_fn``), BPSK/AWGN at 1.0 and 1.4 dB, decoded by
    ``Decoder(..., device="cuda")`` (layered NMS alpha 0.85, 30 iterations,
    lazy syndrome, batch 1024), which must resolve to ``cuda_long`` with the
    posterior in global memory; bench.py's gates at 1.4 dB; equal to the
    lazy plain version, and within the lazy contract of the exact torch
-   path.  Then the CLI ``waterfall --family dvbs2 --n 16200 --rate 1/2``
-   for two SNR points, and again from its checkpoint.
+   path; the same ``Decoder`` with soft output (kernel C's soft mode in the
+   global placement) passes the gates at 1.4 dB and equals the lazy plain
+   version, posteriors included.  Then the CLI ``waterfall --family dvbs2
+   --n 16200 --rate 1/2`` for two SNR points, and again from its
+   checkpoint.
 4d. Flooding main path: ``Decoder(wimax(576, "3/4B"), ..., device="cuda")``
    on phase 4's LLRs (batch 8192, 5 dB) with flooding NMS alpha 0.75, SCMS,
    flooding sum-product (on the 2y/sigma^2 LLRs) and layered soft output,
    40 iterations: each must resolve to ``"cuda"``, pass bench.py's gates and
    equal ``Decoder(..., implementation="torch")``.  Then the ``Coder`` MSCL
-   and SCMS round trips of phase 4's byte stream, each equal to the CPU
-   decode of the same soft stream; and the CLI ``waterfall --family wimax
-   --schedule flooding --self-correction`` for two SNR points, and again
-   from its checkpoint.
-5. Times: CUDA events, median of 7 after a warm-up (3 for the plain
-   version at DVB-S2 64800, of the new modes and of kernel B's route): each
-   kernel and its plain version (single pass, no triage) and the whole
-   Decoder call, at the main paths' shapes, DVB-S2 64800 in lazy and exact
-   mode, kernel A's flooding, SCMS, sum-product and layered soft-output
-   modes at phase 4d's shape, kernel B's route at nr_code(32, 1), batch
-   4096, 3 dB; and the kernel on dvbs2(16200, "1/2") at batch 1024, its
-   posterior in shared and in global memory.
+   and SCMS round trips of phase 4's byte stream, the first 2048 codewords
+   of each equal to the CPU decode of the same soft stream; and the CLI
+   ``waterfall --family wimax --schedule flooding --self-correction`` for
+   two SNR points, and again from its checkpoint.
+4e. BASELINE 3m: dvbs2(64800, "3/4") encoded on the card, as 16APSK
+   (gamma 2.85) through complex AWGN at 14.8 dB, max-log demapped on the
+   card (the first frames equal to the CPU demap within 1e-5), decoded by
+   phase 4c's ``Decoder`` config (global placement, lazy) at batch 1024
+   with bench.py's gates; then the CLI ``waterfall --family dvbs2 --n
+   64800 --rate 3/4 --mod 16apsk`` at 14.8 dB and its resume.
+4f. BASELINE 4m: nr_code(384, 1) encoded on the card, rate-matched rv0
+   over the full buffer, as 64QAM at 13.5 dB, demapped (separable max-log),
+   de-rate-matched and decoded by ``Decoder`` (NR_CFG, shared placement)
+   at batch 512 with the same gates.
+4g. BICM-ID: dvbs2(16200, "3/4") as 16APSK at 13.9 dB, batch 1024, alpha
+   0.85, 30 iterations: one-shot and two exchanges on the same symbols;
+   the two soft passes must launch kernel C's soft mode (its counter), the
+   FER with the exchanges must be below the one-shot FER, and the loop
+   must equal the same loop whose decodes take the plain version on CUDA.
+   Then wimax(576, "1/2") as natural-label 8PSK at 10 dB, batch 2048,
+   alpha 0.75 on kernel A's soft mode (FER not above one-shot, equal to the
+   plain loop), and the CLI ``waterfall --mod 16apsk --id-outer 2`` on the
+   same DVB-S2 code and its resume.
+5. Times: CUDA events, median of 7 after a warm-up (for the plain versions
+   but the layered short-code and NR min-sum ones, one timed call after the
+   warm-up: they measure the host, not the card): each kernel and its plain version (single pass, no
+   triage) and the whole Decoder call, at the main paths' shapes, DVB-S2
+   64800 in lazy and exact mode, kernel A's flooding, SCMS, sum-product and
+   layered soft-output modes at phase 4d's shape, kernel B's route at
+   nr_code(32, 1), batch 4096, 3 dB; the kernel on dvbs2(16200, "1/2") at
+   batch 1024, its posterior in shared and in global memory; kernel C's
+   sum-product and soft output on phase 4b's 5 dB LLRs and soft output on
+   phase 4c's 1.4 dB ones; the 3m and 4m receive paths (the demap alone,
+   the decode, both together); and one BICM-ID step (two exchanges).
 
 The line before the last is the kernels' JSON record, one entry per kernel
 and mode: each ``launches`` counts its launches in its main path's
 ``Decoder`` call (and ``coder_launches`` those of the Coder TDMPCL, MSCL or
 SCMS decode), each counter set to 0 just before its run; ``bound_ms`` is
 the least time the card could take for the same work (:func:`bound`); the
-sum-product entry's ``cpu_posterior_max_abs_err`` is its largest posterior
-difference against the plain version on the CPU (phase 3d).  The last line is ``{"ok": true,
+sum-product entries' ``cpu_posterior_max_abs_err`` is their largest
+posterior difference against the plain version on the CPU (phases 3d,
+3f).  Kernel C's sum-product entry counts phase 4b's sum-product
+``Decoder``, its soft-output entry the BICM-ID soft passes (phase 4g; its
+times are phase 4b's soft ``Decoder``'s), its global soft-output entry
+phase 4c's; the 3m and 4m receive paths add ``m3_*``/``m4_*`` fields to
+the global and shared entries.  The last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -125,9 +179,14 @@ from myldpccppapi_torch import (
     Decoder,
     DecoderConfig,
     Encoder,
+    Modulation,
     QCCode,
     cli,
+    demap_llr,
     dvbs2,
+    make_bicm_id_receive,
+    make_modulation,
+    modulate,
     nr_code,
     wimax,
 )
@@ -142,7 +201,7 @@ from myldpccppapi_torch.codes import (
     triangular_encode_numpy,
 )
 from myldpccppapi_torch.ops import _build
-from myldpccppapi_torch.ops.channel import transmit
+from myldpccppapi_torch.ops.channel import sigma_from_snr_db, transmit
 from myldpccppapi_torch.ops.cuda_bp import (
     decode_qc_cuda,
     decode_qc_cuda_plain,
@@ -160,6 +219,9 @@ from myldpccppapi_torch.ops.packing import unpack_bits_np
 SEED = 20260816
 BATCH = 8192
 SNR_DB = 5.0
+#: phase 4d's Coder round trips are held against the CPU decode of this
+#: many codewords of their stream
+CPU_FRAMES = 2048
 #: bench.py's operating point: layered NMS, alpha 0.75, 40 iterations,
 #: two-phase triage with a 5-iteration fast pass
 BENCH_CFG = DecoderConfig(algorithm="min-sum", schedule="layered",
@@ -169,6 +231,8 @@ FIELDS = ("bits", "converged", "iterations", "total_iters")
 #: BASELINE config 4 (benchmarks/run_baseline.py config4): layered NMS
 #: alpha 0.8, 30 iterations, batch 512, 3-6 dB
 NR_CFG = DecoderConfig(normalization=0.8, max_iters=30)
+#: kernel C's sum-product mode on the same path
+NR_SP_CFG = DecoderConfig(algorithm="sum-product", max_iters=30)
 NR_BATCH = 512
 NR_SNRS = (3.0, 4.0, 5.0, 6.0)
 #: kernel C cases: (z, bg, [an SNR where nearly every frame converges, one
@@ -216,6 +280,26 @@ B_SNRS = {1: (3.0, -1.25), 2: (3.0, -3.0)}
 B_MAIN = (32, 1)
 B_BATCH = 4096
 B_SNR = 3.0
+#: BASELINE 3m (benchmarks/run_baseline.py config3m): DVB-S2 64800 r3/4
+#: received as 16APSK (gamma 2.85, the rate's EN 302 307 ring ratio),
+#: max-log demap, phase 4c's decoder config (alpha 0.85, 30 iterations,
+#: lazy syndrome), batch 1024, 14.8 dB
+M3_RATE = "3/4"
+M3_SNR = 14.8
+#: BASELINE 4m (config4m): NR BG1 Z=384, rv0 over the full buffer, received
+#: as 64QAM, max-log demap, NR_CFG, batch 512, 13.5 dB
+M4_SNR = 13.5
+#: BICM-ID (benchmarks/bicm_id_bench.py): DVB-S2 16200 r3/4 as quasi-Gray
+#: 16APSK, alpha 0.85, 30 iterations, batch 1024, 13.9 dB, two exchanges
+#: against one-shot on the same symbols; and its short-code case: wimax
+#: 576 r1/2 as natural-label 8PSK, alpha 0.75, 30 iterations, 10 dB
+ID_CFG = DecoderConfig(normalization=0.85, max_iters=30)
+ID_BATCH = 1024
+ID_SNR = 13.9
+ID_OUTER = 2
+ID_SHORT_CFG = DecoderConfig(normalization=0.75, max_iters=30)
+ID_SHORT_BATCH = 2048
+ID_SHORT_SNR = 10.0
 #: the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and f32
 #: operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -248,6 +332,14 @@ OPS_SFU_PER_EDGE_SWEEP = 6
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def exits(easy: bool) -> tuple:
+    """Early exit on, and off at the SNR where nearly every frame converges:
+    there every latched block keeps sweeping, the path that early exit off
+    adds.  At the hard SNR nearly no block finishes early, so early exit
+    off runs the same sweeps as on, and is not repeated."""
+    return (True, False) if easy else (True,)
 
 
 def max_abs_diff(a, b) -> float:
@@ -318,12 +410,12 @@ def phase_long_kernel_vs_plain() -> float:
         code = nr_code(z, bg)
         per_layer = tuple(float(x) for x in np.round(
             np.linspace(0.7, 0.9, code.m_b), 3))
-        for snr in snrs:
+        for si, snr in enumerate(snrs):
             llr_gpu = nr_numpy_llr(code, 101, snr, SEED + 100 + ci).cuda()
             llr_cpu = llr_gpu[:16].cpu()
             shown = None  # the alpha 0.8, early-exit case, for the log
             for alpha in (0.8, per_layer):
-                for early_exit in (True, False):
+                for early_exit in exits(si == 0):
                     cfg = DecoderConfig(normalization=alpha, max_iters=30,
                                         early_exit=early_exit)
                     k = decode_qc_long(code, cfg, llr_gpu)
@@ -354,6 +446,96 @@ def phase_long_kernel_vs_plain() -> float:
         f"total_iters={int(k.total_iters)}: kernel == plain (cuda)")
     log(f"[phase3b] {n_cases} cases bit-exact")
     return worst
+
+
+def phase_long_modes_vs_plain() -> tuple[dict, float]:
+    """Phase 3f; returns the largest difference per kernels-line group
+    ("sp", "soft") against the plain version on CUDA (0.0: any other
+    raises) and sum-product's largest posterior difference against it on
+    the CPU."""
+    dev = torch.cuda.current_device()
+    nr1, nr2 = nr_code(384, 1), nr_code(64, 2)
+    d16, d64 = dvbs2(16200, "1/2"), dvbs2(64800, "1/2")
+    # (code, batch, snr, mode, config fields, compare on the CPU at batch
+    #  16, force the global placement); sum-product's hard SNRs lie below
+    #  min-sum's, since it converges where min-sum does not
+    cases = []
+    for mode, snr, syn, ee, cpu in (
+            ("sp", 3.0, "exact", True, True), ("sp", -2.0, "exact", True, False),
+            ("soft", 3.0, "exact", True, True), ("soft", -1.25, "exact", False, False),
+            ("sp soft", -2.0, "lazy", True, False), ("sp soft", 3.0, "exact", False, False)):
+        cases.append((nr1, 64, snr, mode, dict(syndrome_mode=syn, early_exit=ee), cpu, False))
+    cases.append((nr1, 64, 3.0, "soft", dict(max_iters=0), False, False))
+    for mode, snr, syn, ee in (("sp soft", 3.0, "exact", True), ("soft", -3.0, "lazy", False),
+                               ("sp", -4.0, "exact", True)):
+        cases.append((nr2, 64, snr, mode, dict(syndrome_mode=syn, early_exit=ee), False, False))
+    for mode, snr, syn, ee, cpu in (
+            ("sp soft", 1.5, "exact", True, True), ("soft", 0.0, "lazy", False, True),
+            ("sp soft", 0.0, "lazy", True, False), ("sp soft", 1.5, "exact", False, False)):
+        cases.append((d16, 64, snr, mode, dict(syndrome_mode=syn, early_exit=ee), cpu, False))
+    for mode, snr, syn in (("soft", 1.4, "lazy"), ("sp soft", 1.0, "exact")):
+        cases.append((d64, 16, snr, mode, dict(syndrome_mode=syn), False, False))
+    cases.append((nr1, 64, -2.0, "sp soft", {}, False, True))
+    worst = {"sp": 0.0, "soft": 0.0}
+    sp_cpu_post = 0.0
+    llrs = {}
+    for ci, (code, batch, snr, mode, kw, cpu, force) in enumerate(cases):
+        key = (code.name, batch, snr)
+        if key not in llrs:
+            seed = SEED + 600 + len(llrs)
+            llrs[key] = (nr_numpy_llr(code, batch, snr, seed) if code.name.startswith("nr")
+                         else dvbs2_llr(code, batch, snr, seed))
+        llr_cpu = llrs[key]
+        llr_gpu = llr_cpu.cuda()
+        fields = {"max_iters": 30, **kw}
+        if "sp" in mode.split():
+            fields["algorithm"] = "sum-product"
+        else:
+            fields["normalization"] = 0.8
+        fields["soft_output"] = "soft" in mode.split()
+        cfg = DecoderConfig(**fields)
+        group = "sp" if cfg.algorithm == "sum-product" else "soft"
+        before = (decode_qc_long.global_launches, decode_qc_long.soft_launches,
+                  decode_qc_long.sp_launches)
+        k = decode_qc_long(code, cfg, llr_gpu, _force_global=force)
+        torch.cuda.synchronize()
+        after = (decode_qc_long.global_launches, decode_qc_long.soft_launches,
+                 decode_qc_long.sp_launches)
+        want_global = force or placement(code, dev) == GLOBAL
+        if (after[0] > before[0], after[1] > before[1], after[2] > before[2]) != (
+                want_global, cfg.soft_output, cfg.algorithm == "sum-product"):
+            raise AssertionError(f"{code.name} {mode}: launched the wrong mode")
+        worst[group] = max(worst[group],
+                           max_abs_diff(k, decode_qc_long_plain(code, cfg, llr_gpu)))
+        where = "global" if want_global else "shared"
+        note = "cuda"
+        if force:
+            worst[group] = max(worst[group], max_abs_diff(k, decode_qc_long(code, cfg, llr_gpu)))
+            note = "cuda; forced global == shared"
+        if cpu:
+            cpu16 = llr_cpu[:16].contiguous()
+            k16 = decode_qc_long(code, cfg, cpu16.cuda(), _force_global=force)
+            p16 = decode_qc_long_plain(code, cfg, cpu16)
+            if cfg.algorithm == "sum-product":
+                sp_cpu_post = max(sp_cpu_post, sp_cpu_diff(k16, p16))
+                note += "; cpu: equal bits and converged flags"
+            else:
+                worst[group] = max(worst[group], max_abs_diff(k16, p16))
+                note += ", cpu"
+        if cfg.soft_output:
+            hard = (k.posteriors <= 0).to(torch.uint8)
+            if cfg.max_iters and not torch.equal(hard, k.bits):
+                raise AssertionError(f"{code.name} {mode}: bits disagree with posteriors")
+            if not cfg.max_iters and not torch.equal(k.posteriors, llr_gpu):
+                raise AssertionError("max_iters=0: the posterior is not the channel LLR")
+        log(f"[phase3f] {code.name} {where} {mode} snr={snr} "
+            + " ".join(f"{a}={b}" for a, b in kw.items())
+            + f" {summary(k)}: kernel == plain ({note})")
+    log(f"[phase3f] {len(cases)} cases bit-exact against the plain version on "
+        "CUDA (posteriors of every frame included); sum-product against the "
+        "CPU at a converging point: equal bits and converged flags, "
+        f"iterations within 1 (largest posterior difference {sp_cpu_post})")
+    return worst, sp_cpu_post
 
 
 def dvbs2_llr(code, batch: int, snr_db: float, seed: int) -> torch.Tensor:
@@ -431,7 +613,7 @@ def phase_dvbs2_kernel_vs_plain() -> tuple[float, float]:
             before = decode_qc_long.global_launches
             for mode in ("exact", "lazy"):
                 for alpha in alphas:
-                    for early_exit in (True, False):
+                    for early_exit in exits(si == 0):
                         cfg = DecoderConfig(normalization=alpha, max_iters=30,
                                             early_exit=early_exit,
                                             syndrome_mode=mode)
@@ -518,7 +700,7 @@ def phase_kernel_vs_plain() -> float:
             llr = numpy_llr(code, 1000, snr, SEED + ci)
             llr_cpu = torch.from_numpy(llr)
             llr_gpu = llr_cpu.cuda()
-            for early_exit in (True, False):
+            for early_exit in exits(snr == 5.0):
                 cfg = DecoderConfig(normalization=per_layer, max_iters=40,
                                     early_exit=early_exit)
                 k = decode_qc_cuda(code, cfg, llr_gpu)
@@ -566,13 +748,15 @@ def phase_modes_vs_plain() -> tuple[dict, float]:
             for name, (group, kw) in A_MODES.items():
                 if kw.get("normalization", 1.0) is None:
                     kw = dict(kw, normalization=per_layer)
-                for early_exit in (True, False):
+                for early_exit in exits(snr == 5.0):
                     cfg = DecoderConfig(max_iters=40, early_exit=early_exit, **kw)
                     k = decode_qc_cuda(code, cfg, llr_gpu)
                     worst[group] = max(
                         worst[group],
                         max_abs_diff(k, decode_qc_cuda_plain(code, cfg, llr_gpu)))
-                    if group != "sp":
+                    # against the CPU at 5 dB only: at 2 dB the CPU plain
+                    # version would repeat the CUDA one checked above
+                    if snr == 5.0 and group != "sp":
                         worst[group] = max(worst[group], max_abs_diff(
                             decode_qc_cuda(code, cfg, cpu16.cuda()),
                             decode_qc_cuda_plain(code, cfg, cpu16)))
@@ -593,14 +777,14 @@ def phase_modes_vs_plain() -> tuple[dict, float]:
                 + " ".join(f"{n.split()[0]}={shown[n].converged.float().mean().item():.3f}"
                            for n in ("flooding alpha 0.75", "scms", "sp flooding"))
                 + f" scms!=flooding on {diff} frames: "
-                f"{2 * len(A_MODES)} cases kernel == plain (cuda; cpu, "
+                f"{len(exits(snr == 5.0)) * len(A_MODES)} cases kernel == plain (cuda; cpu, "
                 + ("sum-product within its tolerance)" if snr == 5.0
-                   else "min-sum only)"))
+                   else "not compared)"))
     if erased == 0:
         raise AssertionError("SCMS never ran otherwise than plain flooding")
     log(f"[phase3d] {n_cases} cases bit-exact against the plain version on "
         "CUDA (posteriors of every frame included; sum-product too); against "
-        "the CPU every min-sum case bit-exact, sum-product at 5 dB with equal "
+        "the CPU at 5 dB every min-sum case bit-exact, sum-product with equal "
         "bits and converged flags, iterations within 1 (largest posterior "
         f"difference {sp_cpu_post})")
     return worst, sp_cpu_post
@@ -616,10 +800,10 @@ def phase_route_b_vs_plain():
         impl = Decoder(code, NR_CFG, device="cuda").implementation
         if impl != "cuda" or code.num_blocks <= 120:
             raise AssertionError(f"{code.name}: resolved to {impl}")
-        for snr in B_SNRS[bg]:
+        for si, snr in enumerate(B_SNRS[bg]):
             llr_gpu = nr_numpy_llr(code, 101, snr, SEED + 500 + ci).cuda()
             llr_cpu = llr_gpu[:16].cpu()
-            for early_exit in (True, False):
+            for early_exit in exits(si == 0):
                 cfg = DecoderConfig(normalization=0.8, max_iters=30,
                                     early_exit=early_exit)
                 k = decode_qc_cuda(code, cfg, llr_gpu)
@@ -771,17 +955,22 @@ def phase_flooding_main_path(llr, u, stream):
         coder_launches[de_type] = decode_qc_cuda.launches
         if coder_launches[de_type] < 1:
             raise AssertionError(f"the Coder {de_type} decode launched no kernel")
+        # the CPU decode of the stream's first CPU_FRAMES codewords (a frame
+        # decodes alike in any batch; the CPU takes seconds per thousand)
         cpu = Coder(432, 576, "3/4B", device="cpu")
         cpu.for_decoder(BATCH)
-        out_cpu, stats_cpu = cpu.decode(post, len(src), de_type, return_stats=True)
-        if not (np.array_equal(out, out_cpu)
-                and np.array_equal(stats["converged"], stats_cpu["converged"])
-                and np.array_equal(stats["iterations"], stats_cpu["iterations"])):
+        m, nbytes = CPU_FRAMES, CPU_FRAMES * code.k // 8
+        out_cpu, stats_cpu = cpu.decode(post[:m * code.n], nbytes, de_type,
+                                        return_stats=True)
+        if not (np.array_equal(out[:nbytes], out_cpu)
+                and np.array_equal(stats["converged"][:m], stats_cpu["converged"])
+                and np.array_equal(stats["iterations"][:m], stats_cpu["iterations"])):
             raise AssertionError(f"Coder {de_type} (cuda) differs from the CPU decode")
         err = int(np.sum(np.frombuffer(src, np.uint8) != out))
         log(f"[phase4d] Coder {de_type} round trip: {len(src)} bytes, "
             f"mean_iters={stats['mean_iters']:.3f}, ErrNum={err}, "
-            f"launches={coder_launches[de_type]}; equal to the CPU decode")
+            f"launches={coder_launches[de_type]}; its first {m} codewords "
+            "equal to the CPU decode")
     waterfall_and_resume("phase4d", ["--family", "wimax", "--n", "576", "--rate", "1/2",
                                      "--snr=1.5,2.0", "--schedule", "flooding",
                                      "--self-correction"], decode_qc_cuda)
@@ -821,18 +1010,52 @@ def phase_nr_main_path():
         raise AssertionError(f"Decoder({small.name}, soft_output) on the card "
                              "did not raise")
 
+    # soft output on the long code: kernel C's soft mode, equal to the
+    # torch path, the posteriors of every frame included
+    soft_cfg = dataclasses.replace(NR_CFG, soft_output=True)
+    soft = Decoder(code, soft_cfg, device="cuda")
+    if soft.implementation != "cuda_long":
+        raise AssertionError(f"NR soft output resolved to {soft.implementation}")
+    decode_qc_long.soft_launches = 0
+    res = soft(llrs[5.0])
+    torch.cuda.synchronize()
+    if decode_qc_long.soft_launches != 1:
+        raise AssertionError("the NR soft-output Decoder did not launch the soft mode")
+    max_abs_diff(res, Decoder(code, soft_cfg, device="cuda", implementation="torch")(llrs[5.0]))
+    log(f"[phase4b] Decoder({code.name}, soft_output, device=cuda) impl="
+        f"{soft.implementation} at 5 dB {gates(soft, res, u)}; == Decoder(torch), "
+        "posteriors included")
+    # sum-product on the long code: kernel C's sum-product mode at 3-6 dB
+    sp = Decoder(code, NR_SP_CFG, device="cuda")
+    if sp.implementation != "cuda_long":
+        raise AssertionError(f"NR sum-product resolved to {sp.implementation}")
+    decode_qc_long.sp_launches = 0
+    sp_results = {snr: sp(llr) for snr, llr in llrs.items()}
+    torch.cuda.synchronize()
+    sp_launches = decode_qc_long.sp_launches
+    if sp_launches < 1:
+        raise AssertionError("the NR sum-product Decoder launched no sum-product kernel")
+    for snr, res in sp_results.items():
+        log(f"[phase4b] Decoder sum-product impl={sp.implementation} {code.name} "
+            f"batch={NR_BATCH} snr={snr} {gates(sp, res, u)}")
+    max_abs_diff(sp_results[5.0], Decoder(code, NR_SP_CFG, device="cuda",
+                                          implementation="torch")(llrs[5.0]))
+    log(f"[phase4b] sum-product launches={sp_launches}; == Decoder(torch) at 5 dB")
+
     waterfall_and_resume("phase4b", ["--family", "nr", "--z", "384", "--bg", "1",
                                      "--snr=-2.5,-1.5", "--normalization", "0.8"],
                          decode_qc_long)
-    return dec, llrs[5.0], launches
+    return dec, llrs[5.0], launches, sp, sp_launches, soft
 
 
-def waterfall_and_resume(tag: str, code_args: list, kernel) -> None:
-    """The CLI ``waterfall`` on the card for two SNR points (batch 256, up
+def waterfall_and_resume(tag: str, code_args: list, kernel,
+                         counter: str = "launches") -> None:
+    """The CLI ``waterfall`` on the card for its SNR points (batch 256, up
     to 512 frames, 30 iterations), then again from its checkpoint, which
     must run no new step and print the same lines.  ``kernel`` is the
-    wrapper (``decode_qc_cuda`` or ``decode_qc_long``) whose shared-memory
-    launches the first run must count."""
+    wrapper (``decode_qc_cuda`` or ``decode_qc_long``) whose launch count
+    ``counter`` (shared-memory launches by default) the first run must
+    raise."""
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "ck.json")
         argv = ["waterfall", *code_args, "--batch", "256", "--target-errors",
@@ -841,7 +1064,7 @@ def waterfall_and_resume(tag: str, code_args: list, kernel) -> None:
                 "--device", "cuda"]
         runs = []
         for _ in range(2):
-            kernel.launches = 0
+            setattr(kernel, counter, 0)
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 if cli.main(argv) != 0:
@@ -849,7 +1072,7 @@ def waterfall_and_resume(tag: str, code_args: list, kernel) -> None:
             with open(ck) as f:
                 steps = json.load(f)["steps_done"]
             runs.append((buf.getvalue().strip().splitlines(),
-                         kernel.launches, steps))
+                         getattr(kernel, counter), steps))
         (lines, first_launches, steps), (lines2, resumed_launches, steps2) = runs
         for line in lines:
             log(f"[{tag}] waterfall {line}")
@@ -860,7 +1083,8 @@ def waterfall_and_resume(tag: str, code_args: list, kernel) -> None:
                 f"the resumed waterfall ran new steps ({resumed_launches} "
                 f"launches, steps {steps} -> {steps2})")
         log(f"[{tag}] waterfall: {sum(steps)} steps, {first_launches} "
-            "launches; rerun from its checkpoint: 0 new steps, same lines")
+            f"launches ({counter}); rerun from its checkpoint: 0 new steps, "
+            "same lines")
 
 
 def phase_dvbs2_main_path():
@@ -909,10 +1133,181 @@ def phase_dvbs2_main_path():
     log(f"[phase4c] lazy vs Decoder(torch) (exact syndrome) at 1.4 dB: same "
         f"converged frames and bits; lazy - exact iterations: mean "
         f"{lag.mean().item():.3f}, min {int(lag.min())}, max {int(lag.max())}")
+    # soft output in the global placement: kernel C's soft mode with the
+    # posterior in global memory, equal to the lazy plain version
+    soft_cfg = dataclasses.replace(DVB_CFG, soft_output=True)
+    soft = Decoder(code, soft_cfg, device="cuda")
+    decode_qc_long.global_launches = 0
+    decode_qc_long.soft_launches = 0
+    res = soft(llrs[1.4])
+    torch.cuda.synchronize()
+    soft_launches = decode_qc_long.soft_launches
+    if soft.implementation != "cuda_long" or (
+            decode_qc_long.global_launches, soft_launches) != (1, 1):
+        raise AssertionError("the DVB-S2 soft-output Decoder did not launch the global "
+                             "soft mode")
+    max_abs_diff(res, decode_qc_long_plain(code, soft_cfg, llrs[1.4]))
+    log(f"[phase4c] Decoder({code.name}, soft_output) impl={soft.implementation} "
+        f"(global) at 1.4 dB {gates(soft, res, u)} launches={soft_launches}; == the "
+        "lazy plain version, posteriors included")
     waterfall_and_resume("phase4c", ["--family", "dvbs2", "--n", "16200", "--rate",
                                      "1/2", "--snr=0.5,1.0", "--normalization", "0.85"],
                          decode_qc_long)
-    return dec, llrs[1.4], launches
+    return dec, llrs[1.4], launches, soft, soft_launches
+
+
+def received(gen, cw, mod: Modulation, snr_db: float):
+    """Codeword bits -> ``mod`` symbols -> complex AWGN with per-component
+    sigma = 10^(-snr/20) (sim_step's convention): (y, n0 = 2 sigma^2)."""
+    sigma = sigma_from_snr_db(snr_db).cuda()
+    sym = modulate(cw, mod)
+    noise = torch.randn(sym.shape + (2,), generator=gen, device="cuda")
+    return sym + sigma * torch.complex(noise[..., 0], noise[..., 1]), 2 * sigma * sigma
+
+
+def check_demap(y, n0, mod, llr):
+    """The demap on the card against the same torch ops on the CPU for the
+    first frames: equal to the tolerance of tests/test_torch_modulation.py
+    (complex abs rounds per device); returns the largest difference."""
+    cpu = demap_llr(y[:4].cpu(), n0.cpu(), mod)
+    got = llr[:4].cpu()
+    torch.testing.assert_close(got, cpu, rtol=1e-5, atol=1e-5)
+    return float((got - cpu).abs().max())
+
+
+def phase_3m_main_path():
+    """Phase 4e: BASELINE 3m through the demapper and Decoder, then the
+    CLI."""
+    code = dvbs2(64800, M3_RATE)
+    mod = make_modulation("16apsk", M3_RATE)
+    dec = Decoder(code, DVB_CFG, device="cuda")
+    where = placement(code, torch.cuda.current_device())
+    if dec.implementation != "cuda_long" or where != GLOBAL:
+        raise AssertionError(f"3m resolved to {dec.implementation} in placement {where}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    u = torch.randint(0, 2, (DVB_BATCH, code.k), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    y, n0 = received(gen, ira_encode_fn(code)(u), mod, M3_SNR)
+    decode_qc_long.launches = 0
+    decode_qc_long.global_launches = 0
+    llr = demap_llr(y, n0, mod)
+    res = dec(llr)
+    torch.cuda.synchronize()
+    launches = decode_qc_long.global_launches
+    if launches < 1 or decode_qc_long.launches:
+        raise AssertionError("3m did not run in the global placement")
+    d = check_demap(y, n0, mod, llr)
+    log(f"[phase4e] 3m: {code.name} as {mod.name} (gamma 2.85) batch={DVB_BATCH} "
+        f"snr={M3_SNR} max-log demap ({y.numel()} symbols; cuda vs cpu max diff "
+        f"{d}) -> Decoder impl={dec.implementation} (global, lazy) "
+        f"{gates(dec, res, u)} launches={launches}")
+    waterfall_and_resume("phase4e", ["--family", "dvbs2", "--n", "64800", "--rate",
+                                     M3_RATE, "--mod", "16apsk", f"--snr={M3_SNR}",
+                                     "--normalization", "0.85"],
+                         decode_qc_long, "global_launches")
+    return dec, mod, y, n0, launches
+
+
+def phase_4m_main_path():
+    """Phase 4f: BASELINE 4m: NR rate-matched rv0 as 64QAM, demapped,
+    de-rate-matched and decoded."""
+    code = nr_code(384, 1)
+    mod = make_modulation("64qam")
+    dec = Decoder(code, NR_CFG, device="cuda")
+    if dec.implementation != "cuda_long":
+        raise AssertionError(f"4m resolved to {dec.implementation}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    u = torch.randint(0, 2, (NR_BATCH, code.k), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    e = code.n - code.punctured_front  # rv0 over the full buffer
+    tx = rate_match_bits(code, triangular_encode_fn(code)(u), e)
+    y, n0 = received(gen, tx, mod, M4_SNR)
+    decode_qc_long.launches = 0
+    llr_e = demap_llr(y, n0, mod)
+    res = dec(rate_match_llr(code, llr_e, e).contiguous())
+    torch.cuda.synchronize()
+    launches = decode_qc_long.launches
+    if launches < 1:
+        raise AssertionError("4m launched no long-code kernel")
+    d = check_demap(y, n0, mod, llr_e)
+    log(f"[phase4f] 4m: {code.name} rv0 e={e} as {mod.name} batch={NR_BATCH} "
+        f"snr={M4_SNR} separable max-log demap ({y.numel()} symbols; cuda vs cpu "
+        f"max diff {d}) -> de-rate-match -> Decoder impl={dec.implementation} "
+        f"(shared) {gates(dec, res, u)} launches={launches}")
+    return dec, mod, y, n0, e, launches
+
+
+def frame_errors(dec, res, u) -> int:
+    return int((dec.info_bits(res) != u).any(dim=1).sum())
+
+
+def phase_bicm_id():
+    """Phase 4g: BICM-ID on kernel C's soft mode (DVB-S2 16200 r3/4, 16APSK)
+    and on kernel A's (wimax 576 r1/2, natural 8PSK); each loop equal to the
+    same loop on the plain version on CUDA; then the CLI."""
+    code = dvbs2(16200, "3/4")
+    mod = make_modulation("16apsk", "3/4")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    u = torch.randint(0, 2, (ID_BATCH, code.k), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    y, n0 = received(gen, ira_encode_fn(code)(u), mod, ID_SNR)
+    one_shot = make_bicm_id_receive(code, ID_CFG, mod, n_outer=0, device="cuda")
+    rx = make_bicm_id_receive(code, ID_CFG, mod, n_outer=ID_OUTER, device="cuda")
+    dec = Decoder(code, ID_CFG, device="cuda")
+    if dec.implementation != "cuda_long":
+        raise AssertionError(f"BICM-ID resolved to {dec.implementation}")
+    res0 = one_shot(y, n0)
+    for attr in ("launches", "soft_launches"):
+        setattr(decode_qc_long, attr, 0)
+    res = rx(y, n0)
+    torch.cuda.synchronize()
+    launches, soft = decode_qc_long.launches, decode_qc_long.soft_launches
+    if soft != ID_OUTER or launches != ID_OUTER + 1:
+        raise AssertionError(f"BICM-ID launched {launches} times, {soft} in the soft mode")
+    fer0 = frame_errors(dec, res0, u) / ID_BATCH
+    fer = frame_errors(dec, res, u) / ID_BATCH
+    if not fer < fer0:
+        raise AssertionError(f"BICM-ID FER {fer} not below one-shot {fer0}")
+    plain = make_bicm_id_receive(code, dataclasses.replace(ID_CFG, implementation="torch"),
+                                 mod, n_outer=ID_OUTER, device="cuda")
+    max_abs_diff(res, plain(y, n0))
+    log(f"[phase4g] BICM-ID {code.name} as {mod.name} batch={ID_BATCH} snr={ID_SNR}: "
+        f"one-shot FER {fer0:.4f} conv {res0.converged.float().mean().item():.4f}; "
+        f"{ID_OUTER} exchanges FER {fer:.4f} conv "
+        f"{res.converged.float().mean().item():.4f}; launches={launches} "
+        f"(soft mode {soft}); == the loop on the plain version (cuda)")
+    # kernel A's soft mode: the short-code case, natural-label 8PSK
+    short = wimax(576, "1/2")
+    natural = Modulation("8psk_nat", np.exp(1j * (2 * np.pi * np.arange(8) / 8 + np.pi / 8)
+                                            ).astype(np.complex64),
+                         ((np.arange(8)[:, None] >> np.arange(3)) & 1).astype(np.uint8))
+    us = torch.randint(0, 2, (ID_SHORT_BATCH, short.k), generator=gen, device="cuda",
+                       dtype=torch.uint8)
+    ys, n0s = received(gen, Encoder(short, device="cuda")(us), natural, ID_SHORT_SNR)
+    sdec = Decoder(short, ID_SHORT_CFG, device="cuda")
+    s0 = make_bicm_id_receive(short, ID_SHORT_CFG, natural, n_outer=0, device="cuda")(ys, n0s)
+    decode_qc_cuda.soft_launches = 0
+    s2 = make_bicm_id_receive(short, ID_SHORT_CFG, natural, n_outer=ID_OUTER,
+                              device="cuda")(ys, n0s)
+    torch.cuda.synchronize()
+    short_soft = decode_qc_cuda.soft_launches
+    if short_soft != ID_OUTER:
+        raise AssertionError(f"kernel A's soft mode launched {short_soft} times")
+    sf0, sf2 = (frame_errors(sdec, r, us) / ID_SHORT_BATCH for r in (s0, s2))
+    if not sf2 <= sf0:
+        raise AssertionError(f"short-code BICM-ID FER {sf2} above one-shot {sf0}")
+    max_abs_diff(s2, make_bicm_id_receive(
+        short, dataclasses.replace(ID_SHORT_CFG, implementation="torch"), natural,
+        n_outer=ID_OUTER, device="cuda")(ys, n0s))
+    log(f"[phase4g] BICM-ID {short.name} as natural 8PSK batch={ID_SHORT_BATCH} "
+        f"snr={ID_SHORT_SNR}: one-shot FER {sf0:.4f}, {ID_OUTER} exchanges FER "
+        f"{sf2:.4f}; kernel A soft launches={short_soft}; == the loop on the plain "
+        "version (cuda)")
+    waterfall_and_resume("phase4g", ["--family", "dvbs2", "--n", "16200", "--rate", "3/4",
+                                     "--mod", "16apsk", "--id-outer", str(ID_OUTER),
+                                     f"--snr={ID_SNR}", "--normalization", "0.85"],
+                         decode_qc_long, "soft_launches")
+    return rx, plain, y, n0, soft, fer0, fer, short_soft
 
 
 def bound(code, cfg, llr, res) -> tuple[float, str]:
@@ -976,6 +1371,20 @@ def phase_times(dec, llr, kernel, plain, cfg, plain_reps: int = 7, tag: str = ""
     return out
 
 
+def receive_times(tag, dec, mod, y, n0, derate):
+    """A receive path's times: the demap alone, the decode (kernel, plain
+    version, Decoder, bound) of its LLRs, and demap + decode together."""
+    demap_ms = median_ms(lambda: demap_llr(y, n0, mod))
+    llr = derate(demap_llr(y, n0, mod))
+    out = phase_times(dec, llr, decode_qc_long, decode_qc_long_plain, dec.config,
+                      plain_reps=1, tag=tag)
+    out["demap"] = demap_ms
+    out["receive"] = median_ms(lambda: dec(derate(demap_llr(y, n0, mod))))
+    log(f"[phase5] {dec.code.name}{tag} demap ({mod.name}, {y.numel()} symbols): "
+        f"{demap_ms:.4f} ms; demap + decode: {out['receive']:.4f} ms")
+    return out
+
+
 def phase_dvbs2_times(dvb_dec, dvb_llr):
     """The DVB-S2 64800 main path in lazy and exact mode; then the kernel
     on dvbs2(16200, "1/2") at the same batch, posterior in shared and in
@@ -985,7 +1394,7 @@ def phase_dvbs2_times(dvb_dec, dvb_llr):
         cfg = dataclasses.replace(DVB_CFG, syndrome_mode=mode)
         dec = dvb_dec if mode == "lazy" else Decoder(dvb_dec.code, cfg, device="cuda")
         times[mode] = phase_times(dec, dvb_llr, decode_qc_long,
-                                  decode_qc_long_plain, cfg, plain_reps=3,
+                                  decode_qc_long_plain, cfg, plain_reps=1,
                                   tag=f" {mode}")
     code = dvbs2(16200, "1/2")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -1033,21 +1442,46 @@ def main() -> int:
     worst_b, b_dec, b_llr, b_launches = phase(phase_route_b_vs_plain)
     worst_long = phase(phase_long_kernel_vs_plain)
     worst_shared, worst_global = phase(phase_dvbs2_kernel_vs_plain)
+    worst_c_modes, c_sp_cpu_post = phase(phase_long_modes_vs_plain)
     dec, llr, u, launches, coder_launches, stream = phase(phase_main_path)
     flood_decs, flood_launches, mode_coder_launches = phase(
         phase_flooding_main_path, llr, u, stream)
-    nr_dec, nr_llr, nr_launches = phase(phase_nr_main_path)
-    dvb_dec, dvb_llr, dvb_launches = phase(phase_dvbs2_main_path)
+    nr_dec, nr_llr, nr_launches, sp_dec, sp_launches, nr_soft_dec = phase(
+        phase_nr_main_path)
+    dvb_dec, dvb_llr, dvb_launches, dvb_soft_dec, dvb_soft_launches = phase(
+        phase_dvbs2_main_path)
+    m3 = phase(phase_3m_main_path)
+    m4 = phase(phase_4m_main_path)
+    bicm = phase(phase_bicm_id)
     times = phase_times(dec, llr, decode_qc_cuda, decode_qc_cuda_plain,
                         dataclasses.replace(BENCH_CFG, triage_iters=0))
     mode_times = {group: phase_times(d, llr, decode_qc_cuda, decode_qc_cuda_plain,
-                                     MODE_CFGS[group], plain_reps=3, tag=f" {group}")
+                                     MODE_CFGS[group], plain_reps=1, tag=f" {group}")
                   for group, d in flood_decs.items()}
     b_times = phase_times(b_dec, b_llr, decode_qc_cuda, decode_qc_cuda_plain,
-                          NR_CFG, plain_reps=3, tag=" kernel B route")
+                          NR_CFG, plain_reps=1, tag=" kernel B route")
     nr_times = phase_times(nr_dec, nr_llr, decode_qc_long,
                            decode_qc_long_plain, NR_CFG)
     dvb_times = phase_dvbs2_times(dvb_dec, dvb_llr)["lazy"]
+    sp_times = phase_times(sp_dec, nr_llr, decode_qc_long, decode_qc_long_plain,
+                           NR_SP_CFG, plain_reps=1, tag=" sum-product")
+    soft_times = phase_times(nr_soft_dec, nr_llr, decode_qc_long, decode_qc_long_plain,
+                             nr_soft_dec.config, plain_reps=1, tag=" soft output")
+    dvb_soft_times = phase_times(dvb_soft_dec, dvb_llr, decode_qc_long,
+                                 decode_qc_long_plain, dvb_soft_dec.config,
+                                 plain_reps=1, tag=" lazy soft output")
+    m3_dec, m3_mod, m3_y, m3_n0, _ = m3
+    m3_times = receive_times(" 3m", m3_dec, m3_mod, m3_y, m3_n0, lambda x: x)
+    m4_dec, m4_mod, m4_y, m4_n0, m4_e, _ = m4
+    m4_times = receive_times(
+        " 4m", m4_dec, m4_mod, m4_y, m4_n0,
+        lambda x: rate_match_llr(m4_dec.code, x, m4_e).contiguous())
+    rx, rx_plain, id_y, id_n0 = bicm[:4]
+    id_ms = median_ms(lambda: rx(id_y, id_n0))
+    id_plain_ms = median_ms(lambda: rx_plain(id_y, id_n0), 1)
+    log(f"[phase5] BICM-ID step ({ID_OUTER} exchanges, dvbs2ira_n16200_r34 as "
+        f"16apsk, batch {ID_BATCH}, {ID_SNR} dB): {id_ms:.4f} ms, on the plain "
+        f"version {id_plain_ms:.4f} ms")
     log(f"[time] phase 5 done at {time.perf_counter() - t0:.1f} s")
 
     log(smi)
@@ -1062,6 +1496,7 @@ def main() -> int:
                 "library_ms": None}
 
     kernel_a = "myldpccppapi_tpu/ops/pallas_bp.py:249"
+    kernel_c = "myldpccppapi_tpu/ops/pallas_zlane.py:205"
     print(json.dumps({"kernels": [
         entry("bp_layered", "bp_layered.cu", kernel_a,
               launches, worst, times, coder_launches=coder_launches),
@@ -1077,17 +1512,31 @@ def main() -> int:
               flood_launches["sp"], worst_modes["sp"], mode_times["sp"],
               cpu_posterior_max_abs_err=sp_cpu_post),
         entry("bp_layered_soft_output", "bp_layered.cu", kernel_a,
-              flood_launches["soft"], worst_modes["soft"], mode_times["soft"]),
+              flood_launches["soft"], worst_modes["soft"], mode_times["soft"],
+              bicm_id_launches=bicm[7]),
         # kernel B's table-driven route through the same kernel
         entry("bp_layered_route_b", "bp_layered.cu",
               "myldpccppapi_tpu/ops/pallas_bp.py:410", b_launches, worst_b,
               b_times),
-        entry("bp_long", "bp_long.cu", "myldpccppapi_tpu/ops/pallas_zlane.py:205",
-              nr_launches, max(worst_long, worst_shared), nr_times),
+        entry("bp_long", "bp_long.cu", kernel_c, nr_launches,
+              max(worst_long, worst_shared), nr_times,
+              m4_launches=m4[-1], m4_demap_ms=m4_times["demap"],
+              m4_receive_ms=m4_times["receive"]),
         # the same source's global-posterior mode
         entry("bp_long_global", "bp_long.cu",
               "myldpccppapi_tpu/ops/pallas_stream.py:120", dvb_launches,
-              worst_global, dvb_times),
+              worst_global, dvb_times, m3_launches=m3[-1],
+              m3_demap_ms=m3_times["demap"], m3_decode_ms=m3_times["kernel"],
+              m3_plain_ms=m3_times["plain"], m3_bound_ms=m3_times["bound"],
+              m3_receive_ms=m3_times["receive"]),
+        # kernel C's sum-product and soft-output modes, each on its main path
+        entry("bp_long_sum_product", "bp_long.cu", kernel_c, sp_launches,
+              worst_c_modes["sp"], sp_times, cpu_posterior_max_abs_err=c_sp_cpu_post),
+        entry("bp_long_soft_output", "bp_long.cu", kernel_c, bicm[4],
+              worst_c_modes["soft"], soft_times, bicm_id_ms=id_ms,
+              bicm_id_plain_ms=id_plain_ms, bicm_id_fer=[bicm[5], bicm[6]]),
+        entry("bp_long_global_soft_output", "bp_long.cu", kernel_c,
+              dvb_soft_launches, worst_c_modes["soft"], dvb_soft_times),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

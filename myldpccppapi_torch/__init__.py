@@ -3,8 +3,10 @@
 A quasi-cyclic LDPC channel-coding framework for one NVIDIA GPU: 802.16e QC
 parity-check construction, systematic Richardson-Urbanke encoding,
 5G NR-style BG1/BG2 codes with triangular encoding and rate matching,
-DVB-S2 IRA codes in z=360 QC form with accumulator encoding, BPSK/AWGN
-channel simulation, batched layered and flooding belief propagation
+DVB-S2 IRA codes in z=360 QC form with accumulator encoding and bit
+interleaving, BPSK/AWGN and QAM/PSK/APSK channel simulation with max-log
+or exact soft demapping and BICM-ID, batched layered and flooding belief
+propagation
 (normalized/offset min-sum, sum-product, self-corrected min-sum, soft
 output) with per-codeword syndrome early termination (exact or lazy) and
 two-phase straggler triage, and resumable BER/FER waterfall campaigns.
@@ -18,6 +20,8 @@ against; this package never imports it or JAX.
 from .codes import (
     Encoder,
     QCCode,
+    bit_deinterleave,
+    bit_interleave,
     dvbs2,
     dvbs2_ira_qc,
     ira_encode_fn,
@@ -29,6 +33,14 @@ from .codes import (
 from .decoder import DecodeResult, Decoder
 from .utils.config import DecoderConfig
 from .coder import Coder
+from .ops.modulation import (
+    MODULATIONS,
+    Modulation,
+    demap_llr,
+    make_modulation,
+    modulate,
+)
+from .ops.bicm_id import bicm_id_receive, make_bicm_id_receive
 
 __version__ = "0.1.0"
 
@@ -38,11 +50,20 @@ __all__ = [
     "DecodeResult",
     "DecoderConfig",
     "Encoder",
+    "MODULATIONS",
+    "Modulation",
     "QCCode",
+    "bicm_id_receive",
+    "bit_deinterleave",
+    "bit_interleave",
+    "demap_llr",
     "dvbs2",
     "dvbs2_ira_qc",
     "ira_encode_fn",
     "ira_encode_numpy",
+    "make_bicm_id_receive",
+    "make_modulation",
+    "modulate",
     "nr_code",
     "std_interleave",
     "wimax",

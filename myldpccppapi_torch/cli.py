@@ -23,6 +23,9 @@ Examples::
         --rate 1/2 --snr 1.5,2 --batch 256 --max-iters 30 --normalization 0.85
     python -m myldpccppapi_torch waterfall --family wimax --n 576 \
         --rate 1/2 --snr 2,3 --schedule flooding --self-correction
+    python -m myldpccppapi_torch waterfall --family dvbs2 --n 16200 \
+        --rate 3/4 --mod 16apsk --id-outer 2 --snr 13.9 --max-iters 30 \
+        --normalization 0.85
 """
 from __future__ import annotations
 
@@ -108,13 +111,25 @@ def cmd_waterfall(args) -> int:
     from .utils.config import DecoderConfig
     from .utils.device import resolve_device
 
-    if args.bch:
-        raise SystemExit("--bch (the DVB-S2 outer BCH acceptance) is not "
-                         "ported to the PyTorch package yet (ROADMAP Queue 1 "
-                         "item 7)")
+    for flag, given in (("--bch (the DVB-S2 outer BCH acceptance)", args.bch),
+                        ("--crc (CRC-aided acceptance)", args.crc)):
+        if given:
+            raise SystemExit(f"{flag} is not ported to the PyTorch package "
+                             "yet (ROADMAP Queue 1 item 7)")
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 encode matmul
     device = resolve_device(args.device)
     code = _make_code(args)
+    mod = None
+    if args.mod != "bpsk":
+        from .ops.modulation import make_modulation
+
+        # the rate picks APSK's EN 302 307 ring ratio
+        mod = make_modulation(args.mod, rate=args.rate)
+        if code.n % mod.bits_per_symbol:
+            raise SystemExit(f"n={code.n} not divisible by "
+                             f"{mod.bits_per_symbol} bits/symbol of {args.mod}")
+    elif args.id_outer:
+        raise SystemExit("--id-outer (BICM-ID) needs --mod other than bpsk")
     cfg = DecoderConfig(algorithm=args.algorithm, schedule=args.schedule,
                         max_iters=args.max_iters,
                         normalization=args.normalization,
@@ -132,7 +147,8 @@ def cmd_waterfall(args) -> int:
     def step_fn(seed, snr_db):
         gen = torch.Generator(device=device).manual_seed(seed)
         stats = sim_step(code, cfg, gen, snr_db, args.batch, encode_fn,
-                         decode_fn)
+                         decode_fn, mod=mod, demap=args.demap,
+                         id_outer=args.id_outer)
         return type(stats)(*(int(x) for x in stats))
 
     ccfg = CampaignConfig(
@@ -144,7 +160,10 @@ def cmd_waterfall(args) -> int:
     )
     # the generator's numbers depend on the device type: a checkpoint
     # resumes only on the same kind of device
-    fp = ccfg.fingerprint(code.name, repr(cfg) + f"/device={device.type}")
+    fp = ccfg.fingerprint(
+        code.name, repr(cfg) + f"/device={device.type}"
+        + (f"/mod={args.mod}/demap={args.demap}/id_outer={args.id_outer}"
+           if mod is not None else ""))
     camp = WaterfallCampaign(ccfg, step_fn, frames_per_step=args.batch,
                              fingerprint=fp, checkpoint_path=args.checkpoint)
 
@@ -219,9 +238,23 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--seed", type=int, default=0)
     w.add_argument("--checkpoint", default=None)
     w.add_argument("--out", default=None, help=".csv or .json")
+    w.add_argument("--crc", default=None, choices=["24A", "24B", "24C", "16"],
+                   help="CRC-aided acceptance (not ported yet: ROADMAP "
+                        "Queue 1 item 7)")
     w.add_argument("--bch", action="store_true",
                    help="DVB-S2 outer BCH acceptance (not ported yet: "
                         "ROADMAP Queue 1 item 7)")
+    w.add_argument("--mod", default="bpsk",
+                   choices=["bpsk", "qpsk", "8psk", "16qam", "64qam",
+                            "256qam", "16apsk", "32apsk"],
+                   help="constellation (NR QAM per TS 38.211 §5.1; DVB-S2 "
+                        "PSK/APSK geometry per EN 302 307 §5.4); soft "
+                        "demapping feeds the decoder")
+    w.add_argument("--demap", default="maxlog", choices=["maxlog", "exact"],
+                   help="soft-demapper flavor for --mod != bpsk")
+    w.add_argument("--id-outer", type=int, default=0, dest="id_outer",
+                   help="BICM-ID: demapper<->decoder extrinsic exchanges "
+                        "after the first pass (needs --mod != bpsk)")
     w.add_argument("-v", "--verbose", action="store_true")
     w.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device (default: cuda; cpu for the CPU)")

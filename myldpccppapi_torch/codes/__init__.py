@@ -2,6 +2,9 @@
 from .qc import QCCode
 from .encoder import Encoder, EncoderMatrices, encode_numpy, ru_precompute
 from .dvbs2 import (
+    BIT_INTERLEAVER_COLS,
+    bit_deinterleave,
+    bit_interleave,
     dvbs2,
     dvbs2_ira_qc,
     ira_encode_fn,
@@ -21,7 +24,10 @@ from .nr import (
 from .wimax import wimax
 
 __all__ = [
+    "BIT_INTERLEAVER_COLS",
     "QCCode",
+    "bit_deinterleave",
+    "bit_interleave",
     "dvbs2",
     "dvbs2_ira_qc",
     "Encoder",

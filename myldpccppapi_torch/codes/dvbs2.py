@@ -25,9 +25,12 @@ draws with the standard's group structure and per-rate degree profile
 (Table 5a/5b), NOT the EN 302 307 Annex B/C tables (PROVENANCE.md).  The
 table is plain data: :func:`parse_address_table` takes the standard's.
 
+The EN 302 307 §5.3.3 bit interleaver (:func:`bit_interleave`,
+:func:`bit_deinterleave`) works on torch tensors of bits or LLRs; it is
+BICM-ID's interleaver hook (ops/bicm_id.py).
+
 Not ported yet: the standard-domain edge-list oracle (``DVBS2Code``,
-``dvbs2_oracle``; ROADMAP Queue 1 item 9) and the modulation bit
-interleaver (``bit_interleave``; item 11).
+``dvbs2_oracle``; ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ import torch
 
 from .qc import QCCode
 
-__all__ = ["dvbs2", "dvbs2_ira_qc", "ira_encode_fn", "ira_encode_numpy",
+__all__ = ["BIT_INTERLEAVER_COLS", "bit_deinterleave", "bit_interleave",
+           "dvbs2", "dvbs2_ira_qc", "ira_encode_fn", "ira_encode_numpy",
            "parse_address_table", "std_interleave", "synthetic_address_table",
            "table_4cycles"]
 
@@ -269,6 +273,48 @@ def std_interleave(n: int, k: int) -> np.ndarray:
     i = np.arange(m)
     perm[k:] = k + (i % q) * _GROUP + i // q
     return perm
+
+
+#: EN 302 307 §5.3.3 bit-interleaver column counts per constellation
+#: (QPSK is not interleaved)
+BIT_INTERLEAVER_COLS = {"8psk": 3, "16apsk": 4, "32apsk": 5}
+
+
+def _column_index(nc: int, col_order, device, inverse: bool) -> torch.Tensor:
+    """The column write order (or its inverse) as an index tensor."""
+    if sorted(col_order) != list(range(nc)):
+        raise ValueError(f"col_order must permute 0..{nc - 1}")
+    order = np.asarray(col_order, dtype=np.int64)
+    return torch.as_tensor(np.argsort(order) if inverse else order, device=device)
+
+
+def bit_interleave(bits: torch.Tensor, nc: int, col_order=None) -> torch.Tensor:
+    """EN 302 307 §5.3.3 block bit interleaver: the FECFRAME is written
+    column by column into an ``N/nc x nc`` array and read row by row, so
+    each transmitted symbol takes one bit from each column (one bit from
+    each of ``nc`` equal spans of the codeword).
+
+    ``col_order``: optional column write order (the standard's 8PSK rate
+    3/5 case, Table 8, is a non-identity order; it is data here).  Works on
+    bits and LLR tensors alike ([..., N])."""
+    lead, n = bits.shape[:-1], bits.shape[-1]
+    if n % nc:
+        raise ValueError(f"frame length {n} not divisible by {nc} columns")
+    m = bits.reshape(*lead, nc, n // nc)
+    if col_order is not None:
+        m = m[..., _column_index(nc, col_order, bits.device, True), :]
+    return m.transpose(-1, -2).reshape(*lead, n)
+
+
+def bit_deinterleave(llr: torch.Tensor, nc: int, col_order=None) -> torch.Tensor:
+    """Inverse of :func:`bit_interleave` (receive side, applied to LLRs)."""
+    lead, n = llr.shape[:-1], llr.shape[-1]
+    if n % nc:
+        raise ValueError(f"frame length {n} not divisible by {nc} columns")
+    m = llr.reshape(*lead, n // nc, nc).transpose(-1, -2)
+    if col_order is not None:
+        m = m[..., _column_index(nc, col_order, llr.device, False), :]
+    return m.reshape(*lead, n)
 
 
 def _info_entries(code: QCCode):

@@ -14,11 +14,14 @@ long-code kernel (``"cuda_long"``, ops/cuda_long.py), else it raises; it
 never goes to the torch path quietly.  The short-code kernel serves the
 layered and flooding schedules, min-sum, sum-product, SCMS and soft output
 on codes of up to 120 circulants, and layered min-sum on the small-z 5G NR
-codes (z < 64, kernel B's route).  The long-code kernel serves layered
-min-sum on 5G NR and DVB-S2 (multi-edge cells, masked rows, the exact or
-the lazy syndrome), with the posterior in shared memory where it fits (NR,
-DVB-S2 16200) and in global memory otherwise (DVB-S2 64800).  An explicit ``"cuda"`` or ``"cuda_long"`` that
-does not serve the code raises at construction.  On the CPU, ``"auto"``
+codes (z < 64, kernel B's route).  The long-code kernel serves the layered
+schedule on 5G NR and DVB-S2 (min-sum or sum-product, soft output,
+multi-edge cells, masked rows, the exact or the lazy syndrome), with the
+posterior in shared memory where it fits (NR, DVB-S2 16200) and in global
+memory otherwise (DVB-S2 64800); so soft output and sum-product on a long
+code resolve to ``"cuda_long"``, as the reference sends them to its z-lane
+kernel.  An explicit ``"cuda"`` or ``"cuda_long"`` that does not serve the
+code raises at construction.  On the CPU, ``"auto"``
 resolves to ``"torch"``.  An explicit ``"torch"`` runs the plain tensor path
 on any device; like the reference's jnp path it checks the exact syndrome
 whatever ``syndrome_mode`` says.

@@ -2,7 +2,8 @@
 
 Each function duck-types on the reference object's NumPy attributes and
 returns the port's own object, so both packages can compute on the same
-code, configuration and encoder.  Nothing here imports the reference.
+code, configuration, encoder and constellation.  Nothing here imports the
+reference.
 """
 from __future__ import annotations
 
@@ -10,10 +11,11 @@ import numpy as np
 
 from .codes.encoder import EncoderMatrices
 from .codes.qc import QCCode
+from .ops.modulation import Modulation
 from .utils.config import DecoderConfig
 
 __all__ = ["code_from_reference", "config_from_reference",
-           "encoder_from_reference"]
+           "encoder_from_reference", "modulation_from_reference"]
 
 #: reference implementation names -> the port's
 IMPLEMENTATION_NAMES = {
@@ -63,4 +65,18 @@ def encoder_from_reference(mats) -> EncoderMatrices:
         w=np.array(mats.w, dtype=np.bool_),
         gap=int(mats.gap),
         perm=None if perm is None else np.array(perm, dtype=np.int64),
+    )
+
+
+def modulation_from_reference(mod) -> Modulation:
+    """A reference ``Modulation`` (name, points, labels and the optional
+    per-axis PAM alphabet) -> the port's, so a caller's normative label
+    table goes through both packages alike."""
+    pam = getattr(mod, "pam", None)
+    return Modulation(
+        name=mod.name,
+        points=np.array(mod.points, dtype=np.complex64),
+        labels=np.array(mod.labels, dtype=np.uint8),
+        pam=None if pam is None else (np.array(pam[0], dtype=np.float32),
+                                      np.array(pam[1], dtype=np.uint8)),
     )

@@ -2,8 +2,9 @@
 
 The sources have a plain ``extern "C"`` interface and include no PyTorch
 header, so ``nvcc`` compiles each in seconds; :func:`build` starts one
-``nvcc`` per source, all together, and links the objects into one shared
-library that :mod:`ctypes` loads.  The library goes into
+``nvcc`` per object, all together (``bp_long.cu`` as two objects, its
+min-sum and its sum-product instantiations), and links the objects into
+one shared library that :mod:`ctypes` loads.  The library goes into
 ``myldpccppapi_torch/_build/`` (listed in ``.gitignore``), named by a hash
 of every source and the flags, and is built at first use, never at import.
 A machine with CUDA but without ``nvcc`` raises: there is no fallback.
@@ -26,8 +27,14 @@ __all__ = ["build", "load", "find_nvcc", "SOURCES"]
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
-#: the kernel sources, each compiled by its own nvcc process
+#: the kernel sources
 SOURCES = ("bp_layered.cu", "bp_long.cu")
+#: the objects, (source, its own flags), each compiled by its own nvcc
+#: process: bp_long.cu's two halves (csrc/bp_long.cu, BP_LONG_HALF) take
+#: comparable times, so the build takes the longer one
+_OBJECTS = (("bp_layered.cu", ()),
+            ("bp_long.cu", ("-DBP_LONG_HALF=1",)),
+            ("bp_long.cu", ("-DBP_LONG_HALF=2",)))
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # keep the f32 operation order: no contracted multiply-adds
@@ -44,14 +51,15 @@ _SIGNATURES = {
     "ldpc_bp_layered": ([_P] * 13 + [_I] * 9 + [_P], _I),
     # (n, z, m_b, num_blocks, mode, device) -> codewords per thread block
     "ldpc_bp_layered_tile": ([_I] * 6, _I),
-    # fourteen tensors (the P scratch may be null), twelve ints, the stream
-    "ldpc_bp_long": ([_P] * 14 + [_I] * 12 + [_P], _I),
+    # fifteen tensors (the posterior output and the P scratch may be null),
+    # thirteen ints, the stream
+    "ldpc_bp_long": ([_P] * 15 + [_I] * 13 + [_P], _I),
     # (n, z, m_b, num_blocks, n_masks, max_row_degree, device)
     #   -> 2 posterior in shared memory / 1 in global memory / 0 not served
     "ldpc_bp_long_fits": ([_I] * 7, _I),
     # (n, z, m_b, num_blocks, n_masks, multi_edge, max_row_degree, lazy,
-    #  placement) -> resident blocks per SM
-    "ldpc_bp_long_blocks_per_sm": ([_I] * 9, _I),
+    #  sum_product, placement) -> resident blocks per SM
+    "ldpc_bp_long_blocks_per_sm": ([_I] * 10, _I),
 }
 
 
@@ -76,25 +84,29 @@ def find_nvcc() -> str:
 
 def _lib_path() -> pathlib.Path:
     digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    digest.update(repr(_OBJECTS).encode())
     for name in SOURCES:
         digest.update(name.encode())
         digest.update((_CSRC / name).read_bytes())
     return _BUILD / f"libldpc_kernels-{digest.hexdigest()[:16]}.so"
 
 
-def _compile(nvcc: str, name: str, obj: str) -> float:
-    """Compile one source to ``obj``; returns its wall seconds."""
+def _compile(nvcc: str, job: tuple, obj: str) -> float:
+    """Compile one object, ``job`` = (source, its own flags), to ``obj``;
+    returns its wall seconds."""
+    name, flags = job
     t0 = time.perf_counter()
-    run = subprocess.run([nvcc, *_NVCC_FLAGS, "-c", "-o", obj, str(_CSRC / name)],
-                         capture_output=True, text=True)
+    run = subprocess.run([nvcc, *_NVCC_FLAGS, *flags, "-c", "-o", obj,
+                          str(_CSRC / name)], capture_output=True, text=True)
     if run.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {name}:\n{run.stdout}{run.stderr}")
+        raise RuntimeError(f"nvcc failed to build {name} {' '.join(flags)}:\n"
+                           f"{run.stdout}{run.stderr}")
     return time.perf_counter() - t0
 
 
 def build() -> tuple[pathlib.Path, dict]:
     """Build the kernel library unless it exists.  Returns its path and the
-    wall seconds of each step: one entry per source (its nvcc runs
+    wall seconds of each step: one entry per object (its nvcc runs
     alongside the others) and ``"link"``; empty when it was already
     built."""
     lib_path = _lib_path()
@@ -105,10 +117,11 @@ def build() -> tuple[pathlib.Path, dict]:
     # objects and the library go to private names first: a concurrent
     # build never sees a half-written library
     with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
-        objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
-        with ThreadPoolExecutor(len(SOURCES)) as pool:
-            times = pool.map(functools.partial(_compile, nvcc), SOURCES, objs)
-            seconds = dict(zip(SOURCES, times))
+        objs = [os.path.join(tmp, f"{i}.o") for i in range(len(_OBJECTS))]
+        with ThreadPoolExecutor(len(_OBJECTS)) as pool:
+            times = pool.map(functools.partial(_compile, nvcc), _OBJECTS, objs)
+            seconds = {" ".join((name, *flags)): t
+                       for (name, flags), t in zip(_OBJECTS, times)}
         t0 = time.perf_counter()
         tmp_lib = os.path.join(tmp, "lib.so")
         link = subprocess.run([nvcc, *_NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs],

@@ -33,8 +33,10 @@ Tensor layout: LLR/posterior ``[n_b, z, B]``; per-edge messages
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..codes.qc import QCCode
@@ -176,19 +178,37 @@ def _layers(code: QCCode):
     return out
 
 
-def _syndrome_fail(bits_blocks: torch.Tensor, layers, masks_t) -> torch.Tensor:
-    """[n_b, z, B] hard bits (bool) -> [B] bool, True where any check fails."""
-    fail = None
-    for (_, entries) in layers:
-        par = None
-        for (e, j, s, _) in entries:
-            contrib = _row_align(bits_blocks[j], s).to(torch.int32)
-            if e in masks_t:
-                contrib = torch.where(masks_t[e], contrib, 0)
-            par = contrib if par is None else par + contrib
-        f = ((par & 1) == 1).any(dim=0)
-        fail = f if fail is None else fail | f
-    return fail
+@functools.lru_cache(maxsize=32)
+def _syndrome_tables(code: QCCode, device: torch.device):
+    """The exact syndrome's gather, per (code, device): for every edge e in
+    block order and check row r, the posterior index j*z + (r + s) % z that
+    row reads ([E*z] int64); whether row r is an edge of block e ([E, z, 1]
+    bool, None when no block is masked); and the layer pointers."""
+    _, bc, sh = code.blocks
+    z = code.z
+    idx = bc[:, None].astype(np.int64) * z + (np.arange(z)[None, :] + sh[:, None]) % z
+    masks = code.block_row_masks
+    live = None
+    if any(m is not None for m in masks):
+        live = np.stack([np.ones(z, bool) if m is None else m for m in masks])[:, :, None]
+        live = torch.as_tensor(live, device=device)
+    return (torch.as_tensor(idx.reshape(-1), device=device), live,
+            torch.as_tensor(np.asarray(code.layer_ptr, dtype=np.int64), device=device))
+
+
+def _syndrome_fail(bits_blocks: torch.Tensor, code: QCCode) -> torch.Tensor:
+    """[n_b, z, B] hard bits (bool) -> [B] bool, True where any check fails.
+    One gather of every edge's bit, then each layer's row parities as
+    differences of an integer prefix sum over the edges (exact, so the
+    order of the additions does not matter)."""
+    idx, live, ptr = _syndrome_tables(code, bits_blocks.device)
+    n_b, z, bsz = bits_blocks.shape
+    bits = bits_blocks.reshape(n_b * z, bsz)[idx].view(-1, z, bsz)
+    if live is not None:
+        bits = bits & live
+    ends = bits.cumsum(0, dtype=torch.int32)[ptr[1:] - 1]  # [m_b, z, B]
+    par = torch.diff(ends, dim=0, prepend=torch.zeros_like(ends[:1]))
+    return (par & 1).any(dim=1).any(dim=0)
 
 
 def _masks(layers, dev):
@@ -261,7 +281,7 @@ def _decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
             if lazy:
                 pre_bad |= ((par & 1) == 1).any(dim=0)
         bits = post <= 0
-        latch = ~done & ~_syndrome_fail(bits, layers, masks_t)
+        latch = ~done & ~_syndrome_fail(bits, code)
         if lazy:
             latch &= ~pre_bad
         keep = done.view(1, 1, -1)

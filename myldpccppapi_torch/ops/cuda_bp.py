@@ -17,7 +17,8 @@ served as modes and routes of one CUDA kernel:
 it cannot; for a CPU tensor it runs the plain version,
 :func:`decode_qc_cuda_plain` (the torch path of ops/bp.py).  There is no
 fallback from a failed build or launch.  ``decode_qc_cuda.launches``
-counts kernel launches in every mode.
+counts kernel launches in every mode, ``decode_qc_cuda.soft_launches``
+those with soft output.
 """
 from __future__ import annotations
 
@@ -206,7 +207,9 @@ def _launch(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"bp_layered kernel launch failed: CUDA error {err}")
     decode_qc_cuda.launches += 1
+    decode_qc_cuda.soft_launches += post is not None
     return DecodeResult(bits, conv, iters, executed.max(), post)
 
 
 decode_qc_cuda.launches = 0
+decode_qc_cuda.soft_launches = 0

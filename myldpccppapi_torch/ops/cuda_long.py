@@ -4,14 +4,17 @@
 Counterpart of two TPU kernels, served as modes of one CUDA sweep:
 
 * ``myldpccppapi_tpu/ops/pallas_zlane.py`` (``decode_qc_zlane``, kernel C)
-  in its layered min-sum f32 mode: single-circulant and multi-edge cells,
-  row-masked partial circulants, the exact or the lazy syndrome.  The
-  posterior lives in a thread block's shared memory (the *shared*
-  placement): 5G NR, DVB-S2 16200.
+  in its layered f32 modes: min-sum or sum-product, single-circulant and
+  multi-edge cells, row-masked partial circulants, the exact or the lazy
+  syndrome, soft output (the latched posterior).  The posterior lives in a
+  thread block's shared memory (the *shared* placement): 5G NR, DVB-S2
+  16200.
 * ``myldpccppapi_tpu/ops/pallas_stream.py`` (``decode_qc_stream``, kernel
   D), which serves codes whose posterior does not fit on chip: the same
   sweep with the posterior in a [B, n] global-memory scratch that this
-  wrapper allocates (the *global* placement): DVB-S2 64800.
+  wrapper allocates (the *global* placement): DVB-S2 64800.  The TPU's D
+  refuses sum-product and soft output; the global placement runs C's sweep,
+  so it serves them as C does.
 
 The kernel library's fit query (:func:`placement`) picks the placement from
 its own shared-memory layout.  :func:`decode_qc_long` launches the kernel
@@ -19,7 +22,8 @@ for a CUDA tensor and raises if it cannot; for a CPU tensor it runs the
 plain version, :func:`decode_qc_long_plain`.  There is no fallback from a
 failed build or launch.  ``decode_qc_long.launches`` counts launches in the
 shared placement and ``decode_qc_long.global_launches`` those in the
-global one.
+global one; ``decode_qc_long.soft_launches`` and ``.sp_launches`` count,
+across placements, those with soft output and those of sum-product.
 
 The lazy syndrome is per codeword here: a codeword latches on a sweep only
 if its on-the-fly parity check passed on that sweep and then its exact
@@ -56,8 +60,9 @@ SHARED, GLOBAL = 2, 1
 REQUIREMENTS = (
     f"a QCCode with z >= {MIN_Z} that the kernel library's fit query "
     "accepts (z threads per block and the widest row within the kernel's "
-    "bounds, its tables within a thread block's shared memory), and "
-    "layered min-sum f32"
+    "bounds, its tables within a thread block's shared memory), the "
+    "layered schedule (min-sum or sum-product, soft output or not) and f32 "
+    "messages, without CRC or outer-code acceptance"
 )
 
 
@@ -87,7 +92,8 @@ def blocks_per_sm(code: QCCode, cfg: DecoderConfig, place: int) -> int:
     occupancy of the instantiation that serves them)."""
     got = _build.load().ldpc_bp_long_blocks_per_sm(
         code.n, code.z, code.m_b, code.num_blocks, _n_masks(code),
-        int((_layer_flags(code) & _MULTI_EDGE).any()), code.max_row_degree, int(cfg.syndrome_mode == "lazy"),
+        int((_layer_flags(code) & _MULTI_EDGE).any()), code.max_row_degree,
+        int(cfg.syndrome_mode == "lazy"), int(cfg.algorithm == "sum-product"),
         place)
     if got < 1:
         raise RuntimeError(f"bp_long occupancy query returned {got}")
@@ -96,20 +102,19 @@ def blocks_per_sm(code: QCCode, cfg: DecoderConfig, place: int) -> int:
 
 def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
     """True for a QC code with z >= 64 (multi-edge cells and masked rows
-    included) and, when ``cfg`` is given, for the layered min-sum f32
-    configurations the kernel serves, with the exact or the lazy syndrome.
-    When a CUDA ``device`` is given, the kernel must serve the code there
-    in one of its placements (:func:`placement`).
+    included) and, when ``cfg`` is given, for the layered f32
+    configurations the kernel serves: min-sum or sum-product, soft output
+    or not, the exact or the lazy syndrome.  When a CUDA ``device`` is
+    given, the kernel must serve the code there in one of its placements
+    (:func:`placement`).
 
-    Refused on purpose for now, though the TPU kernel serves them:
-    sum-product, soft output and bf16 messages (ROADMAP Queue 2,
-    kernel C).  The flooding schedule, and SCMS with it, is the TPU
-    short-code kernel's, as here (ops/cuda_bp.py)."""
+    Refused: bf16 messages (ROADMAP Queue 2, kernel C) and CRC or
+    outer-code acceptance (Queue 1 item 7).  The flooding schedule, and
+    SCMS with it, is the TPU short-code kernel's, as here (ops/cuda_bp.py)."""
     if not isinstance(code, QCCode) or code.z < MIN_Z:
         return False
     if cfg is not None and not (
-            cfg.schedule == "layered" and cfg.algorithm == "min-sum"
-            and cfg.msg_dtype == "float32" and not cfg.soft_output
+            cfg.schedule == "layered" and cfg.msg_dtype == "float32"
             and cfg.crc is None and cfg.outer is None):
         return False
     return device is None or placement(code, cuda_index(device)) > 0
@@ -118,6 +123,7 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
 def decode_qc_long_plain(code: QCCode, cfg: DecoderConfig,
                          llr: torch.Tensor) -> DecodeResult:
     """The kernel's plain version: the torch layered decode (ops/bp.py),
+    min-sum or sum-product, with the latched posterior under soft output,
     whose JAX counterpart the reference pins bit-exact to the TPU kernel
     (tests/test_zlane.py); with ``syndrome_mode="lazy"`` its lazy loop,
     where a frame latches only on a sweep whose on-the-fly parity check
@@ -188,8 +194,9 @@ def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
     kernel, one thread block per codeword, the posterior where the fit
     query places it (``_force_global`` puts it in global memory even where
     shared memory would hold it; for tests and probes).  Returns the same
-    DecodeResult as ops/bp.py; ``total_iters`` is the largest sweep count
-    of any codeword's block, which equals the batch's loop count of the
+    DecodeResult as ops/bp.py, posteriors included with
+    ``cfg.soft_output``; ``total_iters`` is the largest sweep count of any
+    codeword's block, which equals the batch's loop count of the
     single-loop torch path."""
     if llr.ndim != 2 or llr.shape[1] != code.n:
         raise ValueError(f"expected llr of shape [batch, {code.n}], got "
@@ -213,9 +220,11 @@ def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
     bits = torch.empty((batch, code.n), dtype=torch.uint8, device=dev)
     conv = torch.empty((batch,), dtype=torch.bool, device=dev)
     iters = torch.empty((batch,), dtype=torch.int32, device=dev)
+    post = (torch.empty((batch, code.n), dtype=torch.float32, device=dev)
+            if cfg.soft_output else None)
     if batch == 0:
         return DecodeResult(bits, conv, iters,
-                            torch.zeros((), dtype=torch.int32, device=dev))
+                            torch.zeros((), dtype=torch.int32, device=dev), post)
     executed = torch.empty((batch,), dtype=torch.int32, device=dev)
     # the messages R [batch, num_blocks, z] and, in the global placement,
     # the posterior P [batch, n]: written by the kernel before it reads
@@ -229,15 +238,18 @@ def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        sum_product = cfg.algorithm == "sum-product"
         err = lib.ldpc_bp_long(
             llr.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-            executed.data_ptr(), r_scratch.data_ptr(),
+            executed.data_ptr(), None if post is None else post.data_ptr(),
+            r_scratch.data_ptr(),
             None if p_scratch is None else p_scratch.data_ptr(),
             col.data_ptr(), shift.data_ptr(), ptr.data_ptr(), flags.data_ptr(),
             live_rows.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
             batch, code.n_b, code.z, code.m_b, code.num_blocks, _n_masks(code),
             int(multi_edge), code.max_row_degree, cfg.max_iters,
-            int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"), place, stream,
+            int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
+            int(sum_product), place, stream,
         )
     if err != 0:
         raise RuntimeError(f"bp_long kernel launch failed: CUDA error {err}")
@@ -245,8 +257,12 @@ def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
         decode_qc_long.global_launches += 1
     else:
         decode_qc_long.launches += 1
-    return DecodeResult(bits, conv, iters, executed.max())
+    decode_qc_long.soft_launches += post is not None
+    decode_qc_long.sp_launches += sum_product
+    return DecodeResult(bits, conv, iters, executed.max(), post)
 
 
 decode_qc_long.launches = 0
 decode_qc_long.global_launches = 0
+decode_qc_long.soft_launches = 0
+decode_qc_long.sp_launches = 0

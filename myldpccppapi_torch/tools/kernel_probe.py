@@ -3,6 +3,7 @@
     python -m myldpccppapi_torch.tools.kernel_probe [--out probe.json]
     python -m myldpccppapi_torch.tools.kernel_probe --long [--out probe.json]
     python -m myldpccppapi_torch.tools.kernel_probe --modes [--out probe.json]
+    python -m myldpccppapi_torch.tools.kernel_probe --long-modes [--out probe.json]
 
 Without ``--long`` it probes the short-code kernel (csrc/bp_layered.cu).
 At bench.py's operating point (wimax 576 r3/4B, batch 8192, layered NMS
@@ -50,6 +51,15 @@ For each, with CUDA events as above: the tile (codewords per block), the
 batch with early exit on and its iteration counts, and one thread block
 alone and the batch with early exit off at 40 sweeps and at 1 sweep, whose
 difference over 39 is the time of one sweep.
+
+With ``--long-modes`` it probes the long-code kernel's modes at the
+``--long`` operating points: at NR BG1 Z=384 (batch 512, 5 dB) layered
+min-sum alpha 0.8 (the reference row), sum-product, soft output and
+sum-product with soft output; at DVB-S2 64800 r1/2 (batch 1024, 1.4 dB,
+lazy, posterior in global memory) min-sum and soft output.  For each, as
+``--modes`` does: the batch with early exit on and its iteration counts,
+and one thread block alone and the batch with early exit off at 30 sweeps
+and at 1 sweep, whose difference over 29 is the time of one sweep.
 
 It prints one line per measurement and, with ``--out``, writes them as JSON.
 """
@@ -250,6 +260,38 @@ def probe_modes(seed: int) -> dict:
     return out
 
 
+#: the long-code kernel's modes (--long-modes) at each operating point
+LONG_MODES = {
+    "nr": {"min_sum": LONG_CFG,
+           "sum_product": DecoderConfig(algorithm="sum-product", max_iters=30),
+           "soft": dataclasses.replace(LONG_CFG, soft_output=True),
+           "sum_product_soft": DecoderConfig(algorithm="sum-product", max_iters=30,
+                                             soft_output=True)},
+    "dvbs2_64800": {"min_sum": DVB_CFG,
+                    "soft": dataclasses.replace(DVB_CFG, soft_output=True)},
+}
+
+
+def probe_long_modes(seed: int) -> dict:
+    points = {"nr": (nr_code(384, 1), nr_channel(nr_code(384, 1), LONG_BATCH, 5.0, seed)),
+              "dvbs2_64800": (dvbs2(64800, "1/2"),
+                              dvbs2_channel(dvbs2(64800, "1/2"), DVB_BATCH, 1.4, seed + 1))}
+    out: dict = {}
+    for point, (code, llr) in points.items():
+        for name, cfg in LONG_MODES[point].items():
+            no_exit = dataclasses.replace(cfg, early_exit=False)
+            one_sweep = dataclasses.replace(no_exit, max_iters=1)
+            row = {"iterations": iteration_stats(decode_qc_long(code, cfg, llr)),
+                   "batch": timed(lambda: decode_qc_long(code, cfg, llr))}
+            for what, x in (("one_block", llr[:1].contiguous()), ("batch_no_exit", llr)):
+                full = timed(lambda: decode_qc_long(code, no_exit, x))
+                one = timed(lambda: decode_qc_long(code, one_sweep, x))
+                row[what] = {"30_sweeps": full, "1_sweep": one,
+                             "ms_per_sweep": (full["median"] - one["median"]) / 29}
+            out[f"{point}_{name}"] = row
+    return out
+
+
 def probe_long(seed: int) -> dict:
     code = nr_code(384, 1)
     llr_all = nr_channel(code, LONG_BATCH, 5.0, seed)
@@ -274,6 +316,9 @@ def main(argv=None) -> int:
     ap.add_argument("--modes", action="store_true",
                     help="probe the short-code kernel's flooding, SCMS, "
                          "sum-product and soft-output modes")
+    ap.add_argument("--long-modes", action="store_true", dest="long_modes",
+                    help="probe the long-code kernel's sum-product and "
+                         "soft-output modes")
     ap.add_argument("--out", help="write the measurements as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -285,6 +330,8 @@ def main(argv=None) -> int:
     print(out["card"], flush=True)
     if args.long:
         out.update(probe_long(args.seed))
+    elif args.long_modes:
+        out.update(probe_long_modes(args.seed))
     elif args.modes:
         out.update(probe_modes(args.seed))
     else:

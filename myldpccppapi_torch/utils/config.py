@@ -63,8 +63,8 @@ class DecoderConfig:
                   previously sent one is erased (sent as 0)
     soft_output:  also return the [B, n] posterior LLRs, latched at each
                   frame's convergence like the bits (DecodeResult.
-                  posteriors); served by the torch path and the
-                  short-code kernel, not with triage
+                  posteriors); served by the torch path and both
+                  kernels (not kernel B's route), not with triage
     The remaining fields (msg_dtype, crc, crc_span, outer) exist for
     parity with the reference and must keep their defaults until their
     ROADMAP items are ported.

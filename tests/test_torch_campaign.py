@@ -146,10 +146,12 @@ def test_sim_step_refuses_unported_branches():
     for unported in (dict(crc="16"), dict(outer=("bch", 16, 12))):
         with pytest.raises(NotImplementedError, match="item 7"):
             sim_step(code, DecoderConfig(**unported), gen, 2.0, 4)
-    # only the BPSK branch is ported: no modulation or BICM-ID arguments
-    for unported in (dict(mod="16qam"), dict(id_outer=2), dict(llr_scale=1.0)):
-        with pytest.raises(TypeError):
-            sim_step(code, DecoderConfig(), gen, 2.0, 4, **unported)
+    # the reference's llr_scale is not ported (no caller sets it)
+    with pytest.raises(TypeError):
+        sim_step(code, DecoderConfig(), gen, 2.0, 4, llr_scale=1.0)
+    # BICM-ID needs a constellation other than BPSK, as in the reference
+    with pytest.raises(ValueError, match="non-BPSK"):
+        sim_step(code, DecoderConfig(), gen, 2.0, 4, id_outer=2)
 
 
 @pytest.mark.parametrize("family", ["wimax", "nr"])

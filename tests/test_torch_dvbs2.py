@@ -288,6 +288,38 @@ def test_decoder_matches_reference_on_dvbs2_16200(mode):
     np.testing.assert_array_equal(dec.info_bits(got).numpy(), u)
 
 
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_soft_output_matches_reference_on_dvbs2_16200(early_exit):
+    """Kernel C's plain version with soft output on the multi-edge, masked
+    DVB-S2 code: bits, iterations and the posteriors of every frame equal
+    the jnp path's, at a point where some frames run out of iterations."""
+    code, rcode = dv.dvbs2(16200, "1/2"), ref_dv.dvbs2(16200, "1/2")
+    _, llr = _llr(code, 8, 1.2, seed=5)
+    kw = dict(normalization=0.85, max_iters=10, soft_output=True, early_exit=early_exit)
+    got = cuda_long.decode_qc_long(code, DecoderConfig(**kw), torch.from_numpy(llr))
+    want = ref.Decoder(rcode, ref.DecoderConfig(implementation="jnp", **kw))(llr)
+    _assert_equal(got, want)
+    np.testing.assert_array_equal(got.posteriors.numpy(), np.asarray(want.posteriors))
+    conv = got.converged.numpy()
+    assert 0 < conv.sum() < len(conv)
+
+
+def test_sum_product_soft_agrees_with_reference_on_dvbs2_16200():
+    """Sum-product with soft output, at a converging point: equal bits and
+    converged flags, iterations within 1 (torch's exp/log1p are not
+    XLA's), and posteriors whose signs are the bits."""
+    code, rcode = dv.dvbs2(16200, "1/2"), ref_dv.dvbs2(16200, "1/2")
+    _, llr = _llr(code, 8, 1.2, seed=6)
+    kw = dict(algorithm="sum-product", max_iters=20, soft_output=True)
+    got = cuda_long.decode_qc_long(code, DecoderConfig(**kw), torch.from_numpy(llr))
+    want = ref.Decoder(rcode, ref.DecoderConfig(implementation="jnp", **kw))(llr)
+    for f in ("bits", "converged"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
+    assert np.abs(got.iterations.numpy() - np.asarray(want.iterations)).max() <= 1
+    assert got.converged.all()
+    np.testing.assert_array_equal(got.posteriors.numpy() <= 0, got.bits.numpy() == 1)
+
+
 def test_long_kernel_serves_dvbs2(monkeypatch):
     """The long-code kernel's gate takes DVB-S2 (multi-edge cells, the
     masked wrap row, rows of 35 circulants, the lazy syndrome); on a CUDA

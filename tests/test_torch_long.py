@@ -3,8 +3,12 @@
 * The long-code kernel's plain version (``cuda_long.decode_qc_long_plain``)
   is bit-exact with the TPU kernel ``decode_qc_zlane`` run in interpret mode,
   on the small random QC codes of the reference's tests/test_zlane.py.
-* ``cuda_long.supported`` agrees with ``zlane_supported`` except where the
-  port refuses on purpose for now.
+* Its min-sum soft output (the latched posteriors of every frame) is
+  bit-exact with the TPU kernel in interpret mode and with the jnp path on
+  NR with LLR-0 punctured columns; its sum-product, whose ``exp``/
+  ``log1p`` are torch's and not XLA's, agrees at a converging point:
+  equal bits and converged flags, iterations within 1.
+* ``cuda_long.supported`` agrees with ``zlane_supported``.
 * The whole NR slice — code, rate-matched LLRs, ``Decoder`` — is bit-exact
   with the JAX ``Decoder`` at ``nr_code(64, 1)``.
 The CUDA kernel itself runs only on a card (chip_smoke.py)."""
@@ -65,12 +69,13 @@ def _assert_equal(got, want):
 WEIGHTS = {"alpha0.75": 0.75, "per-layer": (0.7, 0.8, 0.75, 0.85)}
 
 
-def _all_zero_llr(n, batch, seed):
+def _all_zero_llr(n, batch, seed, lo=1.0):
     """Consistent Gaussian LLRs of the all-zero codeword (mean m, variance
-    2m), with m spread over the batch from hopeless to easy, so that some
-    frames converge early and others run out of iterations."""
+    2m), with m spread over the batch from ``lo`` (hopeless at 1.0) to
+    easy, so that some frames converge early and others run out of
+    iterations."""
     rng = np.random.default_rng(seed)
-    m = np.linspace(1.0, 8.0, batch, dtype=np.float32)[:, None]
+    m = np.linspace(lo, 8.0, batch, dtype=np.float32)[:, None]
     return (m + np.sqrt(2 * m) * rng.standard_normal((batch, n))).astype(np.float32)
 
 
@@ -97,6 +102,133 @@ def test_plain_matches_zlane_kernel(z, batch, weights, early_exit):
         assert int(got.total_iters) == 12
 
 
+def _assert_soft_equal(got, want):
+    _assert_equal(got, want)
+    assert got.posteriors is not None and got.posteriors.dtype == torch.float32
+    np.testing.assert_array_equal(got.posteriors.numpy(), np.asarray(want.posteriors))
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("structure", ["z128", "z150-multi-edge-masked"])
+def test_plain_soft_output_matches_zlane_kernel(structure, early_exit):
+    """The TPU kernel's latched posterior output (tests/test_zlane.py
+    test_zlane_soft_output_bitexact): plain, padded-z, multi-edge and
+    masked structures at a mixed-convergence point."""
+    special = structure != "z128"
+    rcode = _random_qc(150 if special else 128, extra=special, masked=special)
+    kw = dict(normalization=0.75, max_iters=10, soft_output=True,
+              early_exit=early_exit)
+    llr = _all_zero_llr(rcode.n, 16, seed=21)
+    want = decode_qc_zlane(rcode, ref.DecoderConfig(schedule="layered", **kw),
+                           jnp.asarray(llr), True)
+    code = interop.code_from_reference(rcode)
+    got = cuda_long.decode_qc_long(code, DecoderConfig(**kw), torch.from_numpy(llr))
+    _assert_soft_equal(got, want)
+    conv = got.converged.numpy()
+    assert 0 < conv.sum() < len(conv)
+    # the hard decisions follow the soft output
+    np.testing.assert_array_equal((got.posteriors <= 0).numpy(), got.bits.numpy() == 1)
+
+
+def _nr_llr(z, bg, batch, snr_db, seed):
+    """Rate-matched (rv0, full buffer) BPSK/AWGN LLRs of random NR
+    codewords, de-rate-matched: LLR 0 in the punctured columns."""
+    code = nr.nr_code(z, bg)
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2, size=(batch, code.k), dtype=np.uint8)
+    tx = nr.rate_match_bits(code, nr.triangular_encode_fn(code)(torch.from_numpy(u)),
+                            code.n - code.punctured_front).numpy()
+    sigma = np.float32(10 ** (-snr_db / 20))
+    y = 1 - 2 * tx.astype(np.float32) + sigma * rng.standard_normal(tx.shape).astype(np.float32)
+    return nr.rate_match_llr(code, torch.from_numpy((y * np.float32(2 / sigma**2))))
+
+
+@pytest.mark.parametrize("bg,snr_db,early_exit", [(1, -0.75, True), (1, -0.75, False),
+                                                  (2, -3.0, True)])
+def test_plain_soft_output_matches_jnp_on_nr(bg, snr_db, early_exit):
+    """Min-sum soft output on NR z=64, the 2Z punctured columns at LLR 0:
+    bits, iterations and the posteriors of every frame equal the jnp
+    path's."""
+    llr = _nr_llr(SLICE_Z, bg, 8, snr_db, seed=65 + bg)
+    assert (llr[:, :2 * SLICE_Z] == 0).all()
+    kw = dict(normalization=0.8, max_iters=10, soft_output=True, early_exit=early_exit)
+    got = Decoder(nr.nr_code(SLICE_Z, bg), DecoderConfig(**kw), device="cpu")(llr)
+    want = ref.Decoder(ref_nr.nr_code(SLICE_Z, bg),
+                       ref.DecoderConfig(implementation="jnp", **kw))(jnp.asarray(llr.numpy()))
+    _assert_soft_equal(got, want)
+    conv = got.converged.numpy()
+    assert 0 < conv.sum() < len(conv)
+
+
+def _assert_sp_agrees(got, want):
+    """Sum-product against XLA's: equal bits and converged flags,
+    iterations within 1 (torch's exp/log1p are not XLA's)."""
+    for f in ("bits", "converged"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert np.abs(got.iterations.numpy() - np.asarray(want.iterations)).max() <= 1
+
+
+@pytest.mark.parametrize("structure,soft", [("z128", False),
+                                            ("z150-multi-edge-masked", True)])
+def test_plain_sum_product_agrees_with_zlane_kernel(structure, soft):
+    special = structure != "z128"
+    rcode = _random_qc(150 if special else 128, extra=special, masked=special)
+    kw = dict(algorithm="sum-product", max_iters=8, soft_output=soft)
+    llr = _all_zero_llr(rcode.n, 8, seed=22, lo=4.0)
+    want = decode_qc_zlane(rcode, ref.DecoderConfig(schedule="layered", **kw),
+                           jnp.asarray(llr), True)
+    code = interop.code_from_reference(rcode)
+    got = cuda_long.decode_qc_long(code, DecoderConfig(**kw), torch.from_numpy(llr))
+    _assert_sp_agrees(got, want)
+    assert got.converged.all()  # a converging point
+    if soft:
+        # the posteriors are not compared in value: phi(total - phi(|q|))
+        # near convergence cancels to a tiny argument, where one ulp of
+        # exp/log1p moves the result by up to ~1e-2 relative; their signs
+        # are the reference's
+        np.testing.assert_array_equal(got.posteriors.numpy() <= 0,
+                                      np.asarray(want.posteriors) <= 0)
+
+
+def test_plain_sum_product_soft_agrees_with_jnp_on_nr():
+    llr = _nr_llr(SLICE_Z, 1, 8, 1.0, seed=67)
+    kw = dict(algorithm="sum-product", max_iters=10, soft_output=True)
+    got = Decoder(nr.nr_code(SLICE_Z, 1), DecoderConfig(**kw), device="cpu")(llr)
+    want = ref.Decoder(ref_nr.nr_code(SLICE_Z, 1),
+                       ref.DecoderConfig(implementation="jnp", **kw))(jnp.asarray(llr.numpy()))
+    _assert_sp_agrees(got, want)
+    assert got.converged.all()
+    np.testing.assert_array_equal(got.posteriors.numpy() <= 0, got.bits.numpy() == 1)
+
+
+def test_long_kernel_serves_soft_output_and_sum_product(monkeypatch):
+    """On a CUDA device, soft output and sum-product on NR BG1 Z=384 resolve
+    to the long-code kernel in both placements (its fit query, which needs
+    the card, is stubbed); soft output with triage, SCMS on it, and the
+    flooding schedule on a long code stay refused."""
+    from myldpccppapi_torch import decoder
+
+    code = nr.nr_code(384, 1)
+    cuda = torch.device("cuda", 0)
+    configs = (DecoderConfig(soft_output=True),
+               DecoderConfig(algorithm="sum-product"),
+               DecoderConfig(algorithm="sum-product", soft_output=True,
+                             syndrome_mode="lazy"))
+    for place in (cuda_long.SHARED, cuda_long.GLOBAL):
+        monkeypatch.setattr(cuda_long, "placement", lambda c, i, p=place: p)
+        for cfg in configs:
+            assert cuda_long.supported(code, cfg, cuda)
+            assert decoder._implementation(code, cfg, cuda) == "cuda_long"
+    with pytest.raises(ValueError, match="no CUDA kernel serves"):
+        decoder._implementation(code, DecoderConfig(schedule="flooding"), cuda)
+    with pytest.raises(ValueError, match="triage"):
+        Decoder(code, DecoderConfig(soft_output=True, triage_iters=5), device="cpu")
+    with pytest.raises(ValueError, match="self_correction"):
+        Decoder(code, DecoderConfig(schedule="flooding", self_correction=True,
+                                    implementation="cuda_long"), device="cpu")
+
+
 SUPPORT_CASES = {
     "z128": (_random_qc(128), {}),
     "z150": (_random_qc(150), {}),
@@ -113,6 +245,9 @@ SUPPORT_CASES = {
     "multi-edge": (_random_qc(150, extra=True), {}),
     "masked-row": (_random_qc(150, masked=True), {}),
     "dvbs2-16200": (ref_dvbs2(16200, "1/2"), dict(syndrome_mode="lazy")),
+    # kernel C's sum-product and soft-output modes (the soft receive slice)
+    "sum-product": (_random_qc(128), dict(algorithm="sum-product")),
+    "soft-output": (_random_qc(128), dict(soft_output=True)),
 }
 
 
@@ -124,29 +259,11 @@ def test_supported_agrees_with_zlane(case):
     assert cuda_long.supported(code, DecoderConfig(**kw)) is verdict
 
 
-#: served by the TPU kernel, refused by the port's kernel C on purpose
-#: until a later slice ports that mode (ROADMAP Queue 2); the torch path and
-#: kernel A serve them
-REFUSED_ON_PURPOSE = {
-    "sum-product": (_random_qc(128), dict(algorithm="sum-product")),
-    "soft-output": (_random_qc(128), dict(soft_output=True)),
-}
-
-
-@pytest.mark.parametrize("case", list(REFUSED_ON_PURPOSE))
-def test_supported_refuses_on_purpose(case):
-    rcode, kw = REFUSED_ON_PURPOSE[case]
-    assert zlane_supported(rcode, ref.DecoderConfig(schedule="layered", **kw))
-    code = interop.code_from_reference(rcode)
-    # the code is served; the configuration is refused
-    assert cuda_long.supported(code)
-    assert not cuda_long.supported(code, DecoderConfig(**kw))
-
-
 def test_supported_refuses_unserved_configs():
     code = nr.nr_code(64, 1)
     assert cuda_long.supported(code, DecoderConfig())
-    for bad in (dict(soft_output=True), dict(msg_dtype="bfloat16")):
+    for bad in (dict(msg_dtype="bfloat16"), dict(crc="16"),
+                dict(outer=("bch", 16, 12))):
         cfg = object.__new__(DecoderConfig)  # past __post_init__'s refusals
         for f in DecoderConfig.__dataclass_fields__.values():
             object.__setattr__(cfg, f.name, bad.get(f.name, f.default))
