@@ -132,6 +132,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    alpha 0.75 on kernel A's soft mode (FER not above one-shot, equal to the
    plain loop), and the CLI ``waterfall --mod 16apsk --id-outer 2`` on the
    same DVB-S2 code and its resume.
+3g. (runs after 4g, like 3h-4j) bf16 messages, kernel A's other modes and
+   kernel B's route against their plain versions on CUDA, bit-exact,
+   bf16 posteriors included: flooding NMS alpha 0.75, SCMS, layered
+   sum-product, layered and flooding soft output on wimax(576, "3/4B") at
+   batch 1000, 5 and 2 dB, and nr_code(32, 1) at batch 101, 3 and -1.25
+   dB (12 cases); the tiles f32/bf16.
+3h. bf16 against the true codeword at the reference's own points
+   (tests/test_zlane.py, tests/test_bf16.py): dvbs2_ira_qc(16200, "8/9")
+   at 6.5 dB on kernel C, wimax(576, "3/4B") at 5.5 dB on kernel A (NMS
+   alpha 0.75 and sum-product), 16 frames each through ``Decoder``: every
+   frame converges to the true info bits.
+4h. bf16 main paths through ``Decoder``, each equal to its plain version
+   (the one with the kernel's rounding points) on CUDA: phase 4's wimax
+   LLRs (layered NMS alpha 0.75 and flooding sum-product), NR BG1 Z=384 at
+   3-6 dB (min-sum alpha 0.8; sum-product and soft output at 5 dB),
+   DVB-S2 64800 r1/2 at 1.4 dB, lazy, in the placement its bf16 fit
+   picks (global) and forced into the other one (shared); then the CLI
+   ``waterfall --msg-dtype bfloat16`` on wimax 576 r1/2 layered min-sum
+   beside the f32 run of the same frames, their FERs printed.
+4i. BASELINE configs 1 and 1c: regular(648), flooding sum-product, 16 sim
+   steps of batch 64 at 2 dB through ``sim_step`` on kernel A (1c with
+   CRC-16, so ``Decoder`` wraps the kernel in the acceptance retry):
+   config 1 must show undetected errors, 1c none and some CRC rejections;
+   on 16 batches the kernel + wrap equals ``Decoder(implementation=
+   "torch")``'s in-loop latch (bits, converged, iterations, accepted);
+   the retry's share of a batch's decode time.
+4j. The three legs of ``__graft_entry__.dryrun_multichip`` on one card
+   through ``sim_step`` with the reference's configs and SNR points: wimax
+   576 r1/2 CRC-16 (kernel A), DVB-S2 16200 r1/2 with post-decode outer
+   BCH (kernel C), NR BG1 z=32 rate-matched rv0 CRC-16 (kernel B's route);
+   and leg 2's code with the BCH in the decoder: kernel C + wrap equals
+   the latch on true and forged frames, fewer and more than the cap.
 5. Times: CUDA events, median of 7 after a warm-up (for the plain versions
    but the layered short-code and NR min-sum ones, one timed call after the
    warm-up: they measure the host, not the card): each kernel and its plain version (single pass, no
@@ -142,7 +174,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    batch 1024, its posterior in shared and in global memory; kernel C's
    sum-product and soft output on phase 4b's 5 dB LLRs and soft output on
    phase 4c's 1.4 dB ones; the 3m and 4m receive paths (the demap alone,
-   the decode, both together); and one BICM-ID step (two exchanges).
+   the decode, both together); one BICM-ID step (two exchanges); and the
+   bf16 main paths (kernel A at wimax 576, C at NR and at DVB-S2 64800 in
+   both placements).
 
 The line before the last is the kernels' JSON record, one entry per kernel
 and mode: each ``launches`` counts its launches in its main path's
@@ -155,7 +189,11 @@ posterior difference against the plain version on the CPU (phases 3d,
 ``Decoder``, its soft-output entry the BICM-ID soft passes (phase 4g; its
 times are phase 4b's soft ``Decoder``'s), its global soft-output entry
 phase 4c's; the 3m and 4m receive paths add ``m3_*``/``m4_*`` fields to
-the global and shared entries.  The last line is ``{"ok": true,
+the global and shared entries.  The bf16 entries count phase 4h's
+``Decoder`` calls (the shared placement at DVB-S2 64800 its forced
+decode; the bound writes posteriors at 2 B); config 1/1c (``config1*``) and the legs
+(``acceptance_leg_*``) add their counts and times to the entries whose
+kernel the acceptance wraps.  The last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -188,9 +226,11 @@ from myldpccppapi_torch import (
     make_modulation,
     modulate,
     nr_code,
+    regular,
     wimax,
 )
 from myldpccppapi_torch.codes import (
+    dvbs2_ira_qc,
     encode_numpy,
     ira_encode_fn,
     ira_encode_numpy,
@@ -200,6 +240,8 @@ from myldpccppapi_torch.codes import (
     triangular_encode_fn,
     triangular_encode_numpy,
 )
+from myldpccppapi_torch.codes.bch import bch_attach_fn, bch_matrix, bch_params_dvbs2
+from myldpccppapi_torch.codes.crc import CRC_POLYS, crc_attach_fn
 from myldpccppapi_torch.ops import _build
 from myldpccppapi_torch.ops.channel import sigma_from_snr_db, transmit
 from myldpccppapi_torch.ops.cuda_bp import (
@@ -214,7 +256,9 @@ from myldpccppapi_torch.ops.cuda_long import (
     decode_qc_long_plain,
     placement,
 )
+from myldpccppapi_torch.ops.bp import accept_fail_fn
 from myldpccppapi_torch.ops.packing import unpack_bits_np
+from myldpccppapi_torch.sim import SimStats, sim_step
 
 SEED = 20260816
 BATCH = 8192
@@ -300,6 +344,40 @@ ID_OUTER = 2
 ID_SHORT_CFG = DecoderConfig(normalization=0.75, max_iters=30)
 ID_SHORT_BATCH = 2048
 ID_SHORT_SNR = 10.0
+#: bf16 messages (phases 3g, 3h, 4h): the main paths' configs in bf16
+BF16 = dict(msg_dtype="bfloat16")
+BF16_A_CFGS = {  # kernel A at wimax 576 r3/4B, batch 8192, 5 dB
+    "layered": DecoderConfig(normalization=0.75, max_iters=40, **BF16),
+    "sp flooding": DecoderConfig(schedule="flooding", algorithm="sum-product",
+                                 max_iters=40, **BF16),
+}
+BF16_NR_CFGS = {  # kernel C at NR BG1 Z=384, batch 512, 5 dB
+    "min-sum": dataclasses.replace(NR_CFG, **BF16),
+    "sum-product": dataclasses.replace(NR_SP_CFG, **BF16),
+    "soft": dataclasses.replace(NR_CFG, soft_output=True, **BF16),
+}
+BF16_DVB_CFG = dataclasses.replace(DVB_CFG, **BF16)
+#: kernel A's other bf16 modes and kernel B's route (phase 3g), on
+#: numpy LLRs at batch 1000
+BF16_A_MODES = {
+    "flooding": dict(schedule="flooding", normalization=0.75),
+    "scms": dict(schedule="flooding", self_correction=True),
+    "sp layered": dict(algorithm="sum-product"),
+    "soft layered": dict(normalization=0.75, soft_output=True),
+    "soft flooding": dict(schedule="flooding", normalization=0.75, soft_output=True),
+}
+#: BASELINE configs 1 and 1c (benchmarks/run_baseline.py config1, config1c):
+#: regular (3,6) n=648, flooding sum-product, batch 64, 2 dB; 1c with
+#: CRC-16-aided acceptance.  ACC_STEPS sim steps of each
+ACC_CFG = DecoderConfig(algorithm="sum-product", schedule="flooding")
+ACC_BATCH = 64
+ACC_SNR = 2.0
+ACC_STEPS = 16
+#: the three legs of __graft_entry__.dryrun_multichip on one device: name,
+#: code, config, SNR grid (its 1-D mesh case: two points), frames per point
+LEG1_CFG = DecoderConfig(algorithm="min-sum", schedule="layered", max_iters=4, crc="16")
+LEG2_CFG = DecoderConfig(schedule="layered", normalization=0.85, max_iters=2)
+LEG3_CFG = DecoderConfig(schedule="layered", normalization=0.8, max_iters=3, crc="16")
 #: the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and f32
 #: operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -497,7 +575,7 @@ def phase_long_modes_vs_plain() -> tuple[dict, float]:
         group = "sp" if cfg.algorithm == "sum-product" else "soft"
         before = (decode_qc_long.global_launches, decode_qc_long.soft_launches,
                   decode_qc_long.sp_launches)
-        k = decode_qc_long(code, cfg, llr_gpu, _force_global=force)
+        k = decode_qc_long(code, cfg, llr_gpu, _place=GLOBAL if force else 0)
         torch.cuda.synchronize()
         after = (decode_qc_long.global_launches, decode_qc_long.soft_launches,
                  decode_qc_long.sp_launches)
@@ -514,7 +592,7 @@ def phase_long_modes_vs_plain() -> tuple[dict, float]:
             note = "cuda; forced global == shared"
         if cpu:
             cpu16 = llr_cpu[:16].contiguous()
-            k16 = decode_qc_long(code, cfg, cpu16.cuda(), _force_global=force)
+            k16 = decode_qc_long(code, cfg, cpu16.cuda(), _place=GLOBAL if force else 0)
             p16 = decode_qc_long_plain(code, cfg, cpu16)
             if cfg.algorithm == "sum-product":
                 sp_cpu_post = max(sp_cpu_post, sp_cpu_diff(k16, p16))
@@ -574,11 +652,11 @@ def check_long(code, cfg, llr_gpu, llr_cpu=None, force_global=False):
     """The long-code kernel against its plain version on the same LLRs, on
     CUDA and (``llr_cpu``) on the CPU; returns the CUDA result and the
     largest difference (0.0: any other raises)."""
-    k = decode_qc_long(code, cfg, llr_gpu, _force_global=force_global)
+    k = decode_qc_long(code, cfg, llr_gpu, _place=GLOBAL if force_global else 0)
     torch.cuda.synchronize()
     worst = max_abs_diff(k, decode_qc_long_plain(code, cfg, llr_gpu))
     if llr_cpu is not None:
-        k16 = decode_qc_long(code, cfg, llr_cpu.cuda(), _force_global=force_global)
+        k16 = decode_qc_long(code, cfg, llr_cpu.cuda(), _place=GLOBAL if force_global else 0)
         torch.cuda.synchronize()
         worst = max(worst, max_abs_diff(k16, decode_qc_long_plain(code, cfg, llr_cpu)))
     return k, worst
@@ -1045,7 +1123,7 @@ def phase_nr_main_path():
     waterfall_and_resume("phase4b", ["--family", "nr", "--z", "384", "--bg", "1",
                                      "--snr=-2.5,-1.5", "--normalization", "0.8"],
                          decode_qc_long)
-    return dec, llrs[5.0], launches, sp, sp_launches, soft
+    return dec, llrs, launches, sp, sp_launches, soft, u
 
 
 def waterfall_and_resume(tag: str, code_args: list, kernel,
@@ -1153,7 +1231,7 @@ def phase_dvbs2_main_path():
     waterfall_and_resume("phase4c", ["--family", "dvbs2", "--n", "16200", "--rate",
                                      "1/2", "--snr=0.5,1.0", "--normalization", "0.85"],
                          decode_qc_long)
-    return dec, llrs[1.4], launches, soft, soft_launches
+    return dec, llrs[1.4], launches, soft, soft_launches, u
 
 
 def received(gen, cw, mod: Modulation, snr_db: float):
@@ -1310,6 +1388,354 @@ def phase_bicm_id():
     return rx, plain, y, n0, soft, fer0, fer, short_soft
 
 
+def phase_bf16_modes_vs_plain() -> float:
+    """Phase 3g: kernel A's other bf16 modes and kernel B's route in bf16
+    against their plain versions on CUDA, bit-exact, posteriors included."""
+    dev = torch.cuda.current_device()
+    n_cases = 0
+    code = wimax(576, "3/4B")
+    tiles = {name: f"{tile_size(code, dev, m)}/{tile_size(code, dev, m, 2)}"
+             for name, m in (("layered", 0), ("flooding", 1), ("scms", 5))}
+    log(f"[phase3g] {code.name} codewords per block f32/bf16: {tiles}")
+    for snr in (5.0, 2.0):
+        llr = torch.from_numpy(numpy_llr(code, 1000, snr, SEED + 300)).cuda()
+        for name, kw in BF16_A_MODES.items():
+            cfg = DecoderConfig(max_iters=40, **BF16, **kw)
+            decode_qc_cuda.bf16_launches = 0
+            k = decode_qc_cuda(code, cfg, llr)
+            torch.cuda.synchronize()
+            if decode_qc_cuda.bf16_launches != 1:
+                raise AssertionError(f"{name}: no bf16 launch")
+            if cfg.soft_output and k.posteriors.dtype != torch.bfloat16:
+                raise AssertionError(f"{name}: posteriors are {k.posteriors.dtype}")
+            max_abs_diff(k, decode_qc_cuda_plain(code, cfg, llr))
+            n_cases += 1
+        log(f"[phase3g] {code.name} batch=1000 snr={snr} bf16 "
+            f"{', '.join(BF16_A_MODES)}: bit-exact against the plain version (cuda)")
+    b_code = nr_code(*B_MAIN)
+    cfg = dataclasses.replace(NR_CFG, **BF16)
+    for ci, snr in enumerate(B_SNRS[1]):
+        llr = nr_numpy_llr(b_code, 101, snr, SEED + 301 + ci).cuda()
+        decode_qc_cuda.bf16_launches = 0
+        k = decode_qc_cuda(b_code, cfg, llr)
+        torch.cuda.synchronize()
+        if decode_qc_cuda.bf16_launches != 1:
+            raise AssertionError("kernel B's route: no bf16 launch")
+        max_abs_diff(k, decode_qc_cuda_plain(b_code, cfg, llr))
+        n_cases += 1
+        log(f"[phase3g] {b_code.name} (kernel B's route) bf16 snr={snr} {summary(k)}: "
+            "bit-exact")
+    log(f"[phase3g] {n_cases} cases bit-exact")
+    return 0.0
+
+
+def phase_bf16_semantics() -> None:
+    """Phase 3h: at the reference's own bf16 points every frame converges
+    and decodes the true info bits (tests/test_zlane.py:192-207,
+    tests/test_bf16.py:26-42), through ``Decoder`` on the card."""
+    code = dvbs2_ira_qc(16200, "8/9")
+    rng = np.random.default_rng(3)
+    u = rng.integers(0, 2, size=(16, code.k), dtype=np.uint8)
+    c = ira_encode_numpy(code, u)
+    sigma = 10 ** (-6.5 / 20)
+    y = (1.0 - 2.0 * c.astype(np.float32)) + rng.normal(0, sigma, c.shape).astype(np.float32)
+    cases = [(code, DecoderConfig(normalization=0.8, max_iters=25, **BF16),
+              torch.from_numpy((2.0 * y / sigma**2).astype(np.float32)), u, "cuda_long")]
+    code = wimax(576, "3/4B")
+    rng = np.random.default_rng(0)
+    u = rng.integers(0, 2, size=(16, code.k), dtype=np.uint8)
+    c = encode_numpy(ru_precompute(code), u)
+    sigma = 10 ** (-5.5 / 20)
+    y = (1.0 - 2.0 * c.astype(np.float32)) + sigma * rng.standard_normal(c.shape).astype(np.float32)
+    llr = torch.from_numpy((2.0 * y / sigma**2).astype(np.float32))
+    for alg, alpha in (("min-sum", 0.75), ("sum-product", 1.0)):
+        cases.append((code, DecoderConfig(algorithm=alg, normalization=alpha, **BF16),
+                      llr, u, "cuda"))
+    for code, cfg, llr, u, impl in cases:
+        dec = Decoder(code, cfg, device="cuda")
+        if dec.implementation != impl:
+            raise AssertionError(f"{code.name} bf16 resolved to {dec.implementation}")
+        res = dec(llr)
+        if not bool(res.converged.all()):
+            raise AssertionError(f"{code.name} bf16: a frame did not converge")
+        if not np.array_equal(res.bits[:, :code.k].cpu().numpy(), u):
+            raise AssertionError(f"{code.name} bf16: wrong info bits")
+        log(f"[phase3h] {code.name} {cfg.algorithm} bf16 impl={dec.implementation}: "
+            f"16 of 16 frames converged to the true info bits, iterations "
+            f"{res.iterations.tolist()}")
+
+
+def phase_bf16_main_paths(llr, u, nr_llrs, nr_u, dvb_llr, dvb_u):
+    """Phase 4h: the main paths' Decoders in bf16 on their own LLRs: wimax
+    576 r3/4B (kernel A, layered NMS and flooding sum-product), NR BG1
+    Z=384 at 3-6 dB (kernel C, shared; sum-product and soft output at 5
+    dB), DVB-S2 64800 r1/2 at 1.4 dB (kernel C in the placement its bf16
+    fit picks, global, and forced into shared memory); each equal to its
+    plain version on CUDA, bf16 posteriors included."""
+    out = {"decs": {}, "launches": {}}
+    code = wimax(576, "3/4B")
+    for name, cfg in BF16_A_CFGS.items():
+        dec = Decoder(code, cfg, device="cuda")
+        if dec.implementation != "cuda":
+            raise AssertionError(f"bf16 {name} resolved to {dec.implementation}")
+        decode_qc_cuda.bf16_launches = 0
+        res = dec(llr)
+        torch.cuda.synchronize()
+        out["launches"][f"a {name}"] = decode_qc_cuda.bf16_launches
+        if decode_qc_cuda.bf16_launches < 1:
+            raise AssertionError(f"the bf16 {name} Decoder launched no bf16 kernel")
+        max_abs_diff(res, decode_qc_cuda_plain(code, cfg, llr))
+        out["decs"][f"a {name}"] = dec
+        log(f"[phase4h] Decoder {code.name} bf16 {name} impl={dec.implementation} "
+            f"batch={BATCH} snr={SNR_DB} {gates(dec, res, u)} launches="
+            f"{out['launches'][f'a {name}']}; == the plain version (cuda)")
+    code = nr_code(384, 1)
+    for name, cfg in BF16_NR_CFGS.items():
+        dec = Decoder(code, cfg, device="cuda")
+        if dec.implementation != "cuda_long" or placement(
+                code, torch.cuda.current_device(), 2) != SHARED:
+            raise AssertionError(f"NR bf16 {name} resolved to {dec.implementation}")
+        llrs = nr_llrs if name == "min-sum" else {5.0: nr_llrs[5.0]}
+        decode_qc_long.launches = 0
+        decode_qc_long.bf16_launches = 0
+        results = {snr: dec(x) for snr, x in llrs.items()}
+        torch.cuda.synchronize()
+        out["launches"][f"c {name}"] = decode_qc_long.bf16_launches
+        if decode_qc_long.bf16_launches != len(llrs) or decode_qc_long.launches != len(llrs):
+            raise AssertionError(f"NR bf16 {name}: launches {decode_qc_long.bf16_launches}")
+        for snr, res in results.items():
+            log(f"[phase4h] Decoder {code.name} bf16 {name} impl={dec.implementation} "
+                f"(shared) batch={NR_BATCH} snr={snr} {gates(dec, res, nr_u)}")
+        max_abs_diff(results[5.0], decode_qc_long_plain(code, cfg, nr_llrs[5.0]))
+        out["decs"][f"c {name}"] = dec
+        log(f"[phase4h] NR bf16 {name}: launches={out['launches'][f'c {name}']}; == the "
+            "plain version (cuda) at 5 dB" + (", bf16 posteriors included"
+                                             if cfg.soft_output else ""))
+    code = dvbs2(64800, "1/2")
+    where = placement(code, torch.cuda.current_device(), 2)
+    if where != GLOBAL:
+        raise AssertionError(f"bf16 DVB-S2 64800: placement {where}, not global")
+    dec = Decoder(code, BF16_DVB_CFG, device="cuda")
+    decode_qc_long.launches = 0
+    decode_qc_long.global_launches = 0
+    res = dec(dvb_llr)
+    torch.cuda.synchronize()
+    out["launches"]["c dvb"] = decode_qc_long.global_launches
+    if (decode_qc_long.launches, decode_qc_long.global_launches) != (0, 1):
+        raise AssertionError("the bf16 DVB-S2 Decoder did not launch the global mode")
+    plain = decode_qc_long_plain(code, BF16_DVB_CFG, dvb_llr)
+    max_abs_diff(res, plain)
+    log(f"[phase4h] Decoder {code.name} bf16 impl={dec.implementation} (posterior in "
+        f"global memory: {code.n * 2} B in shared memory would leave one block to an "
+        f"SM) batch={DVB_BATCH} snr=1.4 lazy {gates(dec, res, dvb_u)}; == the lazy "
+        "plain version (cuda)")
+    decode_qc_long.launches = 0
+    forced = decode_qc_long(code, BF16_DVB_CFG, dvb_llr, _place=SHARED)
+    torch.cuda.synchronize()
+    out["launches"]["c dvb shared"] = decode_qc_long.launches
+    if decode_qc_long.launches != 1:
+        raise AssertionError("the forced bf16 shared mode did not launch")
+    max_abs_diff(forced, plain)
+    log(f"[phase4h] {code.name} bf16 forced into shared memory {summary(forced)}; == the "
+        "same plain version")
+    out["decs"]["c dvb"] = dec
+    return out
+
+
+def phase_bf16_waterfall() -> dict:
+    """Phase 4h (CLI): ``waterfall --msg-dtype bfloat16`` at one point of
+    wimax 576 r1/2 layered min-sum beside the f32 point, the same seeds and
+    frames."""
+    fers = {}
+    for dtype in ("float32", "bfloat16"):
+        argv = ["waterfall", "--family", "wimax", "--n", "576", "--rate", "1/2",
+                "--snr=1.5", "--batch", "4096", "--target-errors", "1000000",
+                "--max-frames", "8192", "--max-iters", "30", "--msg-dtype", dtype,
+                "--device", "cuda"]
+        decode_qc_cuda.launches = 0
+        decode_qc_cuda.bf16_launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if cli.main(argv) != 0:
+                raise AssertionError("waterfall exited non-zero")
+        line = buf.getvalue().strip().splitlines()[0]
+        bf16_launches = decode_qc_cuda.bf16_launches
+        if decode_qc_cuda.launches < 1 or (bf16_launches > 0) != (dtype == "bfloat16"):
+            raise AssertionError(f"waterfall {dtype}: launches {decode_qc_cuda.launches}, "
+                                 f"bf16 {bf16_launches}")
+        fers[dtype] = float(line.split("FER=")[1].split()[0])
+        log(f"[phase4h] waterfall --msg-dtype {dtype}: {line}")
+    log(f"[phase4h] wimax 576 r1/2 layered MS at 1.5 dB, 8192 frames: FER f32 "
+        f"{fers['float32']:.4e}, bf16 {fers['bfloat16']:.4e}")
+    return fers
+
+
+def acc_frames(enc, seed: int, snr: float, batch: int, k_msg: int, attach):
+    """``k_msg`` message bits with their check attached (``attach``),
+    encoded on the card, through BPSK/AWGN: (info bits, [batch, n] LLRs)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = attach(torch.randint(0, 2, (batch, k_msg), generator=gen, device="cuda",
+                             dtype=torch.uint8))
+    return u, transmit(gen, enc(u), snr)[0].contiguous()
+
+
+def equal_accept(a, b) -> None:
+    """The wrap's result equals the latch's: bits, converged, iterations
+    and accepted."""
+    for f in ("bits", "converged", "iterations", "accepted"):
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"the acceptance wrap and the latch differ in {f}")
+
+
+def phase_acceptance() -> dict:
+    """Phase 4i: BASELINE configs 1 and 1c through ``sim_step`` on kernel
+    A's flooding sum-product mode (1c with CRC-16 and the acceptance wrap):
+    config 1 shows undetected errors, 1c none and some CRC rejections; the
+    wrap equals the torch path's in-loop latch on the card; the retry's
+    share of the decode time."""
+    code = regular(648)
+    enc = Encoder(code, device="cuda")
+    cfg1c = dataclasses.replace(ACC_CFG, crc="16")
+    totals = {}
+    for name, cfg in (("1", ACC_CFG), ("1c", cfg1c)):
+        dec = Decoder(code, cfg, device="cuda")
+        if dec.implementation != "cuda":
+            raise AssertionError(f"config {name} resolved to {dec.implementation}")
+        decode_qc_cuda.launches = 0
+        stats = [sim_step(code, cfg, torch.Generator(device="cuda").manual_seed(
+            SEED + 400 + i), ACC_SNR, ACC_BATCH, encode_fn=enc, decode_fn=dec)
+            for i in range(ACC_STEPS)]
+        torch.cuda.synchronize()
+        tot = {f: sum(int(getattr(st, f)) for st in stats) for f in SimStats._fields}
+        tot["launches"] = decode_qc_cuda.launches
+        if tot["launches"] < ACC_STEPS:
+            raise AssertionError(f"config {name}: {tot['launches']} kernel launches")
+        totals[name] = tot
+        log(f"[phase4i] config {name} ({code.name} k_info={code.k_info}, flooding SP, "
+            f"{ACC_STEPS} x batch {ACC_BATCH}, {ACC_SNR} dB) impl={dec.implementation}: "
+            + ", ".join(f"{k}={v}" for k, v in tot.items()))
+        if name == "1c":
+            dec1c = dec
+    t1, t1c = totals["1"], totals["1c"]
+    if not (t1["undetected_errors"] > 0 and t1["crc_rejected"] == 0):
+        raise AssertionError("config 1 shows no undetected error")
+    if not (t1c["undetected_errors"] == 0 and t1c["crc_rejected"] > 0
+            and t1c["frame_errors"] >= t1c["crc_rejected"]):
+        raise AssertionError("config 1c: the CRC missed a wrong codeword or caught none")
+    # the wrap (kernel + ops/crc_accept.py) equals the torch path's latch
+    latch = Decoder(code, cfg1c, device="cuda", implementation="torch")
+    fail = accept_fail_fn(code, cfg1c)
+    k_msg = code.k_info - CRC_POLYS["16"][0]
+    attach = crc_attach_fn(k_msg, "16")
+    rejected, worst = 0, None
+    for i in range(ACC_STEPS):
+        _, llr = acc_frames(enc, SEED + 500 + i, ACC_SNR, ACC_BATCH, k_msg, attach)
+        equal_accept(dec1c(llr), latch(llr))
+        k = decode_qc_cuda(code, ACC_CFG, llr)
+        n_rej = int((k.converged & fail(k.bits)).sum())
+        rejected += n_rej
+        if worst is None or n_rej > worst[0]:
+            worst = (n_rej, llr, k)
+    log(f"[phase4i] config 1c: kernel + acceptance wrap == Decoder(torch)'s latch on "
+        f"{ACC_STEPS} batches (bits, converged, iterations, accepted); the kernel "
+        f"alone converged to {rejected} CRC-rejected codewords")
+    # the retry's share of a batch's decode time, on the batch with the most
+    # rejections
+    n_rej, llr, k = worst
+    bad = k.converged & fail(k.bits)
+    cap = max(8, int(ACC_BATCH * cfg1c.triage_cap_frac))
+    sel = torch.argsort((~bad).to(torch.uint8), stable=True)[:cap]
+    retry_cfg = dataclasses.replace(cfg1c, implementation="torch")
+    t = {"wrap": median_ms(lambda: dec1c(llr)),
+         "kernel": median_ms(lambda: decode_qc_cuda(code, ACC_CFG, llr)),
+         "retry": median_ms(lambda: decode_qc_cuda_plain(code, retry_cfg, llr[sel]))}
+    t["share"] = (t["wrap"] - t["kernel"]) / t["wrap"]
+    log(f"[phase4i] config 1c batch of {ACC_BATCH} with {n_rej} rejected frames: "
+        f"kernel + wrap {t['wrap']:.4f} ms, kernel alone {t['kernel']:.4f} ms, the "
+        f"retry of {cap} frames alone {t['retry']:.4f} ms; the acceptance's share "
+        f"{t['share']:.3f}")
+    return {"config1_undetected_errors": t1["undetected_errors"],
+            "config1_frame_errors": t1["frame_errors"],
+            "config1c_undetected_errors": t1c["undetected_errors"],
+            "config1c_crc_rejected": t1c["crc_rejected"],
+            "config1c_frame_errors": t1c["frame_errors"],
+            "config1c_launches": t1c["launches"],
+            "config1c_wrap_ms": t["wrap"], "config1c_kernel_ms": t["kernel"],
+            "config1c_retry_ms": t["retry"], "config1c_retry_share": t["share"]}
+
+
+def phase_legs() -> dict:
+    """Phase 4j: the three legs of ``__graft_entry__.dryrun_multichip`` on one
+    card through ``sim_step`` with the reference's configs (its 1-D mesh
+    case: two SNR points): wimax 576 r1/2 with CRC-16 on kernel A, DVB-S2
+    16200 r1/2 with post-decode outer BCH on kernel C, NR BG1 z=32
+    rate-matched rv0 with CRC-16 on kernel B's route; then leg 2's code
+    with the BCH in the decoder: kernel C + the wrap equals the latch."""
+    code1 = wimax(576, "1/2")
+    code2 = dvbs2(16200, "1/2")
+    m_f, t_f, _ = bch_params_dvbs2(16200, "1/2")
+    code3 = nr_code(32, 1)
+    e3 = code3.n - code3.punctured_front
+    tri3 = triangular_encode_fn(code3)
+    dec1, dec2, dec3 = (Decoder(c, cfg, device="cuda") for c, cfg in
+                        ((code1, LEG1_CFG), (code2, LEG2_CFG), (code3, LEG3_CFG)))
+    # (name, code, config, encode, decode, its Decoder, outer code, frames
+    # per point, SNR points, the kernel it must resolve to)
+    legs = [
+        ("wimax576_crc16", code1, LEG1_CFG, Encoder(code1, device="cuda"), dec1, dec1,
+         None, 8, (1.0, 4.0), "cuda"),
+        ("dvbs2_16200_bch", code2, LEG2_CFG, ira_encode_fn(code2), dec2, dec2,
+         ("bch", m_f, t_f), 2, (1.0, 2.5), "cuda_long"),
+        ("nr_bg1_z32_rm_crc16", code3, LEG3_CFG,
+         lambda u: rate_match_bits(code3, tri3(u), e3),
+         lambda llr_e: dec3(rate_match_llr(code3, llr_e, e3).contiguous()), dec3,
+         None, 4, (2.0, 6.0), "cuda"),
+    ]
+    out = {}
+    for li, (name, code, cfg, enc_fn, dec_fn, dec, outer, bpd, snrs,
+             impl) in enumerate(legs):
+        kernel = decode_qc_long if impl == "cuda_long" else decode_qc_cuda
+        if dec.implementation != impl:
+            raise AssertionError(f"leg {name} resolved to {dec.implementation}")
+        kernel.launches = 0
+        stats = [sim_step(code, cfg, torch.Generator(device="cuda").manual_seed(
+            SEED + 600 + 10 * li + i), snr, bpd, encode_fn=enc_fn, decode_fn=dec_fn,
+            outer=outer) for i, snr in enumerate(snrs)]
+        torch.cuda.synchronize()
+        tot = {f: sum(int(getattr(st, f)) for st in stats) for f in SimStats._fields}
+        tot["launches"] = kernel.launches
+        if tot["frames"] != len(snrs) * bpd or tot["launches"] < len(snrs):
+            raise AssertionError(f"leg {name}: {tot}")
+        out[name] = tot
+        log(f"[phase4j] leg[{name}] OK on one card: impl={impl} snr={list(snrs)} "
+            + ", ".join(f"{k}={v}" for k, v in tot.items()))
+    # leg 2 with the BCH in the decoder's acceptance: kernel C + wrap == latch,
+    # on noisy true frames and forged ones (valid LDPC codewords whose BCH
+    # field is broken), fewer and more than the wrap's cap of 8
+    cfg2 = dataclasses.replace(LEG2_CFG, outer=("bch", m_f, t_f))
+    wrap = Decoder(code2, cfg2, device="cuda")
+    latch = Decoder(code2, cfg2, device="cuda", implementation="torch")
+    k_msg = code2.k_info - bch_matrix(1, m_f, t_f).shape[1]
+    attach = bch_attach_fn(k_msg, m_f, t_f)
+    enc2 = ira_encode_fn(code2)
+    for n_forged in (6, 12):
+        _, good = acc_frames(enc2, SEED + 700 + n_forged, 2.5, 24, k_msg, attach)
+        u, _ = acc_frames(enc2, SEED + 710 + n_forged, 2.5, n_forged, k_msg, attach)
+        u[:, 3] ^= 1  # a message bit: the BCH field no longer matches
+        forged = (1.0 - 2.0 * enc2(u).to(torch.float32)) * 4.0
+        llr = torch.cat([good, forged]).contiguous()
+        decode_qc_long.launches = 0
+        res = wrap(llr)
+        torch.cuda.synchronize()
+        if decode_qc_long.launches != 1 or bool(res.accepted[24:].any()):
+            raise AssertionError("leg 2 wrap: a forged frame was accepted")
+        equal_accept(res, latch(llr))
+        log(f"[phase4j] leg dvbs2_16200_bch, BCH in the decoder: kernel C + wrap == "
+            f"Decoder(torch)'s latch on 24 frames at 2.5 dB and {n_forged} forged ones "
+            f"(accepted {int(res.accepted.sum())}, converged {int(res.converged.sum())})")
+    return out
+
+
 def bound(code, cfg, llr, res) -> tuple[float, str]:
     """The least time the card could take for one decode of ``llr``: the
     largest of its bytes (each LLR read once, each output -- bits,
@@ -1318,11 +1744,14 @@ def bound(code, cfg, llr, res) -> tuple[float, str]:
     config's mode per Tanner-graph edge and sweep, over the sweeps this
     run's frames ran: ``iterations`` each with early exit, else every sweep)
     over the f32 rate, and, for sum-product, its special-function results
-    over the SFU rate.  Returns (ms, "bytes" or "operations")."""
+    over the SFU rate.  bf16 messages do the same operations on the same
+    f32 LLRs and write their posteriors at 2 B.  Returns (ms, "bytes" or
+    "operations")."""
     batch = llr.shape[0]
+    item = 2 if cfg.msg_dtype == "bfloat16" else 4  # the posterior output's
     nbytes = batch * code.n * (4 + 1) + batch * (1 + 4)
     if cfg.soft_output:
-        nbytes += batch * code.n * 4
+        nbytes += batch * code.n * item
     sweeps = (int(res.iterations.sum()) if cfg.early_exit
               else batch * cfg.max_iters)
     if cfg.self_correction:
@@ -1402,13 +1831,40 @@ def phase_dvbs2_times(dvb_dec, dvb_llr):
                       dtype=torch.uint8)
     llr = transmit(gen, ira_encode_fn(code)(u), 1.5)[0].contiguous()
     for force in (False, True):
-        ms = median_ms(lambda: decode_qc_long(code, DVB_CFG, llr, _force_global=force))
-        res = decode_qc_long(code, DVB_CFG, llr, _force_global=force)
+        ms = median_ms(lambda: decode_qc_long(code, DVB_CFG, llr, _place=GLOBAL if force else 0))
+        res = decode_qc_long(code, DVB_CFG, llr, _place=GLOBAL if force else 0)
         log(f"[phase5] {code.name} lazy kernel, posterior in "
             f"{'global' if force else 'shared'} memory: {ms:.4f} ms per batch of "
             f"{DVB_BATCH} at 1.5 dB ({summary(res)}, mean iterations "
             f"{res.iterations.float().mean().item():.3f})")
     return times
+
+
+def phase_bf16_times(decs, llr, nr_llr, dvb_llr) -> dict:
+    """Phase 5 for bf16: each bf16 main path's kernel, plain version and
+    Decoder (one timed repeat of the plain versions after a warm-up), the
+    other modes' kernels, and DVB-S2 64800 in both placements."""
+    wim, nr, dvb = wimax(576, "3/4B"), nr_code(384, 1), dvbs2(64800, "1/2")
+    out = {
+        "a": phase_times(decs["a layered"], llr, decode_qc_cuda, decode_qc_cuda_plain,
+                         BF16_A_CFGS["layered"], plain_reps=1, tag=" bf16"),
+        "a sp flooding": median_ms(lambda: decode_qc_cuda(
+            wim, BF16_A_CFGS["sp flooding"], llr)),
+        "nr": phase_times(decs["c min-sum"], nr_llr, decode_qc_long,
+                          decode_qc_long_plain, BF16_NR_CFGS["min-sum"], plain_reps=1,
+                          tag=" bf16"),
+        "nr sp": median_ms(lambda: decode_qc_long(nr, BF16_NR_CFGS["sum-product"], nr_llr)),
+        "nr soft": median_ms(lambda: decode_qc_long(nr, BF16_NR_CFGS["soft"], nr_llr)),
+        "dvb": phase_times(decs["c dvb"], dvb_llr, decode_qc_long, decode_qc_long_plain,
+                           BF16_DVB_CFG, plain_reps=1, tag=" bf16 lazy (global)"),
+    }
+    out["dvb shared"] = median_ms(lambda: decode_qc_long(
+        dvb, BF16_DVB_CFG, dvb_llr, _place=SHARED))
+    log(f"[phase5] bf16 kernels: wimax 576 flooding SP {out['a sp flooding']:.4f} ms; "
+        f"NR sum-product {out['nr sp']:.4f} ms, soft output {out['nr soft']:.4f} ms; "
+        f"DVB-S2 64800 lazy in global memory {out['dvb']['kernel']:.4f} ms, forced "
+        f"into shared memory {out['dvb shared']:.4f} ms")
+    return out
 
 
 def main() -> int:
@@ -1446,13 +1902,20 @@ def main() -> int:
     dec, llr, u, launches, coder_launches, stream = phase(phase_main_path)
     flood_decs, flood_launches, mode_coder_launches = phase(
         phase_flooding_main_path, llr, u, stream)
-    nr_dec, nr_llr, nr_launches, sp_dec, sp_launches, nr_soft_dec = phase(
+    nr_dec, nr_llrs, nr_launches, sp_dec, sp_launches, nr_soft_dec, nr_u = phase(
         phase_nr_main_path)
-    dvb_dec, dvb_llr, dvb_launches, dvb_soft_dec, dvb_soft_launches = phase(
+    nr_llr = nr_llrs[5.0]
+    dvb_dec, dvb_llr, dvb_launches, dvb_soft_dec, dvb_soft_launches, dvb_u = phase(
         phase_dvbs2_main_path)
     m3 = phase(phase_3m_main_path)
     m4 = phase(phase_4m_main_path)
     bicm = phase(phase_bicm_id)
+    phase(phase_bf16_modes_vs_plain)
+    phase(phase_bf16_semantics)
+    bf16 = phase(phase_bf16_main_paths, llr, u, nr_llrs, nr_u, dvb_llr, dvb_u)
+    bf16_fers = phase(phase_bf16_waterfall)
+    acceptance = phase(phase_acceptance)
+    legs = phase(phase_legs)
     times = phase_times(dec, llr, decode_qc_cuda, decode_qc_cuda_plain,
                         dataclasses.replace(BENCH_CFG, triage_iters=0))
     mode_times = {group: phase_times(d, llr, decode_qc_cuda, decode_qc_cuda_plain,
@@ -1482,6 +1945,7 @@ def main() -> int:
     log(f"[phase5] BICM-ID step ({ID_OUTER} exchanges, dvbs2ira_n16200_r34 as "
         f"16apsk, batch {ID_BATCH}, {ID_SNR} dB): {id_ms:.4f} ms, on the plain "
         f"version {id_plain_ms:.4f} ms")
+    bf16_times = phase_bf16_times(bf16["decs"], llr, nr_llr, dvb_llr)
     log(f"[time] phase 5 done at {time.perf_counter() - t0:.1f} s")
 
     log(smi)
@@ -1499,7 +1963,8 @@ def main() -> int:
     kernel_c = "myldpccppapi_tpu/ops/pallas_zlane.py:205"
     print(json.dumps({"kernels": [
         entry("bp_layered", "bp_layered.cu", kernel_a,
-              launches, worst, times, coder_launches=coder_launches),
+              launches, worst, times, coder_launches=coder_launches,
+              acceptance_leg_wimax576_crc16=legs["wimax576_crc16"]),
         # kernel A's modes in the same source, each on its phase-4d path
         entry("bp_layered_flooding", "bp_layered.cu", kernel_a,
               flood_launches["flooding"], worst_modes["flooding"],
@@ -1510,18 +1975,19 @@ def main() -> int:
               coder_launches=mode_coder_launches["SCMS"]),
         entry("bp_layered_sum_product", "bp_layered.cu", kernel_a,
               flood_launches["sp"], worst_modes["sp"], mode_times["sp"],
-              cpu_posterior_max_abs_err=sp_cpu_post),
+              cpu_posterior_max_abs_err=sp_cpu_post, **acceptance),
         entry("bp_layered_soft_output", "bp_layered.cu", kernel_a,
               flood_launches["soft"], worst_modes["soft"], mode_times["soft"],
               bicm_id_launches=bicm[7]),
         # kernel B's table-driven route through the same kernel
         entry("bp_layered_route_b", "bp_layered.cu",
               "myldpccppapi_tpu/ops/pallas_bp.py:410", b_launches, worst_b,
-              b_times),
+              b_times, acceptance_leg_nr_bg1_z32_rm_crc16=legs["nr_bg1_z32_rm_crc16"]),
         entry("bp_long", "bp_long.cu", kernel_c, nr_launches,
               max(worst_long, worst_shared), nr_times,
               m4_launches=m4[-1], m4_demap_ms=m4_times["demap"],
-              m4_receive_ms=m4_times["receive"]),
+              m4_receive_ms=m4_times["receive"],
+              acceptance_leg_dvbs2_16200_bch=legs["dvbs2_16200_bch"]),
         # the same source's global-posterior mode
         entry("bp_long_global", "bp_long.cu",
               "myldpccppapi_tpu/ops/pallas_stream.py:120", dvb_launches,
@@ -1537,6 +2003,26 @@ def main() -> int:
               bicm_id_plain_ms=id_plain_ms, bicm_id_fer=[bicm[5], bicm[6]]),
         entry("bp_long_global_soft_output", "bp_long.cu", kernel_c,
               dvb_soft_launches, worst_c_modes["soft"], dvb_soft_times),
+        # bf16 messages (phases 3g, 3h, 4h): kernel C at NR BG1 Z=384 (its
+        # forced shared placement at DVB-S2 64800 as dvb_shared_* fields),
+        # C's global placement on the DVB-S2 64800 main path, kernel A at
+        # wimax 576 r3/4B
+        entry("bp_long_bf16", "bp_long.cu", kernel_c, bf16["launches"]["c min-sum"],
+              0.0, bf16_times["nr"],
+              sp_launches=bf16["launches"]["c sum-product"],
+              sp_ms=bf16_times["nr sp"], soft_launches=bf16["launches"]["c soft"],
+              soft_ms=bf16_times["nr soft"],
+              dvb_shared_forced_launches=bf16["launches"]["c dvb shared"],
+              dvb_shared_ms=bf16_times["dvb shared"]),
+        entry("bp_long_global_bf16", "bp_long.cu",
+              "myldpccppapi_tpu/ops/pallas_stream.py:120",
+              bf16["launches"]["c dvb"], 0.0, bf16_times["dvb"]),
+        entry("bp_layered_bf16", "bp_layered.cu", kernel_a,
+              bf16["launches"]["a layered"], 0.0, bf16_times["a"],
+              sp_flooding_launches=bf16["launches"]["a sp flooding"],
+              sp_flooding_ms=bf16_times["a sp flooding"],
+              waterfall_fer_f32=bf16_fers["float32"],
+              waterfall_fer_bf16=bf16_fers["bfloat16"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,15 +1,18 @@
 """myldpccppapi_torch: the PyTorch / CUDA port of myldpccppapi_tpu.
 
 A quasi-cyclic LDPC channel-coding framework for one NVIDIA GPU: 802.16e QC
-parity-check construction, systematic Richardson-Urbanke encoding,
+parity-check construction and regular array codes, systematic
+Richardson-Urbanke and information-set encoding, CRC and DVB-S2 outer-BCH
+attach/check,
 5G NR-style BG1/BG2 codes with triangular encoding and rate matching,
 DVB-S2 IRA codes in z=360 QC form with accumulator encoding and bit
 interleaving, BPSK/AWGN and QAM/PSK/APSK channel simulation with max-log
 or exact soft demapping and BICM-ID, batched layered and flooding belief
 propagation
 (normalized/offset min-sum, sum-product, self-corrected min-sum, soft
-output) with per-codeword syndrome early termination (exact or lazy) and
-two-phase straggler triage, and resumable BER/FER waterfall campaigns.
+output; f32 or bf16 messages) with per-codeword syndrome early termination
+(exact or lazy), CRC / outer-BCH-aided acceptance and two-phase straggler
+triage, and resumable BER/FER waterfall campaigns.
 The decode runs in hand-written CUDA kernels on a CUDA device
 (``csrc/bp_layered.cu`` for short codes and small-z 5G NR,
 ``csrc/bp_long.cu`` for long ones) and as plain torch ops on the CPU.  Entry points run on the card unless given ``device="cpu"``.
@@ -27,6 +30,7 @@ from .codes import (
     ira_encode_fn,
     ira_encode_numpy,
     nr_code,
+    regular,
     std_interleave,
     wimax,
 )
@@ -65,6 +69,7 @@ __all__ = [
     "make_modulation",
     "modulate",
     "nr_code",
+    "regular",
     "std_interleave",
     "wimax",
     "__version__",

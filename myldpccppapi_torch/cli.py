@@ -26,6 +26,12 @@ Examples::
     python -m myldpccppapi_torch waterfall --family dvbs2 --n 16200 \
         --rate 3/4 --mod 16apsk --id-outer 2 --snr 13.9 --max-iters 30 \
         --normalization 0.85
+    python -m myldpccppapi_torch waterfall --family regular --n 648 \
+        --algorithm sum-product --schedule flooding --crc 16 --snr 2
+    python -m myldpccppapi_torch waterfall --family dvbs2 --n 16200 \
+        --rate 1/2 --bch --snr 1.5,2 --normalization 0.85 --max-iters 30
+    python -m myldpccppapi_torch waterfall --family wimax --n 576 \
+        --rate 1/2 --msg-dtype bfloat16 --snr 2,3
 """
 from __future__ import annotations
 
@@ -46,7 +52,8 @@ def cmd_test(args) -> int:
     from .coder import Coder
 
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 encode matmul
-    coder = Coder(args.k, args.n, args.rate, device=args.device)
+    coder = Coder(args.k, args.n, args.rate, device=args.device,
+                  msg_dtype=args.msg_dtype)
     coder.for_encoder()
     coder.for_decoder(args.batch)
     src = bytes((ord("a") + i % 26) for i in range(args.src_length))
@@ -89,6 +96,10 @@ def _parse_snr_grid(spec: str):
 
 
 def _make_code(args):
+    if args.family == "regular":
+        from .codes import regular
+
+        return regular(args.n)
     if args.family == "wimax":
         from .codes import wimax
 
@@ -111,11 +122,6 @@ def cmd_waterfall(args) -> int:
     from .utils.config import DecoderConfig
     from .utils.device import resolve_device
 
-    for flag, given in (("--bch (the DVB-S2 outer BCH acceptance)", args.bch),
-                        ("--crc (CRC-aided acceptance)", args.crc)):
-        if given:
-            raise SystemExit(f"{flag} is not ported to the PyTorch package "
-                             "yet (ROADMAP Queue 1 item 7)")
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 encode matmul
     device = resolve_device(args.device)
     code = _make_code(args)
@@ -130,9 +136,22 @@ def cmd_waterfall(args) -> int:
                              f"{mod.bits_per_symbol} bits/symbol of {args.mod}")
     elif args.id_outer:
         raise SystemExit("--id-outer (BICM-ID) needs --mod other than bpsk")
+    outer = None
+    if args.bch:
+        if args.family != "dvbs2":
+            raise SystemExit("--bch is the DVB-S2 outer code; use --crc "
+                             "for other families")
+        if args.crc:
+            raise SystemExit("--crc and --bch are mutually exclusive "
+                             "acceptance modes")
+        from .codes.bch import bch_params_dvbs2
+
+        m_f, t_f, _ = bch_params_dvbs2(args.n, args.rate)
+        outer = ("bch", m_f, t_f)
     cfg = DecoderConfig(algorithm=args.algorithm, schedule=args.schedule,
                         max_iters=args.max_iters,
                         normalization=args.normalization,
+                        msg_dtype=args.msg_dtype, crc=args.crc,
                         self_correction=args.self_correction)
     # the decoder comes from the standard implementation dispatch; only
     # the encoder is family-specific
@@ -148,7 +167,7 @@ def cmd_waterfall(args) -> int:
         gen = torch.Generator(device=device).manual_seed(seed)
         stats = sim_step(code, cfg, gen, snr_db, args.batch, encode_fn,
                          decode_fn, mod=mod, demap=args.demap,
-                         id_outer=args.id_outer)
+                         id_outer=args.id_outer, outer=outer)
         return type(stats)(*(int(x) for x in stats))
 
     ccfg = CampaignConfig(
@@ -163,7 +182,8 @@ def cmd_waterfall(args) -> int:
     fp = ccfg.fingerprint(
         code.name, repr(cfg) + f"/device={device.type}"
         + (f"/mod={args.mod}/demap={args.demap}/id_outer={args.id_outer}"
-           if mod is not None else ""))
+           if mod is not None else "")
+        + (f"/outer={outer}" if outer is not None else ""))
     camp = WaterfallCampaign(ccfg, step_fn, frames_per_step=args.batch,
                              fingerprint=fp, checkpoint_path=args.checkpoint)
 
@@ -208,15 +228,20 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--k", type=int, default=432)
     t.add_argument("--rate", default="3/4B")
     t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--msg-dtype", default="float32", dest="msg_dtype",
+                   choices=["float32", "bfloat16"],
+                   help="decoder message precision (bfloat16 halves the "
+                        "kernels' message bytes)")
     t.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device (default: cuda; cpu for the CPU)")
     t.set_defaults(fn=cmd_test)
 
     w = sub.add_parser("waterfall", help="BER/FER waterfall campaign")
     w.add_argument("--family", default="wimax",
-                   choices=["wimax", "nr", "dvbs2"])
+                   choices=["wimax", "regular", "nr", "dvbs2"])
     w.add_argument("--n", type=int, default=576,
-                   help="code length (wimax; dvbs2: 16200 or 64800)")
+                   help="code length (wimax; regular: a multiple of 6; "
+                        "dvbs2: 16200 or 64800)")
     w.add_argument("--rate", default="1/2", help="wimax or dvbs2 rate")
     w.add_argument("--z", type=int, default=384, help="NR lifting size")
     w.add_argument("--bg", type=int, default=1, choices=[1, 2],
@@ -233,17 +258,23 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="self_correction",
                    help="SCMS (Savin): sign-flip message erasure; min-sum "
                         "flooding only")
+    w.add_argument("--msg-dtype", default="float32", dest="msg_dtype",
+                   choices=["float32", "bfloat16"],
+                   help="decoder message precision (bfloat16 halves the "
+                        "kernels' message bytes)")
     w.add_argument("--target-errors", type=int, default=100)
     w.add_argument("--max-frames", type=int, default=1_000_000)
     w.add_argument("--seed", type=int, default=0)
     w.add_argument("--checkpoint", default=None)
     w.add_argument("--out", default=None, help=".csv or .json")
     w.add_argument("--crc", default=None, choices=["24A", "24B", "24C", "16"],
-                   help="CRC-aided acceptance (not ported yet: ROADMAP "
-                        "Queue 1 item 7)")
+                   help="CRC-aided acceptance (TS 38.212 §5.1): attach this "
+                        "CRC to each simulated code block and require "
+                        "syndrome AND CRC for frame acceptance")
     w.add_argument("--bch", action="store_true",
-                   help="DVB-S2 outer BCH acceptance (not ported yet: "
-                        "ROADMAP Queue 1 item 7)")
+                   help="DVB-S2 outer BCH (EN 302 307): fill the BCHFEC "
+                        "parity field and require syndrome AND BCH "
+                        "detection for frame acceptance")
     w.add_argument("--mod", default="bpsk",
                    choices=["bpsk", "qpsk", "8psk", "16qam", "64qam",
                             "256qam", "16apsk", "32apsk"],

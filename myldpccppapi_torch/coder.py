@@ -81,11 +81,13 @@ class Coder:
     in "1/2", "2/3A", "2/3B", "3/4A", "3/4B", "5/6").  The byte stream is
     chunked into ``k // 8`` bytes per codeword.  Encoding, the channel
     noise of :meth:`test` and the decoders run on ``device``, the card
-    unless ``device="cpu"``.
+    unless ``device="cpu"``; ``msg_dtype`` ("float32" or "bfloat16") is
+    the message type of every decode type but the golden ``CPU`` one.
     """
 
     def __init__(self, ldpc_k: int, ldpc_n: int, rate: str,
-                 max_iters: int = 40, *, device=DEFAULT_DEVICE):
+                 max_iters: int = 40, *, device=DEFAULT_DEVICE,
+                 msg_dtype: str = "float32"):
         code = wimax(ldpc_n, rate)
         if code.k != ldpc_k:
             raise ValueError(
@@ -96,6 +98,7 @@ class Coder:
         self.device = resolve_device(device)
         self._kb = self.code.k_info // 8
         self.max_iters = max_iters
+        self.msg_dtype = msg_dtype
         self._encoder: Encoder | None = None
         self._decoders: dict[str, Decoder] = {}
         self.batch_size = 0
@@ -118,7 +121,7 @@ class Coder:
                              f"{sorted(DECODE_TYPES)}")
         if de_type == "CPU":
             return
-        cfg = DECODE_TYPES[de_type]
+        cfg = dataclasses.replace(DECODE_TYPES[de_type], msg_dtype=self.msg_dtype)
         if de_type != "MSCL":  # MSCL keeps its own iteration cap
             cfg = dataclasses.replace(cfg, max_iters=self.max_iters)
         self._decoders[de_type] = Decoder(self.code, cfg, device=self.device)

@@ -1,6 +1,12 @@
 """Code construction: base matrices, QC lifting, GF(2) algebra, encoders."""
 from .qc import QCCode
-from .encoder import Encoder, EncoderMatrices, encode_numpy, ru_precompute
+from .encoder import (
+    Encoder,
+    EncoderMatrices,
+    encode_numpy,
+    generic_precompute,
+    ru_precompute,
+)
 from .dvbs2 import (
     BIT_INTERLEAVER_COLS,
     bit_deinterleave,
@@ -21,6 +27,7 @@ from .nr import (
     triangular_encode_fn,
     triangular_encode_numpy,
 )
+from .regular import regular
 from .wimax import wimax
 
 __all__ = [
@@ -33,6 +40,7 @@ __all__ = [
     "Encoder",
     "EncoderMatrices",
     "encode_numpy",
+    "generic_precompute",
     "harq_combine",
     "ira_encode_fn",
     "ira_encode_numpy",
@@ -40,6 +48,7 @@ __all__ = [
     "nr_code",
     "rate_match_bits",
     "rate_match_llr",
+    "regular",
     "ru_precompute",
     "rv_start",
     "std_interleave",

@@ -1,8 +1,10 @@
 """Systematic LDPC encoding.
 
 Counterpart of ``myldpccppapi_tpu/codes/encoder.py``.  The host-side
-one-time precompute (Richardson-Urbanke split H = [A B T; C D E] with gap
-g = z) is a NumPy copy.  The batched runtime encode is one float32
+one-time precomputes are NumPy copies: the Richardson-Urbanke split H =
+[A B T; C D E] with gap g = z, and, for a rank-deficient code that carries
+an information set (``QCCode.info_cols``, codes/regular.py), the
+information-set encoder of the GF(2) row reduction.  The batched runtime encode is one float32
 ``torch.matmul`` followed by ``% 2`` on the caller's device: CUDA has no
 integer matmul, and every partial sum is an integer <= k < 2**24, so the
 float32 product is exact.  With 0/1 inputs it stays exact under TF32 too
@@ -17,10 +19,11 @@ import numpy as np
 import torch
 
 from ..utils.device import DEFAULT_DEVICE, resolve_device
-from .gf2 import gf2_inv, gf2_matmul
+from .gf2 import gf2_inv, gf2_matmul, gf2_rref
 from .qc import QCCode
 
-__all__ = ["EncoderMatrices", "ru_precompute", "Encoder", "encode_numpy"]
+__all__ = ["EncoderMatrices", "ru_precompute", "generic_precompute", "Encoder",
+           "encode_numpy"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -76,6 +79,25 @@ def ru_precompute(code: QCCode) -> EncoderMatrices:
     return EncoderMatrices(w=w, gap=gap)
 
 
+def generic_precompute(h: np.ndarray) -> EncoderMatrices:
+    """Information-set encoder for an arbitrary (even rank-deficient) H.
+
+    Row-reduces H over GF(2); pivot columns become parity positions and the
+    remaining ``n - rank`` columns carry information.  The row space, hence
+    the codebook, is unchanged.  This covers code families whose parity
+    block is singular (fully regular QC codes) where the RU split cannot
+    apply.
+    """
+    h = np.asarray(h, dtype=np.bool_)
+    n = h.shape[1]
+    rref, pivot_cols = gf2_rref(h)
+    info_cols = np.setdiff1d(np.arange(n, dtype=np.int64), pivot_cols)
+    # row r of rref: c[pivot_r] = sum over free cols of rref[r, free] * c_free
+    w = rref[:, info_cols]  # [rank, k_eff]
+    perm = np.concatenate([info_cols, pivot_cols])
+    return EncoderMatrices(w=w, gap=0, perm=perm)
+
+
 def _scatter(perm: np.ndarray, stacked: np.ndarray) -> np.ndarray:
     """c[perm] = stacked along the last axis (numpy)."""
     c = np.empty_like(stacked)
@@ -94,20 +116,19 @@ def encode_numpy(mats: EncoderMatrices, info_bits: np.ndarray) -> np.ndarray:
 
 
 class Encoder:
-    """Batched systematic encoder: [B, k] info bits -> [B, n] codeword bits
-    on ``device``, the card unless ``device="cpu"``."""
+    """Batched encoder: [B, k] info bits -> [B, n] codeword bits on
+    ``device``, the card unless ``device="cpu"``: systematic (RU), or for a
+    code with ``info_cols`` the information-set encoder, whose info bits
+    land at ``code.info_positions``."""
 
     def __init__(self, code: QCCode, mats: EncoderMatrices | None = None,
                  *, device=DEFAULT_DEVICE):
         self.code = code
         if mats is None:
             if getattr(code, "info_cols", None) is not None:
-                raise NotImplementedError(
-                    "information-set encoders for rank-deficient codes are "
-                    "not ported to the PyTorch package yet (ROADMAP Queue 1 "
-                    "item 8)"
-                )
-            mats = ru_precompute(code)
+                mats = generic_precompute(code.h_dense())
+            else:
+                mats = ru_precompute(code)
         self.mats = mats
         self.k = self.mats.w.shape[1]
         self.device = resolve_device(device)

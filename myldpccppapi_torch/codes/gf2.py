@@ -1,15 +1,15 @@
 """Dense GF(2) linear algebra on NumPy bool arrays.
 
-NumPy path of ``myldpccppapi_tpu/codes/gf2.py`` (the functions the RU
-encoder precompute needs).  Used only for one-time encoder precompute on the
-host; the batched encode runs as a float32 matmul mod 2
-(:mod:`myldpccppapi_torch.codes.encoder`).
+NumPy path of ``myldpccppapi_tpu/codes/gf2.py`` (the functions the RU and
+the information-set encoder precomputes need).  Used only for one-time
+encoder precompute on the host; the batched encode runs as a float32
+matmul mod 2 (:mod:`myldpccppapi_torch.codes.encoder`).
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["gf2_matmul", "gf2_inv"]
+__all__ = ["gf2_matmul", "gf2_inv", "gf2_rank", "gf2_rref"]
 
 
 def _as_bool(a: np.ndarray) -> np.ndarray:
@@ -56,3 +56,39 @@ def gf2_inv(m: np.ndarray) -> np.ndarray:
         m[rows] ^= m[col]
         inv[rows] ^= inv[col]
     return inv
+
+
+def gf2_rref(m: np.ndarray):
+    """Reduced row-echelon form over GF(2).
+
+    Returns ``(rref, pivot_cols)`` where ``rref`` is [rank, cols] bool (zero
+    rows dropped) and ``pivot_cols`` the pivot column index per row.  Pivot
+    columns become parity positions of an information-set encoder, free
+    columns carry information, and the row space (the code) is unchanged.
+    The RREF is unique, so its pivots are the reference's whichever
+    elimination computes them.
+    """
+    m = _as_bool(m).copy()
+    rows, cols = m.shape
+    rank = 0
+    pivot_cols = []
+    for col in range(cols):
+        pivots = np.nonzero(m[rank:, col])[0]
+        if pivots.size == 0:
+            continue
+        p = rank + pivots[0]
+        if p != rank:
+            m[[rank, p]] = m[[p, rank]]
+        sel = m[:, col].copy()
+        sel[rank] = False
+        m[sel] ^= m[rank]
+        pivot_cols.append(col)
+        rank += 1
+        if rank == rows:
+            break
+    return m[:rank], np.asarray(pivot_cols, dtype=np.int64)
+
+
+def gf2_rank(m: np.ndarray) -> int:
+    """Rank of a dense 0/1 matrix over GF(2)."""
+    return len(gf2_rref(m)[1])

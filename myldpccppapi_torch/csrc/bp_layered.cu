@@ -3,8 +3,8 @@
 // decode in one kernel launch.
 //
 // Replaces two TPU kernels of myldpccppapi_tpu/ops/pallas_bp.py:
-// * _build_kernel (kernel A, launched by decode_qc_pallas) in its f32
-//   modes: the layered sweep, the flooding sweep, the flooding SCMS sweep,
+// * _build_kernel (kernel A, launched by decode_qc_pallas) in its f32 and
+//   bf16 modes: the layered sweep, the flooding sweep, the flooding SCMS sweep,
 //   the min-sum (scalar or per-layer alpha/beta) and the sum-product check
 //   updates, and the soft-output latch of the posterior; exact syndrome
 //   after every sweep, per-codeword latch of bits and iterations, early
@@ -21,7 +21,7 @@
 // myldpccppapi_torch/ops/bp.py::decode_qc.
 //
 // Work split: one thread per (check row r in [0, z), codeword c in the
-// tile).  A thread block holds a tile of T codewords; blockDim = (T, z).
+// tile).  A thread block holds a tile of codewords; blockDim = (tile, z).
 // Within one layer every (layer, block column) pair has exactly one
 // circulant, so the z rows of a layer read and write disjoint posterior
 // entries and need no atomics; a __syncthreads() separates layers.  The
@@ -29,12 +29,12 @@
 // codewords past the batch start out done and write nothing.
 //
 // State per tile lives in shared memory (codeword index fastest): the
-// posterior P [n][T] and the check-to-variable messages R [num_blocks][z]
-// [T]; the flooding modes add the channel C [n][T], and SCMS the sent
-// variable-to-check messages Q [num_blocks][z][T] (the TPU kernel keeps Q
-// in R's place because Mosaic holds the sweep's R as values; a thread here
-// owns a row of every layer, too many messages for registers, so both
-// arrays stay).  The code structure (block column, shift, layer pointers,
+// posterior P [n][tile] and the check-to-variable messages R
+// [num_blocks][z][tile]; the flooding modes add the channel C [n][tile],
+// and SCMS the sent variable-to-check messages Q [num_blocks][z][tile]
+// (the TPU kernel keeps Q in R's place because Mosaic holds the sweep's R
+// as values; a thread here owns a row of every layer, too many messages
+// for registers, so both arrays stay).  The code structure (block column, shift, layer pointers,
 // and for flooding a per-column edge list) and the per-layer weights
 // arrive as small device arrays, so one build serves every code.
 //
@@ -70,10 +70,23 @@
 // degree >= 2.  Every sign is taken by comparison (q < 0, P <= 0) except
 // the SCMS flip test, which reads the sign bit as the reference does.
 // Build with --fmad=false so that no multiply-add is contracted.
+//
+// BF16 MESSAGES (the storage type T, a template parameter: five
+// instantiations for each type): the LLR input, P, R, C, Q and the
+// posterior output are stored as __nv_bfloat16, and the kernel rounds
+// where kernel A and the jnp path do,
+// after every operation (pallas_bp.py:302-310): q = P - R, the delta
+// r_new - r_old and P + delta, each flooding rebuild add, and SCMS's next
+// q round to bf16 (to nearest even, as torch's .to(bfloat16)); the
+// check update computes in f32 on the upcast q and rounds r_new
+// (_check_update_rows, :177-182).  Each codeword's state is half as large,
+// so ldpc_bp_layered_tile, which takes the item size, fits up to twice the
+// codewords in a block (the thread limit permitting).
 
 #include <cstddef>
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -86,19 +99,43 @@ constexpr int kFlooding = 1;
 constexpr int kSumProduct = 2;
 constexpr int kScms = 4;
 
-// Shared-memory bytes of one block of `tile` codewords in `mode`.
-inline size_t smem_bytes(int n, int z, int m_b, int num_blocks, int mode, int tile) {
-  const bool flooding = mode & kFlooding;
+// Bytes of the message state of one block (P, R; C for flooding, Q for
+// SCMS) at `itemsize` bytes a value, rounded up to 16 so the tables after
+// it align.
+__host__ __device__ inline size_t state_bytes(int n, int z, int num_blocks, int mode,
+                                              int tile, int itemsize) {
   const size_t msgs = (size_t)num_blocks * z * tile;
-  size_t floats = (size_t)n * tile + msgs + 2 * (size_t)m_b;
-  size_t ints = 2 * (size_t)num_blocks + (size_t)m_b + 1 + (size_t)tile;
-  if (flooding) {
-    floats += (size_t)n * tile;                // channel C
-    ints += (size_t)(n / z) + 1 + num_blocks;  // per-column edge lists
-  }
-  if (mode & kScms) floats += msgs;            // sent messages Q
-  return 4 * (floats + ints);
+  size_t values = (size_t)n * tile + msgs;
+  if (mode & kFlooding) values += (size_t)n * tile;  // channel C
+  if (mode & kScms) values += msgs;                  // sent messages Q
+  return (values * itemsize + 15) / 16 * 16;
 }
+
+// Shared-memory bytes of one block of `tile` codewords in `mode`.
+inline size_t smem_bytes(int n, int z, int m_b, int num_blocks, int mode, int tile,
+                         int itemsize) {
+  size_t words = 2 * (size_t)m_b + 2 * (size_t)num_blocks + (size_t)m_b + 1 +
+                 (size_t)tile;
+  if (mode & kFlooding) words += (size_t)(n / z) + 1 + num_blocks;  // edge lists
+  return state_bytes(n, z, num_blocks, mode, tile, itemsize) + 4 * words;
+}
+
+// Message storage: float or __nv_bfloat16 (the template parameter T of
+// the kernel).  Loads give f32; stores round to bf16 to nearest even, as
+// torch's .to(torch.bfloat16) does.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+// x rounded to the storage type (as a float; the identity for f32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
 // phi(x) = -log(tanh(x / 2)) on x clamped to [1e-7, 30]
 __device__ __forceinline__ float phi(float x) {
@@ -107,17 +144,17 @@ __device__ __forceinline__ float phi(float x) {
   return log1pf(ex) - log1pf(-ex);
 }
 
-template <bool FLOODING, bool SUM_PRODUCT, bool SCMS>
+template <typename T, bool FLOODING, bool SUM_PRODUCT, bool SCMS>
 __global__ void bp_layered_kernel(
-    const float* __restrict__ llr, uint8_t* __restrict__ bits,
+    const void* llr_in, uint8_t* __restrict__ bits,
     uint8_t* __restrict__ converged, int32_t* __restrict__ iterations,
-    int32_t* __restrict__ executed, float* __restrict__ post_out,
+    int32_t* __restrict__ executed, void* post_out_p,
     const int32_t* __restrict__ blk_col, const int32_t* __restrict__ blk_shift,
     const int32_t* __restrict__ layer_ptr, const int32_t* __restrict__ col_ptr,
     const int32_t* __restrict__ col_edge, const float* __restrict__ alpha,
     const float* __restrict__ beta, int batch, int n_b, int z, int m_b,
     int num_blocks, int max_iters, int early_exit) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) char smem[];
   const int tile = blockDim.x;
   const int c = threadIdx.x;  // codeword within the tile
   const int r = threadIdx.y;  // check row within a circulant
@@ -128,12 +165,16 @@ __global__ void bp_layered_kernel(
   const int64_t b = tile0 + c;
   const bool valid = b < batch;
   const size_t msgs = (size_t)num_blocks * z * tile;
+  const int mode = (FLOODING ? kFlooding : 0) | (SCMS ? kScms : 0);
 
-  float* P = smem;                                  // [n][tile]
-  float* R = P + (size_t)n * tile;                  // [num_blocks][z][tile]
-  float* C = R + msgs;                              // flooding: [n][tile]
-  float* Q = C + (FLOODING ? (size_t)n * tile : 0);  // SCMS: [num_blocks][z][tile]
-  float* s_alpha = Q + (SCMS ? msgs : 0);           // [m_b]
+  T* P = reinterpret_cast<T*>(smem);             // [n][tile]
+  T* R = P + (size_t)n * tile;                   // [num_blocks][z][tile]
+  T* C = R + msgs;                               // flooding: [n][tile]
+  T* Q = C + (FLOODING ? (size_t)n * tile : 0);  // SCMS: [num_blocks][z][tile]
+  const T* __restrict__ llr = static_cast<const T*>(llr_in);
+  T* __restrict__ post_out = static_cast<T*>(post_out_p);
+  float* s_alpha = reinterpret_cast<float*>(
+      smem + state_bytes(n, z, num_blocks, mode, tile, sizeof(T)));  // [m_b]
   float* s_beta = s_alpha + m_b;                    // [m_b]
   int* s_col = reinterpret_cast<int*>(s_beta + m_b);  // [num_blocks]
   int* s_shift = s_col + num_blocks;                // [num_blocks]
@@ -162,11 +203,11 @@ __global__ void bp_layered_kernel(
     const int cw = (int)(idx / n);
     const int v = (int)(idx - (int64_t)cw * n);
     const int64_t bg = tile0 + cw;
-    const float x = bg < batch ? llr[bg * n + v] : kPadLlr;
+    const T x = bg < batch ? llr[bg * n + v] : from_f32<T>(kPadLlr);
     P[(size_t)v * tile + cw] = x;
     if (FLOODING) C[(size_t)v * tile + cw] = x;
   }
-  for (size_t idx = tid; idx < msgs; idx += nthreads) R[idx] = 0.0f;
+  for (size_t idx = tid; idx < msgs; idx += nthreads) R[idx] = from_f32<T>(0.0f);
   __syncthreads();
 
   // P index of this thread's edge in block e: variable j*z + (r + s) % z
@@ -178,8 +219,8 @@ __global__ void bp_layered_kernel(
   auto r_index = [&](int e) -> size_t { return ((size_t)e * z + r) * tile + c; };
   // the variable-to-check message this thread's row reads from edge e
   auto load_q = [&](int e) -> float {
-    if (SCMS) return Q[r_index(e)];
-    return P[p_index(e)] - R[r_index(e)];
+    if (SCMS) return to_f32(Q[r_index(e)]);
+    return round_to<T>(to_f32(P[p_index(e)]) - to_f32(R[r_index(e)]));
   };
 
   if (SCMS) {
@@ -222,13 +263,13 @@ __global__ void bp_layered_kernel(
       } else {
         mag = fabsf(q) == m1 ? m2s : m1s;
       }
-      const float r_new = (neg_total ^ (q < 0.0f)) ? -mag : mag;
+      const float r_new = round_to<T>((neg_total ^ (q < 0.0f)) ? -mag : mag);
       const size_t ri = r_index(e);
       if (!FLOODING) {
         const size_t pi = p_index(e);
-        P[pi] = P[pi] + (r_new - R[ri]);
+        P[pi] = from_f32<T>(to_f32(P[pi]) + round_to<T>(r_new - to_f32(R[ri])));
       }
-      R[ri] = r_new;
+      R[ri] = from_f32<T>(r_new);
     }
   };
 
@@ -243,14 +284,14 @@ __global__ void bp_layered_kernel(
       // rebuild P = C + sum of column-aligned R, per variable in edge order
       for (int j = 0; j < n_b; ++j) {
         const size_t v = ((size_t)j * z + r) * tile + c;
-        float acc = C[v];
+        float acc = to_f32(C[v]);
         for (int k = s_cptr[j]; k < s_cptr[j + 1]; ++k) {
           const int e = s_cedge[k];
           int row = r - s_shift[e];
           if (row < 0) row += z;
-          acc = acc + R[((size_t)e * z + row) * tile + c];
+          acc = round_to<T>(acc + to_f32(R[((size_t)e * z + row) * tile + c]));
         }
-        P[v] = acc;
+        P[v] = from_f32<T>(acc);
       }
       __syncthreads();
     } else {
@@ -265,15 +306,15 @@ __global__ void bp_layered_kernel(
     for (int i = 0; i < m_b; ++i) {
       bool par = false;
       for (int e = s_ptr[i]; e < s_ptr[i + 1]; ++e) {
-        const float p = P[p_index(e)];
+        const float p = to_f32(P[p_index(e)]);
         par ^= (p <= 0.0f);
         if (SCMS) {
           const size_t ri = r_index(e);
-          const float q_new = p - R[ri];
-          const float q_old = Q[ri];
+          const float q_new = round_to<T>(p - to_f32(R[ri]));
+          const float q_old = to_f32(Q[ri]);
           const bool flip = q_old != 0.0f &&
                             (bool)signbit(q_new) != (bool)signbit(q_old);
-          Q[ri] = flip ? 0.0f : q_new;
+          Q[ri] = from_f32<T>(flip ? 0.0f : q_new);
         }
       }
       fail |= par;
@@ -287,8 +328,8 @@ __global__ void bp_layered_kernel(
         // converging sweep
         done = true;
         for (int j = 0; j < n_b; ++j) {
-          const float p = P[((size_t)j * z + r) * tile + c];
-          bits[b * n + j * z + r] = p <= 0.0f;
+          const T p = P[((size_t)j * z + r) * tile + c];
+          bits[b * n + j * z + r] = to_f32(p) <= 0.0f;
           if (post_out != nullptr) post_out[b * n + j * z + r] = p;
         }
       }
@@ -302,8 +343,8 @@ __global__ void bp_layered_kernel(
     if (!done) {
       // the final sweep's state (the channel if no sweep ran)
       for (int j = 0; j < n_b; ++j) {
-        const float p = P[((size_t)j * z + r) * tile + c];
-        bits[b * n + j * z + r] = t > 0 && p <= 0.0f;
+        const T p = P[((size_t)j * z + r) * tile + c];
+        bits[b * n + j * z + r] = t > 0 && to_f32(p) <= 0.0f;
         if (post_out != nullptr) post_out[b * n + j * z + r] = p;
       }
     }
@@ -315,45 +356,51 @@ __global__ void bp_layered_kernel(
   if (tid == 0) executed[blockIdx.x] = t;
 }
 
-using KernelFn = decltype(&bp_layered_kernel<false, false, false>);
+using KernelFn = decltype(&bp_layered_kernel<float, false, false, false>);
 
-// The instantiation of a mode; nullptr for a combination no config makes
-// (SCMS is min-sum flooding only).
-KernelFn kernel_of(int mode) {
+// The instantiation of a mode for storage type T; nullptr for a
+// combination no config makes (SCMS is min-sum flooding only).
+template <typename T>
+KernelFn instance(int mode) {
   switch (mode) {
-    case 0: return bp_layered_kernel<false, false, false>;
-    case kSumProduct: return bp_layered_kernel<false, true, false>;
-    case kFlooding: return bp_layered_kernel<true, false, false>;
-    case kFlooding | kSumProduct: return bp_layered_kernel<true, true, false>;
-    case kFlooding | kScms: return bp_layered_kernel<true, false, true>;
+    case 0: return bp_layered_kernel<T, false, false, false>;
+    case kSumProduct: return bp_layered_kernel<T, false, true, false>;
+    case kFlooding: return bp_layered_kernel<T, true, false, false>;
+    case kFlooding | kSumProduct: return bp_layered_kernel<T, true, true, false>;
+    case kFlooding | kScms: return bp_layered_kernel<T, true, false, true>;
     default: return nullptr;
   }
+}
+
+KernelFn kernel_of(int mode, bool bf16) {
+  return bf16 ? instance<__nv_bfloat16>(mode) : instance<float>(mode);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Decode llr [batch, n] (float32, positive => bit 0) into bits [batch, n]
-// (uint8), converged [batch] (uint8 0/1), iterations [batch] (int32),
-// executed [ceil(batch / tile)] (int32 sweeps run by each thread block)
-// and, unless post_out is null, the latched posteriors post_out [batch, n]
-// (float32).  mode: 1 flooding, 2 sum-product, 4 SCMS (with flooding).
-// The flooding modes read the per-column edge lists col_ptr [n_b + 1] and
-// col_edge [num_blocks] (edge indices of each block column, ascending);
-// the layered ones ignore them.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success; cudaErrorInvalidValue for a mode no
-// config makes).
-int ldpc_bp_layered(const float* llr, uint8_t* bits, uint8_t* converged,
-                    int32_t* iterations, int32_t* executed, float* post_out,
+// Decode llr [batch, n] (positive => bit 0) into bits [batch, n] (uint8),
+// converged [batch] (uint8 0/1), iterations [batch] (int32), executed
+// [ceil(batch / tile)] (int32 sweeps run by each thread block) and, unless
+// post_out is null, the latched posteriors post_out [batch, n].  bf16 = 0:
+// llr and post_out are float32; bf16 = 1: both are bfloat16 and the state
+// is stored in bf16.  mode: 1 flooding, 2 sum-product, 4 SCMS (with
+// flooding).  The flooding modes read the per-column edge lists col_ptr
+// [n_b + 1] and col_edge [num_blocks] (edge indices of each block column,
+// ascending); the layered ones ignore them.  Launches on `stream` and
+// returns cudaGetLastError() (0 on success; cudaErrorInvalidValue for a
+// mode no config makes).
+int ldpc_bp_layered(const void* llr, uint8_t* bits, uint8_t* converged,
+                    int32_t* iterations, int32_t* executed, void* post_out,
                     const int32_t* blk_col, const int32_t* blk_shift,
                     const int32_t* layer_ptr, const int32_t* col_ptr,
                     const int32_t* col_edge, const float* alpha, const float* beta,
                     int batch, int n_b, int z, int m_b, int num_blocks, int tile,
-                    int max_iters, int early_exit, int mode, void* stream) {
-  const KernelFn kernel = kernel_of(mode);
+                    int max_iters, int early_exit, int mode, int bf16, void* stream) {
+  const KernelFn kernel = kernel_of(mode, bf16);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(n_b * z, z, m_b, num_blocks, mode, tile);
+  const size_t smem = smem_bytes(n_b * z, z, m_b, num_blocks, mode, tile, bf16 ? 2 : 4);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -366,12 +413,13 @@ int ldpc_bp_layered(const float* llr, uint8_t* bits, uint8_t* converged,
   return (int)cudaGetLastError();
 }
 
-// Codewords per thread block for a code in `mode` on `device`: the most
-// whose state fits the block's opt-in shared memory, with z threads per
-// codeword within the block's thread limit.  Returns 0 if not even one
-// codeword fits, and minus the CUDA error code if the device cannot be
-// queried.
-int ldpc_bp_layered_tile(int n, int z, int m_b, int num_blocks, int mode, int device) {
+// Codewords per thread block for a code in `mode` with `itemsize`-byte
+// messages (4 f32, 2 bf16) on `device`: the most whose state fits the
+// block's opt-in shared memory, with z threads per codeword within the
+// block's thread limit.  Returns 0 if not even one codeword fits, and
+// minus the CUDA error code if the device cannot be queried.
+int ldpc_bp_layered_tile(int n, int z, int m_b, int num_blocks, int mode, int itemsize,
+                         int device) {
   int smem_limit = 0;
   int max_threads = 0;
   cudaError_t err = cudaDeviceGetAttribute(
@@ -381,7 +429,9 @@ int ldpc_bp_layered_tile(int n, int z, int m_b, int num_blocks, int mode, int de
   }
   if (err != cudaSuccess) return -(int)err;
   for (int tile = max_threads / z; tile > 0; --tile) {
-    if (smem_bytes(n, z, m_b, num_blocks, mode, tile) <= (size_t)smem_limit) return tile;
+    if (smem_bytes(n, z, m_b, num_blocks, mode, tile, itemsize) <= (size_t)smem_limit) {
+      return tile;
+    }
   }
   return 0;
 }

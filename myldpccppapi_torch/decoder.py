@@ -26,6 +26,14 @@ resolves to ``"torch"``.  An explicit ``"torch"`` runs the plain tensor path
 on any device; like the reference's jnp path it checks the exact syndrome
 whatever ``syndrome_mode`` says.
 
+Both kernels serve f32 and bf16 messages (``msg_dtype``), as their TPU
+counterparts do.  They stay syndrome-only: with ``crc`` or ``outer`` set,
+dispatch asks them for the config without its check, and the decode (with
+its triage) is wrapped in the acceptance wrapper (ops/crc_accept.py,
+``myldpccppapi_tpu/decoder.py:204-213,282-305``), whose retry is the
+kernel's plain version with the check in its latch, exact syndrome, on
+the same device.  The torch path runs the check in its own latch.
+
 Refused at construction, as the reference refuses them: soft output with
 triage (the two-phase wrapper merges hard outputs only) and SCMS on the
 long-code kernel.
@@ -39,7 +47,8 @@ import torch
 
 from .codes.qc import QCCode
 from .ops import cuda_bp, cuda_long
-from .ops.bp import DecodeResult, decode_qc
+from .ops.bp import DecodeResult, accept_fail_fn, decode_qc
+from .ops.crc_accept import decode_with_crc_accept
 from .ops.triage import decode_two_phase
 from .utils.config import DecoderConfig
 from .utils.device import DEFAULT_DEVICE, resolve_device
@@ -51,8 +60,15 @@ __all__ = ["Decoder", "DecodeResult", "resolve_device"]
 _KERNELS = {"cuda": cuda_bp, "cuda_long": cuda_long}
 
 
+def _syndrome_only(cfg: DecoderConfig) -> DecoderConfig:
+    """``cfg`` without its acceptance check: what a kernel runs under the
+    acceptance wrapper."""
+    return dataclasses.replace(cfg, crc=None, crc_span=None, outer=None)
+
+
 def _implementation(code, cfg: DecoderConfig, device: torch.device) -> str:
     impl = cfg.implementation
+    cfg = _syndrome_only(cfg)
     if impl == "torch" or (impl == "auto" and device.type != "cuda"):
         return "torch"
     if device.type != "cuda":
@@ -119,12 +135,15 @@ class Decoder:
         self._fn = self._build_fn(config)
         if config.triage_iters > 0:
             self._fn = self._make_triage()
+        if (config.crc or config.outer) and impl != "torch":
+            self._fn = self._make_crc_accept()
 
     def _build_fn(self, cfg: DecoderConfig):
         if self.implementation == "cuda":
-            return partial(cuda_bp.decode_qc_cuda, self.code, cfg)
+            return partial(cuda_bp.decode_qc_cuda, self.code, _syndrome_only(cfg))
         if self.implementation == "cuda_long":
-            return partial(cuda_long.decode_qc_long, self.code, cfg)
+            return partial(cuda_long.decode_qc_long, self.code, _syndrome_only(cfg))
+        # the torch path runs cfg's acceptance check in its own latch
         return partial(decode_qc, self.code, cfg)
 
     def _make_triage(self):
@@ -141,6 +160,28 @@ class Decoder:
             if cap >= llr.shape[0]:
                 return full(llr)
             return decode_two_phase(fast, full, llr, cap)
+
+        return fn
+
+    def _make_crc_accept(self):
+        """Wrap the (kernel, possibly triage-wrapped) decode in CRC- /
+        outer-code-aided acceptance (ops/crc_accept.py): syndrome-converged
+        frames that fail the check are re-decoded at the full budget by
+        the kernel's plain version with the check in its latch and the
+        exact syndrome (kernel C's under its own bf16 rounding points)."""
+        cfg = self.config
+        fail = accept_fail_fn(self.code, cfg)
+        retry_cfg = dataclasses.replace(cfg, implementation="torch",
+                                        triage_iters=0, syndrome_mode="exact")
+        if self.implementation == "cuda_long":
+            retry_full = partial(cuda_long.decode_qc_long_plain, self.code, retry_cfg)
+        else:
+            retry_full = partial(cuda_bp.decode_qc_cuda_plain, self.code, retry_cfg)
+        inner = self._fn
+
+        def fn(llr):
+            cap = max(8, int(llr.shape[0] * cfg.triage_cap_frac))
+            return decode_with_crc_accept(inner, retry_full, fail, llr, cap)
 
         return fn
 

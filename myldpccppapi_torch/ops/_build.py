@@ -2,8 +2,8 @@
 
 The sources have a plain ``extern "C"`` interface and include no PyTorch
 header, so ``nvcc`` compiles each in seconds; :func:`build` starts one
-``nvcc`` per object, all together (``bp_long.cu`` as two objects, its
-min-sum and its sum-product instantiations), and links the objects into
+``nvcc`` per object, all together (``bp_long.cu`` as four objects, its
+f32 and bf16 min-sum and sum-product instantiations), and links the objects into
 one shared library that :mod:`ctypes` loads.  The library goes into
 ``myldpccppapi_torch/_build/`` (listed in ``.gitignore``), named by a hash
 of every source and the flags, and is built at first use, never at import.
@@ -30,11 +30,11 @@ _BUILD = _PKG / "_build"
 #: the kernel sources
 SOURCES = ("bp_layered.cu", "bp_long.cu")
 #: the objects, (source, its own flags), each compiled by its own nvcc
-#: process: bp_long.cu's two halves (csrc/bp_long.cu, BP_LONG_HALF) take
-#: comparable times, so the build takes the longer one
+#: process: bp_long.cu's four parts (csrc/bp_long.cu, BP_LONG_PART: its
+#: f32 and bf16 min-sum and sum-product instantiations) take comparable
+#: times, so the build takes the longest one
 _OBJECTS = (("bp_layered.cu", ()),
-            ("bp_long.cu", ("-DBP_LONG_HALF=1",)),
-            ("bp_long.cu", ("-DBP_LONG_HALF=2",)))
+            *(("bp_long.cu", (f"-DBP_LONG_PART={part}",)) for part in (1, 2, 3, 4)))
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # keep the f32 operation order: no contracted multiply-adds
@@ -46,20 +46,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures: (argtypes, restype) per exported function
 _SIGNATURES = {
-    # thirteen tensors (the posterior output may be null), nine ints, the
+    # thirteen tensors (the posterior output may be null), ten ints, the
     # stream
-    "ldpc_bp_layered": ([_P] * 13 + [_I] * 9 + [_P], _I),
-    # (n, z, m_b, num_blocks, mode, device) -> codewords per thread block
-    "ldpc_bp_layered_tile": ([_I] * 6, _I),
+    "ldpc_bp_layered": ([_P] * 13 + [_I] * 10 + [_P], _I),
+    # (n, z, m_b, num_blocks, mode, itemsize, device)
+    #   -> codewords per thread block
+    "ldpc_bp_layered_tile": ([_I] * 7, _I),
     # fifteen tensors (the posterior output and the P scratch may be null),
-    # thirteen ints, the stream
-    "ldpc_bp_long": ([_P] * 15 + [_I] * 13 + [_P], _I),
-    # (n, z, m_b, num_blocks, n_masks, max_row_degree, device)
+    # fifteen ints, the stream
+    "ldpc_bp_long": ([_P] * 15 + [_I] * 15 + [_P], _I),
+    # (n, z, m_b, num_blocks, n_masks, group_slots, max_row_degree,
+    #  itemsize, device)
     #   -> 2 posterior in shared memory / 1 in global memory / 0 not served
-    "ldpc_bp_long_fits": ([_I] * 7, _I),
-    # (n, z, m_b, num_blocks, n_masks, multi_edge, max_row_degree, lazy,
-    #  sum_product, placement) -> resident blocks per SM
-    "ldpc_bp_long_blocks_per_sm": ([_I] * 10, _I),
+    "ldpc_bp_long_fits": ([_I] * 9, _I),
+    # (n, z, m_b, num_blocks, n_masks, multi_edge, group_slots,
+    #  max_row_degree, lazy, sum_product, itemsize, placement)
+    #   -> resident blocks per SM
+    "ldpc_bp_long_blocks_per_sm": ([_I] * 12, _I),
 }
 
 

@@ -1,14 +1,15 @@
 """Belief-propagation decoders for QC-LDPC codes, plain torch path.
 
 Counterpart of ``myldpccppapi_tpu/ops/bp.py`` (its layered and flooding
-schedules, min-sum, sum-product, SCMS and soft output) and the **plain
-version** of the CUDA kernels in ``csrc/bp_layered.cu`` and
-``csrc/bp_long.cu`` (whose lazy-syndrome mode it serves through the private
-``_decode_layered(..., lazy=True)``): the same function written as
-ordinary tensor ops, run on any device.  The f32 operation order is the
-reference jnp path's, so the results are bit-exact with it
-(tests/test_torch_decode.py, tests/test_torch_flooding.py) and with the
-kernels (``chip_smoke.py``):
+schedules, min-sum, sum-product, SCMS, soft output, bf16 messages and the
+CRC / outer-BCH acceptance latch) and the **plain version** of the CUDA
+kernels in ``csrc/bp_layered.cu`` and ``csrc/bp_long.cu`` (whose lazy
+syndrome and bf16 rounding points it serves through the private
+``_decode_layered(..., lazy=True, group_rounding=True)``): the same
+function written as ordinary tensor ops, run on any device.  The f32
+operation order is the reference jnp path's, so the results are bit-exact
+with it (tests/test_torch_decode.py, tests/test_torch_flooding.py) and with
+the kernels (``chip_smoke.py``):
 
 * the min-sum check update copies the jnp form: argmin, m2 over the rest,
   the clamp of ``mag`` to 1e30, then beta, then alpha;
@@ -26,7 +27,27 @@ kernels (``chip_smoke.py``):
 * converged codewords latch their bits, iteration count and (soft output)
   posterior while the batch continues; the early-exit test is one host
   read of ``done.all()`` per iteration (the reference's ``lax.while_loop``
-  condition).
+  condition).  With ``cfg.crc`` or ``cfg.outer`` a codeword latches only
+  when its syndrome AND its CRC / BCH check pass (:func:`accept_fail_fn`),
+  so a wrong-codeword convergence keeps decoding, as in the reference.
+
+bf16 messages (``cfg.msg_dtype == "bfloat16"``): the LLRs are cast to bf16,
+posterior and messages are stored in bf16, and each check update computes
+in f32 on the upcast q and rounds its result to bf16
+(``pallas_bp._check_update_rows``); the masked-row q = 1e30 and the
+weight-1 clamp stay f32.  The two TPU kernels round at different points:
+
+* kernel A and the jnp path round after every operation: q = P - R, the
+  delta r_new - r_old and P + delta are bf16 operations (``pallas_bp.py:
+  302-310``), as are the flooding rebuild's adds and SCMS's next q.  Torch
+  computes a bf16 elementwise op in f32 and rounds it once, so it rounds
+  as they do.  This is the default, and kernel A's plain version;
+* kernel C does its arithmetic in f32 on bf16 storage (``pallas_zlane.py:
+  276-309``): q from the upcast P and R, r_new rounded to bf16 before its
+  delta, the deltas of a column group (adjacent circulants of one column)
+  added to the upcast P in f32, P rounded once per group and layer.  That
+  is ``group_rounding=True``, kernel C's plain version.  In f32 the two
+  are the same function.
 
 Tensor layout: LLR/posterior ``[n_b, z, B]``; per-edge messages
 ``[E_b, z, B]`` row-aligned (see codes/qc.py for the alignment convention).
@@ -42,8 +63,9 @@ import torch
 from ..codes.qc import QCCode
 from ..utils.config import DecoderConfig
 
-__all__ = ["DecodeResult", "decode_flooding", "decode_layered", "decode_qc",
-           "layer_weights"]
+__all__ = ["DecodeResult", "accept_fail_fn", "crc_fail_fn", "decode_flooding",
+           "decode_layered", "decode_qc", "layer_weights", "msg_dtype",
+           "outer_fail_fn"]
 
 _Q_INF = 1e30  # masked-row q magnitude: the min-sum / phi identity
 _PHI_MIN = 1e-7   # clamp for the sum-product phi transform
@@ -57,15 +79,27 @@ class DecodeResult(NamedTuple):
     converged: torch.Tensor   # [B] bool: syndrome == 0
     iterations: torch.Tensor  # [B] int32: iterations used per codeword
     total_iters: torch.Tensor  # 0-d int32: batch iterations executed
-    #: [B, n] float32 posterior LLRs (positive => bit 0), latched at each
-    #: frame's convergence like :attr:`bits`; None unless
-    #: ``DecoderConfig.soft_output``
+    #: [B] bool when CRC- or outer-code-aided acceptance is configured
+    #: (DecoderConfig.crc / .outer): syndrome AND the check both pass.
+    #: None = syndrome-only decode, where acceptance is :attr:`converged`
+    #: (use :attr:`ok`)
+    accepted: "torch.Tensor | None" = None
+    #: [B, n] posterior LLRs (positive => bit 0) in the message dtype
+    #: (float32 or bfloat16), latched at each frame's convergence like
+    #: :attr:`bits`; None unless ``DecoderConfig.soft_output``
     posteriors: "torch.Tensor | None" = None
 
     @property
     def ok(self) -> torch.Tensor:
-        """Frame acceptance: the syndrome check (no CRC in the port yet)."""
-        return self.converged
+        """Frame acceptance: ``accepted`` when CRC/outer-aided, else
+        ``converged``."""
+        return self.converged if self.accepted is None else self.accepted
+
+
+def msg_dtype(cfg: "DecoderConfig | None") -> torch.dtype:
+    """The torch dtype of ``cfg.msg_dtype`` (float32 without a config)."""
+    return (torch.bfloat16 if cfg is not None and cfg.msg_dtype == "bfloat16"
+            else torch.float32)
 
 
 def _to_blocks(llr: torch.Tensor, n_b: int, z: int) -> torch.Tensor:
@@ -221,6 +255,102 @@ def _masks(layers, dev):
     }
 
 
+def crc_fail_fn(code, crc: str, span: "int | None" = None):
+    """[B, n] bits (any device) -> bool[B] "CRC fails", for CRC-aided
+    acceptance (``myldpccppapi_tpu/ops/bp.py::crc_fail_fn``).  The CRC field
+    is the last L bits of the first ``span`` bits of the code's information
+    block (``span`` defaults to the whole block: message || CRC is what the
+    LDPC encoder sees)."""
+    from ..codes.crc import CRC_POLYS, crc_check_fn
+
+    length = CRC_POLYS[crc][0]
+    k_info = code.k_info
+    if span is None:
+        span = k_info
+    if not (length < span <= k_info):
+        raise ValueError(f"CRC{crc} span must be in ({length}, {k_info}], got {span}")
+    return _info_check(code, span, crc_check_fn(span - length, crc))
+
+
+def outer_fail_fn(code, outer):
+    """[B, n] bits -> bool[B] "outer code fails" (DecoderConfig.outer):
+    ``("bch", m, t)``, the EN 302 307 BCH parity in the last m*t' bits of
+    the information block, detected with one bit-matrix product
+    (``myldpccppapi_tpu/ops/bp.py::outer_fail_fn``)."""
+    kind, m, t = outer
+    if kind != "bch":
+        raise ValueError(f"unknown outer code {kind!r}")
+    from ..codes.bch import bch_check_fn, bch_matrix
+
+    par = bch_matrix(1, m, t).shape[1]
+    k_info = code.k_info
+    if k_info <= par:
+        raise ValueError(f"outer BCH needs k_info > {par}, code has k_info={k_info}")
+    return _info_check(code, k_info, bch_check_fn(k_info - par, m, t))
+
+
+def _info_check(code, span: int, check):
+    """``check`` (bits [B, span] -> bool[B] passes) on the first ``span``
+    information bits of [B, n] codeword bits -> "fails"."""
+    pos_np = np.asarray(code.info_positions)[:span]
+    pos = {}  # per device
+
+    def fail(bits_flat: torch.Tensor) -> torch.Tensor:
+        dev = bits_flat.device
+        if dev not in pos:
+            pos[dev] = torch.as_tensor(pos_np, device=dev)
+        return ~check(bits_flat[:, pos[dev]])
+
+    return fail
+
+
+def accept_fail_fn(code, cfg: DecoderConfig):
+    """The combined integrity check of cfg.crc and cfg.outer: [B, n] bits
+    -> bool[B] "rejected", or None when neither is set."""
+    fails = []
+    if cfg.crc:
+        fails.append(crc_fail_fn(code, cfg.crc, cfg.crc_span))
+    if cfg.outer:
+        fails.append(outer_fail_fn(code, cfg.outer))
+    if not fails:
+        return None
+    if len(fails) == 1:
+        return fails[0]
+    return lambda bits: fails[0](bits) | fails[1](bits)
+
+
+def _accept_fail_blocks(code, cfg: DecoderConfig):
+    """cfg.crc / cfg.outer -> a check on [n_b, z, B] hard bits, or None."""
+    fail = accept_fail_fn(code, cfg)
+    if fail is None:
+        return None
+    return lambda bits_blocks: fail(_from_blocks(bits_blocks))
+
+
+def _mask_q(qs: torch.Tensor, entries, masks_t) -> torch.Tensor:
+    """f32 q of one layer [deg, z, B] with the masked rows of its partial
+    circulants at 1e30, the min-sum / phi identity (in f32: 1e30 is not a
+    bf16 value)."""
+    if not any(e in masks_t for (e, _, _, _) in entries):
+        return qs
+    return torch.stack([torch.where(masks_t[e], qs[idx], _Q_INF)
+                        if e in masks_t else qs[idx]
+                        for idx, (e, _, _, _) in enumerate(entries)])
+
+
+def _column_groups(entries):
+    """A layer's entries grouped into runs of adjacent circulants of one
+    block column (a multi-edge cell; one circulant otherwise): a list of
+    (j, [(index in the layer, e, shift)])."""
+    groups = []
+    for idx, (e, j, s, _) in enumerate(entries):
+        if groups and groups[-1][0] == j:
+            groups[-1][1].append((idx, e, s))
+        else:
+            groups.append((j, [(idx, e, s)]))
+    return groups
+
+
 def decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> DecodeResult:
     """Layered/TDMP BP: the posterior is refreshed after each base row
     (the reference C++ library's DecodeTDMP, ``decodeCL.c:203-300``).
@@ -231,24 +361,32 @@ def decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Decod
 
 
 def _decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
-                    lazy: bool) -> DecodeResult:
+                    lazy: bool, group_rounding: bool = False) -> DecodeResult:
     """The layered loop of :func:`decode_layered`.  With ``lazy`` a frame
     latches on a sweep only if its on-the-fly parity check passed on that
     sweep too: the parity, per check row and layer, of ``P <= 0`` over the
     row's unmasked edges, read from the same row-aligned posterior tiles
     that give q (so before the layer's write-back).  That is the long-code
-    kernel's lazy syndrome (ops/cuda_long.py, its only caller with
-    ``lazy``)."""
+    kernel's lazy syndrome.  ``group_rounding`` takes kernel C's bf16
+    rounding points (module docstring); ops/cuda_long.py is the caller of
+    both.  In f32 the write-back is the reference's per-edge ``P +=
+    col_align(r_new - r_old)``, a column's circulants one after another."""
     n_b, z = code.n_b, code.z
     bsz = llr.shape[0]
     dev = llr.device
+    dt = msg_dtype(cfg)
+    # the type q and the write-back compute in: kernel C's f32, or the
+    # message type (each bf16 operation rounds, as kernel A's do)
+    wt = torch.float32 if group_rounding else dt
     layers = _layers(code)
     check_update = _check_update_fn(cfg, code.m_b)
+    accept_fail = _accept_fail_blocks(code, cfg)
     masks_t = _masks(layers, dev)
+    groups = [_column_groups(entries) for (_, entries) in layers]
 
-    post = _to_blocks(llr, n_b, z)
+    post = _to_blocks(llr.to(dt), n_b, z)
     post_out = post.clone() if cfg.soft_output else None
-    r = torch.zeros((code.num_blocks, z, bsz), dtype=llr.dtype, device=dev)
+    r = torch.zeros((code.num_blocks, z, bsz), dtype=dt, device=dev)
     bits_out = torch.zeros((n_b, z, bsz), dtype=torch.bool, device=dev)
     done = torch.zeros((bsz,), dtype=torch.bool, device=dev)
     iters = torch.zeros((bsz,), dtype=torch.int32, device=dev)
@@ -261,27 +399,33 @@ def _decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
             par = None
             for (e, j, s, _) in entries:
                 x = _row_align(post[j], s)
-                q = x - r[e]
-                if e in masks_t:
-                    q = torch.where(masks_t[e], q, _Q_INF)
-                qs.append(q)
+                qs.append((x.to(wt) - r[e].to(wt)).float())
                 if lazy:
                     bit = (x <= 0).to(torch.int32)
                     if e in masks_t:
                         bit = torch.where(masks_t[e], bit, 0)
                     par = bit if par is None else par + bit
-            r_new = check_update(torch.stack(qs), li)
-            # delta-accumulate writeback, in row-major block order
-            for idx, (e, j, s, _) in enumerate(entries):
-                delta = r_new[idx] - r[e]
-                if e in masks_t:
-                    delta = torch.where(masks_t[e], delta, 0.0)
-                post[j] += _col_align(delta, s)
+            qs = _mask_q(torch.stack(qs), entries, masks_t)
+            r_new = check_update(qs, li).to(dt)
+            # delta-accumulate writeback, in row-major block order, a
+            # column's circulants added in wt and stored once
+            for (j, group) in groups[li]:
+                y = post[j].to(wt)
+                for (idx, e, s) in group:
+                    delta = r_new[idx].to(wt) - r[e].to(wt)
+                    if e in masks_t:
+                        delta = torch.where(masks_t[e], delta, 0.0)
+                    y = y + _col_align(delta, s)
+                post[j] = y.to(dt)
             r[p0:p0 + len(entries)] = r_new
             if lazy:
                 pre_bad |= ((par & 1) == 1).any(dim=0)
         bits = post <= 0
-        latch = ~done & ~_syndrome_fail(bits, code)
+        accept = ~_syndrome_fail(bits, code)
+        if accept_fail is not None:
+            # a frame converged to a wrong codeword keeps decoding
+            accept &= ~accept_fail(bits)
+        latch = ~done & accept
         if lazy:
             latch &= ~pre_bad
         keep = done.view(1, 1, -1)
@@ -291,15 +435,23 @@ def _decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
         iters = torch.where(done, iters, t + 1)
         done = done | latch
         t += 1
-    return _result(bits_out, done, iters, t, post_out)
+    return _result(code, bits_out, done, iters, t, post_out, accept_fail)
 
 
-def _result(bits_out, done, iters, t, post_out) -> DecodeResult:
+def _result(code, bits_out, done, iters, t, post_out, accept_fail) -> DecodeResult:
+    if accept_fail is None:
+        conv, accepted = done, None
+    else:
+        # done latched on syndrome AND check; the syndrome of the final
+        # bits is reported apart, so converged & ~accepted shows a wrong
+        # codeword the check caught
+        conv, accepted = ~_syndrome_fail(bits_out, code), done
     return DecodeResult(
         bits=_from_blocks(bits_out).to(torch.uint8),
-        converged=done,
+        converged=conv,
         iterations=iters,
         total_iters=torch.tensor(t, dtype=torch.int32, device=done.device),
+        accepted=accepted,
         posteriors=None if post_out is None else _from_blocks(post_out),
     )
 
@@ -318,24 +470,31 @@ def decode_flooding(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Deco
     n_b, z = code.n_b, code.z
     bsz = llr.shape[0]
     dev = llr.device
+    dt = msg_dtype(cfg)
     layers = _layers(code)
     check_update = _check_update_fn(cfg, code.m_b)
+    accept_fail = _accept_fail_blocks(code, cfg)
     masks_t = _masks(layers, dev)
 
     def masked(x, e, fill):
         return torch.where(masks_t[e], x, fill) if e in masks_t else x
 
-    chan = _to_blocks(llr, n_b, z)
-    q = torch.stack([masked(_row_align(chan[j], s), e, _Q_INF)
-                     for (_, entries) in layers for (e, j, s, _) in entries])
+    chan = _to_blocks(llr.to(dt), n_b, z)
+    # q of a masked row is set at the check update (_mask_q), so what is
+    # stored there, erased by SCMS or not, is never read
+    q = torch.stack([_row_align(chan[j], s)
+                     for (_, entries) in layers for (_, j, s, _) in entries])
     post_out = chan if cfg.soft_output else None
     bits_out = torch.zeros((n_b, z, bsz), dtype=torch.bool, device=dev)
     done = torch.zeros((bsz,), dtype=torch.bool, device=dev)
     iters = torch.zeros((bsz,), dtype=torch.int32, device=dev)
     t = 0
     while t < cfg.max_iters and not (cfg.early_exit and bool(done.all())):
-        r = torch.cat([check_update(q[p0:p0 + len(entries)], li)
-                       for li, (p0, entries) in enumerate(layers)])
+        # the check update in f32, masked rows at an f32 1e30
+        r = torch.cat([
+            check_update(_mask_q(q[p0:p0 + len(entries)].float(), entries,
+                                 masks_t), li).to(dt)
+            for li, (p0, entries) in enumerate(layers)])
         post = chan.clone()
         for (_, entries) in layers:
             for (e, j, s, _) in entries:
@@ -348,14 +507,13 @@ def decode_flooding(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Deco
             par = None
             for (e, j, s, _) in entries:
                 post_ra = _row_align(post[j], s)
-                q_next.append(masked(post_ra - r[e], e, _Q_INF))
+                q_next.append(post_ra - r[e])
                 bit = masked((post_ra <= 0).to(torch.int32), e, 0)
                 par = bit if par is None else par + bit
             f = ((par & 1) == 1).any(dim=0)
             fail = f if fail is None else fail | f
         q_next = torch.stack(q_next)
         if cfg.self_correction:
-            # masked entries sit at 1e30 in q and q_next: never erased
             flip = (q != 0.0) & (torch.signbit(q_next) != torch.signbit(q))
             q_next = torch.where(flip, 0.0, q_next)
         q = q_next
@@ -364,14 +522,18 @@ def decode_flooding(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Deco
         if post_out is not None:
             post_out = torch.where(keep, post_out, post)
         iters = torch.where(done, iters, t + 1)
-        done = done | ~fail
+        accept = ~fail
+        if accept_fail is not None:
+            accept &= ~accept_fail(bits)
+        done = done | accept
         t += 1
-    return _result(bits_out, done, iters, t, post_out)
+    return _result(code, bits_out, done, iters, t, post_out, accept_fail)
 
 
 def decode_qc(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> DecodeResult:
-    """Dispatch on the schedule (the reference's ``decode_qc``).  ``llr``:
-    [B, n] float32, positive => bit 0."""
+    """Dispatch on the schedule (the reference's ``decode_qc``), with the
+    CRC / outer-code latch when ``cfg`` sets one.  ``llr``: [B, n]
+    float32, positive => bit 0."""
     if cfg.schedule == "layered":
         return decode_layered(code, cfg, llr)
     return decode_flooding(code, cfg, llr)

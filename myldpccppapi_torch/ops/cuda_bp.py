@@ -3,22 +3,29 @@
 Counterpart of two TPU kernels of ``myldpccppapi_tpu/ops/pallas_bp.py``,
 served as modes and routes of one CUDA kernel:
 
-* ``_build_kernel`` (kernel A) in its f32 modes: layered or flooding,
-  min-sum (scalar or per-layer alpha/beta) or sum-product, SCMS on the
-  flooding min-sum sweep, soft output (the latched posterior) on either
-  schedule;
+* ``_build_kernel`` (kernel A) in its f32 and bf16 modes: layered or
+  flooding, min-sum (scalar or per-layer alpha/beta) or sum-product, SCMS
+  on the flooding min-sum sweep, soft output (the latched posterior) on
+  either schedule;
 * ``_build_kernel_dyn`` (kernel B), the table-driven layered min-sum for
   base graphs of more than 120 circulants: the same kernel, which reads the
   code's structure from runtime tables anyway, gated to B's own domain
-  (layered min-sum f32, scalar alpha/beta, no soft output) and to codes
-  kernel C does not serve (z < 64, the small-z 5G NR codes).
+  (layered min-sum, scalar alpha/beta, no soft output; bf16 too, as A's
+  bf16 sweep is the same sweep) and to codes kernel C does not serve
+  (z < 64, the small-z 5G NR codes).
+
+Under bf16 the wrapper casts the LLRs to bf16 on the card and the kernel
+keeps its state in bf16, rounding after every operation as kernel A and
+the jnp path do; its plain version is the torch path's bf16 decode
+(ops/bp.py), which rounds at the same points.
 
 :func:`decode_qc_cuda` launches the kernel for a CUDA tensor and raises if
 it cannot; for a CPU tensor it runs the plain version,
 :func:`decode_qc_cuda_plain` (the torch path of ops/bp.py).  There is no
 fallback from a failed build or launch.  ``decode_qc_cuda.launches``
 counts kernel launches in every mode, ``decode_qc_cuda.soft_launches``
-those with soft output.
+those with soft output and ``decode_qc_cuda.bf16_launches`` those with
+bf16 messages.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from ..codes.qc import QCCode
 from ..utils.config import DecoderConfig
 from ..utils.device import cuda_index
 from . import _build
-from .bp import DecodeResult, decode_qc, layer_weights
+from .bp import DecodeResult, decode_qc, layer_weights, msg_dtype
 from .cuda_long import MIN_Z as _LONG_MIN_Z
 
 __all__ = ["REQUIREMENTS", "decode_qc_cuda", "decode_qc_cuda_plain",
@@ -45,13 +52,13 @@ _MAX_BLOCKS = 120
 FLOODING, SUM_PRODUCT, SCMS = 1, 2, 4
 #: what :func:`supported` asks of a code and a config, for error messages
 REQUIREMENTS = (
-    "a cyclic, unmasked QCCode without extra blocks and f32 messages, whose "
-    "codeword state (posterior and messages; the channel too for flooding, "
+    "a cyclic, unmasked QCCode without extra blocks, whose codeword state "
+    "(posterior and messages, f32 or bf16; the channel too for flooding, "
     "the sent messages too for SCMS) fits a thread block's shared memory; "
     f"at most {_MAX_BLOCKS} circulants under any schedule and algorithm, "
     f"with soft output or not, or more circulants with z < {_LONG_MIN_Z} "
     "under layered min-sum with scalar alpha/beta and no soft output "
-    "(kernel B's domain)"
+    "(kernel B's domain); CRC or outer-code acceptance wraps it (Decoder)"
 )
 
 
@@ -63,15 +70,17 @@ def mode(cfg: DecoderConfig) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def tile_size(code: QCCode, device_index: int, mode_bits: int = 0) -> int:
+def tile_size(code: QCCode, device_index: int, mode_bits: int = 0,
+              itemsize: int = 4) -> int:
     """Codewords per thread block on CUDA device ``device_index`` in mode
-    ``mode_bits`` (:func:`mode`; 0 = layered min-sum): the most whose state
-    fits the block's shared memory, with z threads per codeword (0 if not
-    even one fits).  The kernel library computes it from its own
-    shared-memory layout and the device's limits, so it builds the kernel at
-    first use."""
+    ``mode_bits`` (:func:`mode`; 0 = layered min-sum) with ``itemsize``-byte
+    messages (4 f32, 2 bf16): the most whose state fits the block's shared
+    memory, with z threads per codeword (0 if not even one fits).  The
+    kernel library computes it from its own shared-memory layout and the
+    device's limits, so it builds the kernel at first use."""
     tile = _build.load().ldpc_bp_layered_tile(
-        code.n, code.z, code.m_b, code.num_blocks, mode_bits, device_index)
+        code.n, code.z, code.m_b, code.num_blocks, mode_bits, itemsize,
+        device_index)
     if tile < 0:
         raise RuntimeError(f"bp_layered tile query failed: CUDA error {-tile}")
     return tile
@@ -93,11 +102,13 @@ def _route_b(code: QCCode, cfg: DecoderConfig | None) -> bool:
 
 def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
     """True for an unmasked (circulant) QC code without multi-edge blocks
-    and, when ``cfg`` is given, for the f32 configurations the kernel
-    serves: with at most 120 circulants every schedule, algorithm and soft
-    output (kernel A), with more only kernel B's layered min-sum on a code
-    with z < 64.  When a CUDA ``device`` is given, the per-codeword state of
-    the config's mode must also fit a thread block's shared memory there
+    and, when ``cfg`` is given, for the configurations the kernel serves,
+    f32 or bf16 messages: with at most 120 circulants every schedule,
+    algorithm and soft output (kernel A), with more only kernel B's layered
+    min-sum on a code with z < 64.  A config with CRC or outer-code
+    acceptance is refused (the kernel is syndrome-only; ``Decoder`` wraps
+    it).  When a CUDA ``device`` is given, the per-codeword state of the
+    config's mode must also fit a thread block's shared memory there
     (:func:`tile_size`)."""
     if not isinstance(code, QCCode):
         return False
@@ -105,18 +116,19 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
         return False
     if code.num_blocks > _MAX_BLOCKS and not _route_b(code, cfg):
         return False
-    if cfg is not None and not (cfg.msg_dtype == "float32" and cfg.crc is None
-                                and cfg.outer is None):
+    if cfg is not None and not (cfg.crc is None and cfg.outer is None):
         return False
     mode_bits = 0 if cfg is None else mode(cfg)
-    return device is None or tile_size(code, cuda_index(device), mode_bits) >= 1
+    return device is None or tile_size(code, cuda_index(device), mode_bits,
+                                       msg_dtype(cfg).itemsize) >= 1
 
 
 def decode_qc_cuda_plain(code: QCCode, cfg: DecoderConfig,
                          llr: torch.Tensor) -> DecodeResult:
     """The kernel's plain version: the torch decode of ops/bp.py (layered or
     flooding), whose JAX counterpart the reference pins bit-exact to the TPU
-    kernels (sum-product to a tolerance)."""
+    kernels in f32 (sum-product to a tolerance); under bf16 it rounds after
+    every operation, as the kernel does."""
     return decode_qc(code, cfg, llr)
 
 
@@ -151,7 +163,7 @@ def decode_qc_cuda(code: QCCode, cfg: DecoderConfig,
                    llr: torch.Tensor) -> DecodeResult:
     """Decode [B, n] float32 LLRs (positive => bit 0) with the kernel in
     ``cfg``'s mode.  Returns the same DecodeResult as ops/bp.py, posteriors
-    included with ``cfg.soft_output``; ``total_iters`` is the largest sweep
+    included (in the message dtype) with ``cfg.soft_output``; ``total_iters`` is the largest sweep
     count of any thread block, which equals the batch's loop count of the
     single-loop torch path."""
     if llr.ndim != 2 or llr.shape[1] != code.n:
@@ -170,7 +182,8 @@ def decode_qc_cuda(code: QCCode, cfg: DecoderConfig,
             f"the CUDA short-code kernel does not serve {code.name} under "
             f"this config: it needs {REQUIREMENTS}"
         )
-    return _launch(code, cfg, llr, tile_size(code, llr.device.index, mode(cfg)))
+    tile = tile_size(code, llr.device.index, mode(cfg), msg_dtype(cfg).itemsize)
+    return _launch(code, cfg, llr, tile)
 
 
 def _launch(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
@@ -180,14 +193,17 @@ def _launch(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
     the same result)."""
     batch = llr.shape[0]
     dev = llr.device
+    dt = msg_dtype(cfg)
     bits = torch.empty((batch, code.n), dtype=torch.uint8, device=dev)
     conv = torch.empty((batch,), dtype=torch.bool, device=dev)
     iters = torch.empty((batch,), dtype=torch.int32, device=dev)
-    post = (torch.empty((batch, code.n), dtype=torch.float32, device=dev)
+    post = (torch.empty((batch, code.n), dtype=dt, device=dev)
             if cfg.soft_output else None)
     if batch == 0:
         return DecodeResult(bits, conv, iters,
-                            torch.zeros((), dtype=torch.int32, device=dev), post)
+                            torch.zeros((), dtype=torch.int32, device=dev),
+                            posteriors=post)
+    llr_k = llr.to(dt)  # bf16: cast on the card (the reference casts first)
     executed = torch.empty(((batch + tile - 1) // tile,), dtype=torch.int32,
                            device=dev)
     col, shift, ptr, col_ptr, col_edge, alpha, beta = _device_tables(
@@ -196,20 +212,22 @@ def _launch(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ldpc_bp_layered(
-            llr.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
+            llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
             executed.data_ptr(), None if post is None else post.data_ptr(),
             col.data_ptr(), shift.data_ptr(), ptr.data_ptr(),
             col_ptr.data_ptr(), col_edge.data_ptr(), alpha.data_ptr(),
             beta.data_ptr(), batch, code.n_b, code.z, code.m_b,
             code.num_blocks, tile, cfg.max_iters, int(cfg.early_exit),
-            mode(cfg), stream,
+            mode(cfg), int(dt == torch.bfloat16), stream,
         )
     if err != 0:
         raise RuntimeError(f"bp_layered kernel launch failed: CUDA error {err}")
     decode_qc_cuda.launches += 1
     decode_qc_cuda.soft_launches += post is not None
-    return DecodeResult(bits, conv, iters, executed.max(), post)
+    decode_qc_cuda.bf16_launches += dt == torch.bfloat16
+    return DecodeResult(bits, conv, iters, executed.max(), posteriors=post)
 
 
 decode_qc_cuda.launches = 0
 decode_qc_cuda.soft_launches = 0
+decode_qc_cuda.bf16_launches = 0

@@ -4,26 +4,34 @@
 Counterpart of two TPU kernels, served as modes of one CUDA sweep:
 
 * ``myldpccppapi_tpu/ops/pallas_zlane.py`` (``decode_qc_zlane``, kernel C)
-  in its layered f32 modes: min-sum or sum-product, single-circulant and
-  multi-edge cells, row-masked partial circulants, the exact or the lazy
-  syndrome, soft output (the latched posterior).  The posterior lives in a
-  thread block's shared memory (the *shared* placement): 5G NR, DVB-S2
-  16200.
+  in its layered modes, f32 or bf16 messages: min-sum or sum-product,
+  single-circulant and multi-edge cells, row-masked partial circulants, the
+  exact or the lazy syndrome, soft output (the latched posterior).  The
+  posterior lives in a thread block's shared memory (the *shared*
+  placement): 5G NR, DVB-S2 16200.
 * ``myldpccppapi_tpu/ops/pallas_stream.py`` (``decode_qc_stream``, kernel
   D), which serves codes whose posterior does not fit on chip: the same
   sweep with the posterior in a [B, n] global-memory scratch that this
-  wrapper allocates (the *global* placement): DVB-S2 64800.  The TPU's D
+  wrapper allocates (the *global* placement): DVB-S2 64800, whose bf16
+  posterior would fit a block's shared memory but leave one block to an
+  SM where the global placement runs two.  The TPU's D
   refuses sum-product and soft output; the global placement runs C's sweep,
   so it serves them as C does.
 
 The kernel library's fit query (:func:`placement`) picks the placement from
-its own shared-memory layout.  :func:`decode_qc_long` launches the kernel
+its own shared-memory layout and the message item size: shared where as
+many blocks fit an SM as the serving instantiation is built for.  Under bf16 the
+wrapper casts the LLRs to bf16 on the card, the kernel stores R, P and the
+posterior output in bf16 with kernel C's rounding points, and the plain
+version is the torch layered decode with the same points
+(``group_rounding``, ops/bp.py).  :func:`decode_qc_long` launches the kernel
 for a CUDA tensor and raises if it cannot; for a CPU tensor it runs the
 plain version, :func:`decode_qc_long_plain`.  There is no fallback from a
 failed build or launch.  ``decode_qc_long.launches`` counts launches in the
 shared placement and ``decode_qc_long.global_launches`` those in the
-global one; ``decode_qc_long.soft_launches`` and ``.sp_launches`` count,
-across placements, those with soft output and those of sum-product.
+global one; ``decode_qc_long.soft_launches``, ``.sp_launches`` and
+``.bf16_launches`` count, across placements, those with soft output, those
+of sum-product and those with bf16 messages.
 
 The lazy syndrome is per codeword here: a codeword latches on a sweep only
 if its on-the-fly parity check passed on that sweep and then its exact
@@ -44,7 +52,7 @@ from ..codes.qc import QCCode
 from ..utils.config import DecoderConfig
 from ..utils.device import cuda_index
 from . import _build
-from .bp import DecodeResult, _decode_layered, layer_weights
+from .bp import DecodeResult, _decode_layered, layer_weights, msg_dtype
 
 __all__ = ["GLOBAL", "MIN_Z", "REQUIREMENTS", "SHARED", "blocks_per_sm",
            "decode_qc_long", "decode_qc_long_plain", "placement", "supported"]
@@ -61,8 +69,8 @@ REQUIREMENTS = (
     f"a QCCode with z >= {MIN_Z} that the kernel library's fit query "
     "accepts (z threads per block and the widest row within the kernel's "
     "bounds, its tables within a thread block's shared memory), the "
-    "layered schedule (min-sum or sum-product, soft output or not) and f32 "
-    "messages, without CRC or outer-code acceptance"
+    "layered schedule (min-sum or sum-product, soft output or not, f32 or "
+    "bf16 messages); CRC or outer-code acceptance wraps it (Decoder)"
 )
 
 
@@ -71,16 +79,17 @@ def _n_masks(code: QCCode) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def placement(code: QCCode, device_index: int) -> int:
+def placement(code: QCCode, device_index: int, itemsize: int = 4) -> int:
     """Where the kernel keeps ``code``'s posterior on CUDA device
-    ``device_index``: :data:`SHARED` when it fits a thread block's shared
-    memory with the tables, :data:`GLOBAL` when only the tables do, 0 when
-    the kernel cannot serve the code (z threads or the widest row past the
-    kernel's bounds).  The kernel library answers from its own layout and
-    the device's limits, so this builds the kernel at first use."""
+    ``device_index`` with ``itemsize``-byte messages (4 f32, 2 bf16):
+    :data:`SHARED` when it fits a thread block's shared memory with the
+    tables, :data:`GLOBAL` when only the tables do, 0 when the kernel cannot
+    serve the code (z threads or the widest row past the kernel's bounds).
+    The kernel library answers from its own layout and the device's limits,
+    so this builds the kernel at first use."""
     got = _build.load().ldpc_bp_long_fits(
         code.n, code.z, code.m_b, code.num_blocks, _n_masks(code),
-        code.max_row_degree, device_index)
+        _group_slots(code), code.max_row_degree, itemsize, device_index)
     if got < 0:
         raise RuntimeError(f"bp_long fit query failed: CUDA error {-got}")
     return got
@@ -89,12 +98,13 @@ def placement(code: QCCode, device_index: int) -> int:
 def blocks_per_sm(code: QCCode, cfg: DecoderConfig, place: int) -> int:
     """Thread blocks of the kernel that one SM of the current device holds
     at once for ``code`` under ``cfg`` in placement ``place`` (the
-    occupancy of the instantiation that serves them)."""
+    occupancy of the instantiation that serves them, with cfg's message
+    item size)."""
     got = _build.load().ldpc_bp_long_blocks_per_sm(
         code.n, code.z, code.m_b, code.num_blocks, _n_masks(code),
-        int((_layer_flags(code) & _MULTI_EDGE).any()), code.max_row_degree,
-        int(cfg.syndrome_mode == "lazy"), int(cfg.algorithm == "sum-product"),
-        place)
+        int((_layer_flags(code) & _MULTI_EDGE).any()), _group_slots(code),
+        code.max_row_degree, int(cfg.syndrome_mode == "lazy"),
+        int(cfg.algorithm == "sum-product"), msg_dtype(cfg).itemsize, place)
     if got < 1:
         raise RuntimeError(f"bp_long occupancy query returned {got}")
     return got
@@ -102,22 +112,23 @@ def blocks_per_sm(code: QCCode, cfg: DecoderConfig, place: int) -> int:
 
 def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
     """True for a QC code with z >= 64 (multi-edge cells and masked rows
-    included) and, when ``cfg`` is given, for the layered f32
-    configurations the kernel serves: min-sum or sum-product, soft output
-    or not, the exact or the lazy syndrome.  When a CUDA ``device`` is
-    given, the kernel must serve the code there in one of its placements
-    (:func:`placement`).
+    included) and, when ``cfg`` is given, for the layered configurations
+    the kernel serves: min-sum or sum-product, soft output or not, the
+    exact or the lazy syndrome, f32 or bf16 messages.  When a CUDA
+    ``device`` is given, the kernel must serve the code there in one of
+    its placements (:func:`placement`).
 
-    Refused: bf16 messages (ROADMAP Queue 2, kernel C) and CRC or
-    outer-code acceptance (Queue 1 item 7).  The flooding schedule, and
-    SCMS with it, is the TPU short-code kernel's, as here (ops/cuda_bp.py)."""
+    Refused: a config with CRC or outer-code acceptance (the kernel is
+    syndrome-only; ``Decoder`` wraps it, ops/crc_accept.py).  The flooding
+    schedule, and SCMS with it, is the TPU short-code kernel's, as here
+    (ops/cuda_bp.py)."""
     if not isinstance(code, QCCode) or code.z < MIN_Z:
         return False
     if cfg is not None and not (
-            cfg.schedule == "layered" and cfg.msg_dtype == "float32"
-            and cfg.crc is None and cfg.outer is None):
+            cfg.schedule == "layered" and cfg.crc is None and cfg.outer is None):
         return False
-    return device is None or placement(code, cuda_index(device)) > 0
+    return (device is None
+            or placement(code, cuda_index(device), msg_dtype(cfg).itemsize) > 0)
 
 
 def decode_qc_long_plain(code: QCCode, cfg: DecoderConfig,
@@ -125,10 +136,12 @@ def decode_qc_long_plain(code: QCCode, cfg: DecoderConfig,
     """The kernel's plain version: the torch layered decode (ops/bp.py),
     min-sum or sum-product, with the latched posterior under soft output,
     whose JAX counterpart the reference pins bit-exact to the TPU kernel
-    (tests/test_zlane.py); with ``syndrome_mode="lazy"`` its lazy loop,
-    where a frame latches only on a sweep whose on-the-fly parity check
-    passed.  The placement does not change the function."""
-    return _decode_layered(code, cfg, llr, lazy=cfg.syndrome_mode == "lazy")
+    in f32 (tests/test_zlane.py); with ``syndrome_mode="lazy"`` its lazy
+    loop, where a frame latches only on a sweep whose on-the-fly parity
+    check passed; under bf16 kernel C's rounding points.  The placement
+    does not change the function."""
+    return _decode_layered(code, cfg, llr, lazy=cfg.syndrome_mode == "lazy",
+                           group_rounding=True)
 
 
 #: layer flag bits, as the kernel reads them
@@ -150,6 +163,24 @@ def _layer_flags(code: QCCode) -> np.ndarray:
         if any(masks[e] is not None for e in range(ptr[i], ptr[i + 1])):
             flags[i] |= _HAS_MASK
     return flags
+
+
+@functools.lru_cache(maxsize=64)
+def _group_slots(code: QCCode) -> int:
+    """Circulants of multi-edge cells (adjacent blocks of one layer and
+    column) in the layer that has the most: the rows of the kernel's
+    shared delta table."""
+    _, bc, _ = code.blocks
+    ptr = code.layer_ptr
+    most = 0
+    for i in range(code.m_b):
+        cols = bc[ptr[i]:ptr[i + 1]]
+        same = cols[1:] == cols[:-1]
+        grouped = np.zeros(len(cols), dtype=bool)
+        grouped[1:] |= same
+        grouped[:-1] |= same
+        most = max(most, int(grouped.sum()))
+    return most
 
 
 def _live_words(mask: np.ndarray, words: int) -> np.ndarray:
@@ -189,14 +220,15 @@ def _device_tables(code: QCCode, normalization, offset, device: torch.device):
 
 
 def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
-                   _force_global: bool = False) -> DecodeResult:
+                   _place: int = 0) -> DecodeResult:
     """Decode [B, n] float32 LLRs (positive => bit 0) with the long-code
     kernel, one thread block per codeword, the posterior where the fit
-    query places it (``_force_global`` puts it in global memory even where
-    shared memory would hold it; for tests and probes).  Returns the same
-    DecodeResult as ops/bp.py, posteriors included with
-    ``cfg.soft_output``; ``total_iters`` is the largest sweep count of any
-    codeword's block, which equals the batch's loop count of the
+    query places it (``_place``, :data:`SHARED` or :data:`GLOBAL`, puts it
+    there instead, for tests and probes; a launch that does not fit
+    raises).  Returns the same
+    DecodeResult as ops/bp.py, posteriors included (in the message dtype)
+    with ``cfg.soft_output``; ``total_iters`` is the largest sweep count of
+    any codeword's block, which equals the batch's loop count of the
     single-loop torch path."""
     if llr.ndim != 2 or llr.shape[1] != code.n:
         raise ValueError(f"expected llr of shape [batch, {code.n}], got "
@@ -214,24 +246,26 @@ def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
             f"the CUDA long-code kernel does not serve {code.name} under "
             f"this config: it needs {REQUIREMENTS}"
         )
-    place = GLOBAL if _force_global else placement(code, cuda_index(llr.device))
+    dt = msg_dtype(cfg)
+    place = _place or placement(code, cuda_index(llr.device), msg_dtype(cfg).itemsize)
     batch = llr.shape[0]
     dev = llr.device
     bits = torch.empty((batch, code.n), dtype=torch.uint8, device=dev)
     conv = torch.empty((batch,), dtype=torch.bool, device=dev)
     iters = torch.empty((batch,), dtype=torch.int32, device=dev)
-    post = (torch.empty((batch, code.n), dtype=torch.float32, device=dev)
+    post = (torch.empty((batch, code.n), dtype=dt, device=dev)
             if cfg.soft_output else None)
     if batch == 0:
         return DecodeResult(bits, conv, iters,
-                            torch.zeros((), dtype=torch.int32, device=dev), post)
+                            torch.zeros((), dtype=torch.int32, device=dev),
+                            posteriors=post)
+    llr_k = llr.to(dt)  # bf16: cast on the card (the reference casts first)
     executed = torch.empty((batch,), dtype=torch.int32, device=dev)
     # the messages R [batch, num_blocks, z] and, in the global placement,
     # the posterior P [batch, n]: written by the kernel before it reads
     # them, so left uninitialised
-    r_scratch = torch.empty((batch, code.num_blocks, code.z),
-                            dtype=torch.float32, device=dev)
-    p_scratch = (torch.empty((batch, code.n), dtype=torch.float32, device=dev)
+    r_scratch = torch.empty((batch, code.num_blocks, code.z), dtype=dt, device=dev)
+    p_scratch = (torch.empty((batch, code.n), dtype=dt, device=dev)
                  if place == GLOBAL else None)
     tables, multi_edge = _device_tables(code, cfg.normalization, cfg.offset, dev)
     col, shift, ptr, flags, live_rows, alpha, beta = tables
@@ -240,16 +274,16 @@ def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         sum_product = cfg.algorithm == "sum-product"
         err = lib.ldpc_bp_long(
-            llr.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
+            llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
             executed.data_ptr(), None if post is None else post.data_ptr(),
             r_scratch.data_ptr(),
             None if p_scratch is None else p_scratch.data_ptr(),
             col.data_ptr(), shift.data_ptr(), ptr.data_ptr(), flags.data_ptr(),
             live_rows.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
             batch, code.n_b, code.z, code.m_b, code.num_blocks, _n_masks(code),
-            int(multi_edge), code.max_row_degree, cfg.max_iters,
-            int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
-            int(sum_product), place, stream,
+            int(multi_edge), _group_slots(code), code.max_row_degree,
+            cfg.max_iters, int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
+            int(sum_product), int(dt == torch.bfloat16), place, stream,
         )
     if err != 0:
         raise RuntimeError(f"bp_long kernel launch failed: CUDA error {err}")
@@ -259,10 +293,12 @@ def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
         decode_qc_long.launches += 1
     decode_qc_long.soft_launches += post is not None
     decode_qc_long.sp_launches += sum_product
-    return DecodeResult(bits, conv, iters, executed.max(), post)
+    decode_qc_long.bf16_launches += dt == torch.bfloat16
+    return DecodeResult(bits, conv, iters, executed.max(), posteriors=post)
 
 
 decode_qc_long.launches = 0
 decode_qc_long.global_launches = 0
 decode_qc_long.soft_launches = 0
 decode_qc_long.sp_launches = 0
+decode_qc_long.bf16_launches = 0

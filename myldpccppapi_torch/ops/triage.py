@@ -18,7 +18,7 @@ import torch
 
 from .bp import DecodeResult
 
-__all__ = ["decode_two_phase"]
+__all__ = ["decode_two_phase", "merge_rows"]
 
 
 def decode_two_phase(
@@ -31,23 +31,35 @@ def decode_two_phase(
 
     ``decode_fast``: short-budget decoder (the first pass).
     ``decode_full``: full-budget decoder, for the [cap, n] straggler batch
-    or, when more than ``cap`` frames fail, the whole batch.
+    or, when more than ``cap`` frames fail, the whole batch.  Frames are
+    compacted on ``~ok``: with CRC-aided acceptance a rejected frame gets
+    the full budget, and ``accepted`` is merged with the rest.
     """
     res1 = decode_fast(llr)
-    bad = ~res1.ok  # [B]
+    bad = ~res1.ok  # [B]: not accepted (syndrome, and CRC when CRC-aided)
     if int(bad.sum()) > cap:
         return decode_full(llr)
-    # stable partition: indices of unconverged frames first, converged
+    # stable partition: indices of unaccepted frames first, accepted
     # frames after them as filler
     order = torch.argsort((~bad).to(torch.uint8), stable=True)
     sel = order[:cap]
     res2 = decode_full(llr[sel])
-    take = bad[sel]  # the filler frames keep their fast-pass results
+    return merge_rows(res1, res2, sel, bad[sel])
+
+
+def merge_rows(res1: DecodeResult, res2: DecodeResult, sel: torch.Tensor,
+               take: torch.Tensor) -> DecodeResult:
+    """``res1`` with its rows ``sel`` replaced by ``res2``'s rows where
+    ``take`` (the others of ``sel`` are filler and keep ``res1``'s values):
+    bits, converged, iterations, ``accepted`` and the posteriors where
+    ``res1`` has them; ``total_iters`` the larger of the two."""
 
     def merge(a, b):
+        if a is None:
+            return None
         out = a.clone()
         mask = take.view(-1, *([1] * (a.dim() - 1)))
-        out[sel] = torch.where(mask, b, a[sel])
+        out[sel] = torch.where(mask, b.to(a.dtype), a[sel])
         return out
 
     return DecodeResult(
@@ -55,4 +67,6 @@ def decode_two_phase(
         converged=merge(res1.converged, res2.converged),
         iterations=merge(res1.iterations, res2.iterations),
         total_iters=torch.maximum(res1.total_iters, res2.total_iters),
+        accepted=merge(res1.accepted, res2.accepted),
+        posteriors=merge(res1.posteriors, res2.posteriors),
     )

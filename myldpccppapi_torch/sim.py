@@ -6,14 +6,16 @@ or a family-specific ``encode_fn`` such as NR's triangular
 back-substitution or DVB-S2's accumulator encode, ``ira_encode_fn``),
 BPSK/AWGN or a higher-order constellation through complex AWGN and the
 soft demapper (ops/modulation.py), optionally BICM-ID (ops/bicm_id.py),
-decode, and exact integer error counts against the known truth.
+decode, and exact integer error counts against the known truth.  With a
+CRC (``cfg.crc``) or the DVB-S2 outer BCH (``cfg.outer`` or ``outer=``)
+the step draws message bits and attaches the check before encoding, and
+counts frames the check rejected apart from the undetected errors.
 Randomness comes from a ``torch.Generator`` on the simulation's device, so
 a step is reproducible from its seed (but draws other numbers than the
 reference's threefry keys).
 
-Not ported yet: the CRC and outer-code acceptance branches (ROADMAP Queue 1
-item 7) and the multi-device campaign step ``make_sharded_campaign_step``
-(item 10).
+Not ported yet: the multi-device campaign step
+``make_sharded_campaign_step`` (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ class SimStats(NamedTuple):
     info_bits: torch.Tensor     # info bits simulated (frames * k_info)
     iterations: torch.Tensor    # total BP iterations used (sum over frames)
     unconverged: torch.Tensor   # frames that hit the iteration cap
-    #: frames ACCEPTED (syndrome) yet wrong — the receiver cannot see these
+    #: frames ACCEPTED (syndrome, and the CRC / BCH check when configured)
+    #: yet wrong — the receiver cannot see these
     undetected_errors: torch.Tensor = 0
     #: converged frames an acceptance check rejected (0 without CRC/outer)
     crc_rejected: torch.Tensor = 0
@@ -78,6 +81,7 @@ def sim_step(
     mod=None,
     demap: str = "maxlog",
     id_outer: int = 0,
+    outer: "Optional[tuple]" = None,
 ) -> SimStats:
     """Simulate one batch at one SNR point on ``gen``'s device.
 
@@ -91,17 +95,29 @@ def sim_step(
     ``decode_fn``: that many demapper <-> decoder extrinsic exchanges after
     the first pass, with ``cfg``'s decoders on ``gen``'s device.
 
-    Draws, in order from ``gen``: the [batch, k_info] info bits
-    (``torch.randint``), then the standard normal noise (``torch.randn``):
-    [batch, n] for BPSK, [batch, S, 2] (real, imaginary) for S symbols
-    otherwise.  Not ported: the reference's ``outer`` (CRC/outer-code
-    acceptance, ROADMAP Queue 1 item 7) and its ``llr_scale``, which no
-    caller sets.
+    When ``cfg.crc`` is set, random MESSAGE bits are drawn and the CRC is
+    attached (TS 38.212 §5.1 code-block layout) before encoding, so the
+    decoder's CRC-aided acceptance sees consistent frames; errors are still
+    counted over the full information block (message + CRC field).
+    ``outer=("bch", m, t)`` instead runs the EN 302 307 concatenated flow:
+    the BCH parity (codes/bch.py) fills the last m*t' info bits and a frame
+    is accepted when its syndrome converged and the BCH check of its
+    decoded info bits passes, after the decode, as a DVB receiver does;
+    with ``cfg.outer`` the decoder's own latch requires the BCH check.
+    Frames the check rejected count into ``crc_rejected``.
+
+    Draws, in order from ``gen``: the [batch, k] message bits
+    (``torch.randint``; k = k_info less the CRC or BCH parity), then the
+    standard normal noise (``torch.randn``): [batch, n] for BPSK, [batch,
+    S, 2] (real, imaginary) for S symbols otherwise.  Not ported: the
+    reference's ``llr_scale``, which no caller sets.
     """
-    if cfg.crc is not None or cfg.outer is not None:
-        raise NotImplementedError(
-            "CRC/outer-code-aided simulation is not ported to the PyTorch "
-            "package yet (ROADMAP Queue 1 item 7)")
+    if cfg.crc and (outer is not None or cfg.outer):
+        raise ValueError("choose either cfg.crc or an outer code, not both")
+    if cfg.outer:
+        if outer is not None and tuple(outer) != tuple(cfg.outer):
+            raise ValueError(f"outer={outer} disagrees with cfg.outer={cfg.outer}")
+        outer = cfg.outer
     bpsk = mod is None or mod.name == "bpsk"
     if bpsk and id_outer:
         raise ValueError("id_outer (BICM-ID) needs a non-BPSK mod")
@@ -112,8 +128,27 @@ def sim_step(
         decode_fn = make_decode_fn(code, cfg, device=device)
     info_pos = torch.as_tensor(code.info_positions, device=device)
     kbits = len(info_pos)
-    u = torch.randint(0, 2, (batch, kbits), generator=gen, device=device,
+    k_msg, attach, outer_check = kbits, None, None
+    if cfg.crc:
+        from .codes.crc import CRC_POLYS, crc_attach_fn
+
+        k_msg = kbits - CRC_POLYS[cfg.crc][0]
+        attach = crc_attach_fn(k_msg, cfg.crc)
+    elif outer is not None:
+        kind, m, t = outer
+        if kind != "bch":
+            raise ValueError(f"unknown outer code {kind!r}")
+        from .codes.bch import bch_attach_fn, bch_check_fn, bch_matrix
+
+        k_msg = kbits - bch_matrix(1, m, t).shape[1]
+        attach = bch_attach_fn(k_msg, m, t)
+        if not cfg.outer:
+            # post-decode acceptance (the DVB receiver's flow)
+            outer_check = bch_check_fn(k_msg, m, t)
+    u = torch.randint(0, 2, (batch, k_msg), generator=gen, device=device,
                       dtype=torch.uint8)
+    if attach is not None:
+        u = attach(u)  # [B, kbits] message || CRC or BCH parity
     cw = encode_fn(u)  # [B, n] 0/1
     sigma = sigma_from_snr_db(snr_db).to(device)
     if bpsk:
@@ -139,7 +174,9 @@ def sim_step(
             res = decode_fn(demap_llr(y, n0, mod, demap))
     decoded_info = res.bits[:, info_pos]
     bit_err = (decoded_info != u).sum(dim=-1)  # [B]
-    accepted = res.ok  # the syndrome (no CRC in the port yet)
+    accepted = res.ok  # syndrome, and the CRC / BCH when in the decoder
+    if outer_check is not None:
+        accepted = accepted & outer_check(decoded_info)
     i64 = torch.int64
     return SimStats(
         frames=torch.tensor(batch, dtype=i64, device=device),

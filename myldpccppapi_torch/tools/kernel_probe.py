@@ -4,6 +4,7 @@
     python -m myldpccppapi_torch.tools.kernel_probe --long [--out probe.json]
     python -m myldpccppapi_torch.tools.kernel_probe --modes [--out probe.json]
     python -m myldpccppapi_torch.tools.kernel_probe --long-modes [--out probe.json]
+    python -m myldpccppapi_torch.tools.kernel_probe --bf16 [--out probe.json]
 
 Without ``--long`` it probes the short-code kernel (csrc/bp_layered.cu).
 At bench.py's operating point (wimax 576 r3/4B, batch 8192, layered NMS
@@ -61,12 +62,19 @@ lazy, posterior in global memory) min-sum and soft output.  For each, as
 and one thread block alone and the batch with early exit off at 30 sweeps
 and at 1 sweep, whose difference over 29 is the time of one sweep.
 
+With ``--bf16`` it sets f32 and bf16 messages side by side at the
+``--long`` points and at bench.py's point: kernel C at NR BG1 Z=384 and
+at DVB-S2 64800 r1/2 (bf16 in the placement its fit picks, global, and
+forced into shared memory) as ``--long`` does, with the bytes per sweep at the
+message's item size, and kernel A's layered mode as ``--modes`` does.
+
 It prints one line per measurement and, with ``--out``, writes them as JSON.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -79,9 +87,10 @@ from .. import Decoder, DecoderConfig, Encoder, dvbs2, nr_code, wimax
 from ..codes.dvbs2 import ira_encode_fn
 from ..codes.nr import rate_match_bits, rate_match_llr, triangular_encode_fn
 from ..ops import _build
+from ..ops.bp import msg_dtype
 from ..ops.channel import transmit
 from ..ops.cuda_bp import _launch, decode_qc_cuda, mode, tile_size
-from ..ops.cuda_long import GLOBAL, blocks_per_sm, decode_qc_long, placement
+from ..ops.cuda_long import GLOBAL, SHARED, blocks_per_sm, decode_qc_long, placement
 from ..ops.triage import decode_two_phase
 
 BATCH = 8192
@@ -184,13 +193,15 @@ def iteration_stats(res) -> dict:
             "unconverged": int((~res.converged).sum())}
 
 
-def probe_long_code(code, cfg, batch: int, llr_all) -> dict:
+def probe_long_code(code, cfg, batch: int, llr_all, force: int = 0) -> dict:
     """Per-sweep times of one block, one full wave and the batch (early
     exit off), the bytes they move, and the batch decoded with early exit
-    (kernel and ``Decoder``), for ``code`` under ``cfg``, from the rows of
+    (kernel and, unless ``force`` (SHARED or GLOBAL) overrides the fit's
+    placement, ``Decoder``), for ``code`` under ``cfg``, from the rows of
     ``llr_all`` (repeated where a wave needs more)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    place = placement(code, torch.cuda.current_device())
+    item = msg_dtype(cfg).itemsize
+    place = force or placement(code, torch.cuda.current_device(), item)
     per_sm = blocks_per_sm(code, cfg, place)
     wave = sms * per_sm
     out: dict = {"code": code.name, "placement": "global" if place == GLOBAL else "shared",
@@ -199,15 +210,16 @@ def probe_long_code(code, cfg, batch: int, llr_all) -> dict:
     no_exit = dataclasses.replace(cfg, early_exit=False)
     one_sweep = dataclasses.replace(no_exit, max_iters=1)
     sweeps = no_exit.max_iters
+    decode = functools.partial(decode_qc_long, _place=force)
     for name, n_cw in (("one_block", 1), ("one_wave", wave), ("batch", batch)):
         x = llr_all[torch.arange(n_cw, device=llr_all.device) % len(llr_all)]
-        full = timed(lambda: decode_qc_long(code, no_exit, x))
-        one = timed(lambda: decode_qc_long(code, one_sweep, x))
+        full = timed(lambda: decode(code, no_exit, x))
+        one = timed(lambda: decode(code, one_sweep, x))
         per_sweep = (full["median"] - one["median"]) / (sweeps - 1)
         # each sweep after the first reads and writes every message of R,
         # and in global memory reads and writes P once per edge
-        r_bytes = 2 * n_cw * code.num_blocks * code.z * 4
-        p_bytes = 2 * n_cw * code.num_edges * 4 if place == GLOBAL else 0
+        r_bytes = 2 * n_cw * code.num_blocks * code.z * item
+        p_bytes = 2 * n_cw * code.num_edges * item if place == GLOBAL else 0
         out[name] = {"codewords": n_cw, f"{sweeps}_sweeps": full,
                      "1_sweep": one, "ms_per_sweep": per_sweep,
                      "r_bytes_per_sweep": r_bytes,
@@ -215,8 +227,10 @@ def probe_long_code(code, cfg, batch: int, llr_all) -> dict:
                      "p_bytes_per_sweep": p_bytes,
                      "rp_gbytes_per_s": (r_bytes + p_bytes) / (per_sweep * 1e-3) / 1e9}
     llr = llr_all[:batch].contiguous()
-    out["iterations"] = iteration_stats(decode_qc_long(code, cfg, llr))
-    out["kernel"] = timed(lambda: decode_qc_long(code, cfg, llr))
+    out["iterations"] = iteration_stats(decode(code, cfg, llr))
+    out["kernel"] = timed(lambda: decode(code, cfg, llr))
+    if force:
+        return out
     dec = Decoder(code, cfg, device="cuda")
     if dec.implementation != "cuda_long":
         raise RuntimeError(f"{code.name} Decoder resolved to {dec.implementation}")
@@ -240,23 +254,53 @@ MODES = {
 }
 
 
+def probe_mode(code, cfg, llr) -> dict:
+    """The short-code kernel in ``cfg``'s mode on ``llr``: its tile, the
+    batch with early exit and its iteration counts, and one block alone
+    and the batch with early exit off, per sweep."""
+    no_exit = dataclasses.replace(cfg, early_exit=False)
+    one_sweep = dataclasses.replace(no_exit, max_iters=1)
+    tile = tile_size(code, torch.cuda.current_device(), mode(cfg),
+                     msg_dtype(cfg).itemsize)
+    row = {"tile": tile,
+           "iterations": iteration_stats(decode_qc_cuda(code, cfg, llr)),
+           "batch": timed(lambda: decode_qc_cuda(code, cfg, llr))}
+    for what, x in (("one_block", llr[:tile].contiguous()), ("batch_no_exit", llr)):
+        full = timed(lambda: decode_qc_cuda(code, no_exit, x))
+        one = timed(lambda: decode_qc_cuda(code, one_sweep, x))
+        row[what] = {"40_sweeps": full, "1_sweep": one,
+                     "ms_per_sweep": (full["median"] - one["median"]) / 39}
+    return row
+
+
 def probe_modes(seed: int) -> dict:
     code = wimax(576, "3/4B")
     llr = channel(code, 5.0, seed)
+    return {f"mode_{name}": probe_mode(code, cfg, llr) for name, cfg in MODES.items()}
+
+
+def probe_bf16(seed: int) -> dict:
+    """f32 and bf16 messages side by side (f32, bf16, then bf16 again and
+    f32, so that a drift of the card's clocks shows)."""
+    bf16 = dict(msg_dtype="bfloat16")
+    code = wimax(576, "3/4B")
+    llr = channel(code, 5.0, seed)
     out: dict = {}
-    for name, cfg in MODES.items():
-        no_exit = dataclasses.replace(cfg, early_exit=False)
-        one_sweep = dataclasses.replace(no_exit, max_iters=1)
-        tile = tile_size(code, torch.cuda.current_device(), mode(cfg))
-        row = {"tile": tile,
-               "iterations": iteration_stats(decode_qc_cuda(code, cfg, llr)),
-               "batch": timed(lambda: decode_qc_cuda(code, cfg, llr))}
-        for what, x in (("one_block", llr[:tile].contiguous()), ("batch_no_exit", llr)):
-            full = timed(lambda: decode_qc_cuda(code, no_exit, x))
-            one = timed(lambda: decode_qc_cuda(code, one_sweep, x))
-            row[what] = {"40_sweeps": full, "1_sweep": one,
-                         "ms_per_sweep": (full["median"] - one["median"]) / 39}
-        out[f"mode_{name}"] = row
+    for name in ("a_f32", "a_bf16", "a_bf16_again", "a_f32_again"):
+        cfg = dataclasses.replace(SINGLE, **bf16) if "bf16" in name else SINGLE
+        out[name] = probe_mode(code, cfg, llr)
+    code = nr_code(384, 1)
+    llr = nr_channel(code, LONG_BATCH, 5.0, seed)
+    for name in ("nr_f32", "nr_bf16"):
+        cfg = dataclasses.replace(LONG_CFG, **bf16) if "bf16" in name else LONG_CFG
+        out[name] = probe_long_code(code, cfg, LONG_BATCH, llr)
+    code = dvbs2(64800, "1/2")
+    llr = dvbs2_channel(code, DVB_BATCH, 1.4, seed + 1)
+    cfg = dataclasses.replace(DVB_CFG, **bf16)
+    out["dvbs2_64800_f32"] = probe_long_code(code, DVB_CFG, DVB_BATCH, llr)
+    out["dvbs2_64800_bf16"] = probe_long_code(code, cfg, DVB_BATCH, llr)
+    out["dvbs2_64800_bf16_forced_shared"] = probe_long_code(code, cfg, DVB_BATCH, llr,
+                                                            force=SHARED)
     return out
 
 
@@ -319,6 +363,8 @@ def main(argv=None) -> int:
     ap.add_argument("--long-modes", action="store_true", dest="long_modes",
                     help="probe the long-code kernel's sum-product and "
                          "soft-output modes")
+    ap.add_argument("--bf16", action="store_true",
+                    help="probe f32 against bf16 messages on both kernels")
     ap.add_argument("--out", help="write the measurements as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -330,6 +376,8 @@ def main(argv=None) -> int:
     print(out["card"], flush=True)
     if args.long:
         out.update(probe_long(args.seed))
+    elif args.bf16:
+        out.update(probe_bf16(args.seed))
     elif args.long_modes:
         out.update(probe_long_modes(args.seed))
     elif args.modes:

@@ -65,9 +65,17 @@ class DecoderConfig:
                   frame's convergence like the bits (DecodeResult.
                   posteriors); served by the torch path and both
                   kernels (not kernel B's route), not with triage
-    The remaining fields (msg_dtype, crc, crc_span, outer) exist for
-    parity with the reference and must keep their defaults until their
-    ROADMAP items are ported.
+    msg_dtype:    "float32" | "bfloat16" message storage; bf16 computes
+                  each check update in f32 (ops/bp.py has the rounding
+                  points of the two kernels)
+    crc:          CRC-aided acceptance ("24A", "24B", "24C", "16"): a
+                  frame is accepted when its syndrome AND the CRC of its
+                  information block pass (DecodeResult.accepted); the
+                  kernels stay syndrome-only and the Decoder wraps them
+                  (ops/crc_accept.py)
+    crc_span:     information bits the CRC covers (default: all of them)
+    outer:        ("bch", m, t): the DVB-S2 outer BCH as the acceptance
+                  check, in the same way as crc
     """
 
     algorithm: str = "min-sum"
@@ -104,6 +112,12 @@ class DecoderConfig:
             raise ValueError(f"unknown implementation {self.implementation!r}")
         if self.msg_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown msg_dtype {self.msg_dtype!r}")
+        if self.crc is not None:
+            from ..codes.crc import CRC_POLYS
+
+            if self.crc not in CRC_POLYS:
+                raise ValueError(
+                    f"unknown crc {self.crc!r}; choose from {sorted(CRC_POLYS)}")
         if self.algorithm == "sum-product" and (
             self.normalization != 1.0 or self.offset != 0.0
         ):
@@ -142,11 +156,6 @@ class DecoderConfig:
                 f"implementation={self.implementation!r}",
                 "Queue 1 item 9 (edge lists)",
             )
-        if self.msg_dtype != "float32":
-            raise _not_ported("bfloat16 messages", "Queue 2 kernel A")
-        if self.crc is not None or self.outer is not None:
-            raise _not_ported("CRC/outer-code-aided acceptance",
-                              "Queue 1 item 7")
         for f in ("normalization", "offset"):
             w = getattr(self, f)
             if not isinstance(w, (int, float)) and not all(

@@ -17,7 +17,7 @@ from myldpccppapi_torch.campaign import CampaignConfig, WaterfallCampaign
 from myldpccppapi_torch.codes import nr_code, triangular_encode_fn
 from myldpccppapi_torch.ops.bp import decode_layered
 from myldpccppapi_torch.ops.channel import channel_llr, sigma_from_snr_db
-from myldpccppapi_torch.sim import SimStats, sim_step
+from myldpccppapi_torch.sim import SimStats, make_decode_fn, sim_step
 
 torch.set_num_threads(1)
 
@@ -141,11 +141,21 @@ def test_sim_step_counts_match_a_numpy_recount(family):
 
 
 def test_sim_step_refuses_unported_branches():
+    """The CRC and outer-code branches, ported since, run (a clean point:
+    nothing is rejected); crc with an outer code, another outer code, the
+    reference's llr_scale and BICM-ID on BPSK are refused."""
     code = wimax(576, "1/2")
     gen = torch.Generator().manual_seed(0)
-    for unported in (dict(crc="16"), dict(outer=("bch", 16, 12))):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            sim_step(code, DecoderConfig(**unported), gen, 2.0, 4)
+    for ported in (dict(crc="16"), dict(outer=("bch", 16, 12))):
+        stats = sim_step(code, DecoderConfig(**ported), gen, 8.0, 4,
+                         decode_fn=make_decode_fn(code, DecoderConfig(**ported),
+                                                  device="cpu"))
+        assert int(stats.frames) == 4 and int(stats.frame_errors) == 0
+        assert int(stats.crc_rejected) == 0
+    with pytest.raises(ValueError, match="either"):
+        sim_step(code, DecoderConfig(crc="16"), gen, 2.0, 4, outer=("bch", 16, 12))
+    with pytest.raises(ValueError, match="unknown outer"):
+        sim_step(code, DecoderConfig(), gen, 2.0, 4, outer=("rs", 1, 2))
     # the reference's llr_scale is not ported (no caller sets it)
     with pytest.raises(TypeError):
         sim_step(code, DecoderConfig(), gen, 2.0, 4, llr_scale=1.0)

@@ -91,14 +91,18 @@ def test_interop_round_trips():
     assert interop.config_from_reference(scms) == DecoderConfig(
         schedule="flooding", self_correction=True, soft_output=True,
         implementation="cuda")
+    assert interop.config_from_reference(
+        ref.DecoderConfig(msg_dtype="bfloat16", crc="16")
+    ) == DecoderConfig(msg_dtype="bfloat16", crc="16")
     with pytest.raises(NotImplementedError):
-        interop.config_from_reference(ref.DecoderConfig(msg_dtype="bfloat16"))
+        interop.config_from_reference(ref.DecoderConfig(implementation="edgelist"))
 
 
 def test_information_set_encoder_via_interop():
     """A rank-deficient code's permuted encoder (reference
     generic_precompute) carried across: the port's Encoder and Decoder
-    honour perm and info_cols."""
+    honour perm and info_cols; the port's own information-set precompute
+    builds the same matrices."""
     theirs = ref.regular(96)
     ref_mats = ref_encoder.generic_precompute(theirs.h_dense())
     mine = interop.code_from_reference(theirs)
@@ -113,8 +117,10 @@ def test_information_set_encoder_via_interop():
     dec = Decoder(mine, device="cpu")
     res = dec(4.0 * (1.0 - 2.0 * got.astype(np.float32)))
     np.testing.assert_array_equal(dec.info_bits(res).numpy(), u)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Encoder(mine, device="cpu")
+    own = Encoder(mine, device="cpu")
+    np.testing.assert_array_equal(own.mats.w, np.asarray(ref_mats.w))
+    np.testing.assert_array_equal(own.mats.perm, np.asarray(ref_mats.perm))
+    np.testing.assert_array_equal(own(torch.from_numpy(u)).numpy(), want)
 
 
 @pytest.mark.parametrize("snr_db", [5.0, 2.0, -1.5])

@@ -72,10 +72,11 @@ def test_small_batch_skips_triage():
         assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
-#: configurations an earlier slice refused and this one serves
+#: configurations an earlier slice refused and a later one serves
 PORTED = (dict(schedule="flooding"), dict(algorithm="sum-product"),
           dict(schedule="flooding", self_correction=True),
-          dict(soft_output=True))
+          dict(soft_output=True), dict(msg_dtype="bfloat16"), dict(crc="16"),
+          dict(outer=("bch", 16, 12)))
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -91,9 +92,11 @@ PORTED = (dict(schedule="flooding"), dict(algorithm="sum-product"),
 ])
 def test_unported_configs_raise_not_implemented(kwargs):
     """What the port does not serve yet raises naming its ROADMAP item;
-    the flooding, sum-product, SCMS and soft-output configurations, ported
-    since, construct and decode on the CPU's torch path as the reference's
-    jnp path does."""
+    the flooding, sum-product, SCMS, soft-output, bf16, CRC and outer-BCH
+    configurations, ported since, construct and decode on the CPU's torch
+    path as the reference's jnp path does (bf16 too at this point, alpha 1:
+    both round after every operation; the CRC and BCH latch, whose frames
+    here never pass the check, run to the cap alike)."""
     if kwargs not in PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecoderConfig(**kwargs)
@@ -108,6 +111,9 @@ def test_unported_configs_raise_not_implemented(kwargs):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)), err_msg=f)
     assert (got.posteriors is None) == (not cfg.soft_output)
+    assert (got.accepted is None) == (cfg.crc is None and cfg.outer is None)
+    if got.accepted is not None:
+        np.testing.assert_array_equal(got.accepted.numpy(), np.asarray(want.accepted))
 
 
 @pytest.mark.parametrize("kwargs", [

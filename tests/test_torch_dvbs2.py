@@ -12,6 +12,7 @@
 * Entry points default to the card and raise without CUDA.
 The CUDA kernel itself runs only on a card (chip_smoke.py)."""
 import importlib
+import json
 
 import jax
 import jax.numpy as jnp
@@ -336,8 +337,8 @@ def test_long_kernel_serves_dvbs2(monkeypatch):
             assert cuda_long.supported(code, cfg)
             assert not cuda_bp.supported(code, cfg)
     monkeypatch.setattr(cuda_long, "placement",
-                        lambda code, index: cuda_long.SHARED if code.n <= 16200
-                        else cuda_long.GLOBAL)
+                        lambda code, index, itemsize=4: cuda_long.SHARED
+                        if code.n <= 16200 else cuda_long.GLOBAL)
     cuda = torch.device("cuda", 0)
     for code in (short, wide, dv.dvbs2(64800, "1/2")):
         assert decoder._implementation(code, DecoderConfig(syndrome_mode="lazy"),
@@ -379,8 +380,15 @@ def test_cli_waterfall_dvbs2_and_resume(tmp_path, capsys):
     assert [ln.split()[0] for ln in lines] == ["snr=+0.50", "snr=+1.50"]
     assert cli.main(argv) == 0  # resumed: nothing left to simulate
     assert capsys.readouterr().out.strip().splitlines() == lines
-    with pytest.raises(SystemExit, match="Queue 1 item 7"):
-        cli.main([*argv, "--bch"])
+    # the outer BCH is another campaign (its fingerprint), which starts
+    # afresh and prints the same points
+    fp = json.loads(ck.read_text())["fingerprint"]
+    assert cli.main([*argv, "--bch"]) == 0
+    bch_lines = capsys.readouterr().out.strip().splitlines()
+    assert [ln.split()[0] for ln in bch_lines] == ["snr=+0.50", "snr=+1.50"]
+    assert json.loads(ck.read_text())["fingerprint"] != fp
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        cli.main([*argv, "--bch", "--crc", "16"])
 
 
 def test_sim_step_takes_the_dvbs2_encoder():

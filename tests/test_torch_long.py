@@ -216,7 +216,8 @@ def test_long_kernel_serves_soft_output_and_sum_product(monkeypatch):
                DecoderConfig(algorithm="sum-product", soft_output=True,
                              syndrome_mode="lazy"))
     for place in (cuda_long.SHARED, cuda_long.GLOBAL):
-        monkeypatch.setattr(cuda_long, "placement", lambda c, i, p=place: p)
+        monkeypatch.setattr(cuda_long, "placement",
+                            lambda c, i, itemsize=4, p=place: p)
         for cfg in configs:
             assert cuda_long.supported(code, cfg, cuda)
             assert decoder._implementation(code, cfg, cuda) == "cuda_long"
@@ -260,14 +261,13 @@ def test_supported_agrees_with_zlane(case):
 
 
 def test_supported_refuses_unserved_configs():
+    """bf16 messages are the kernel's; a CRC or outer-BCH check is not (the
+    kernel is syndrome-only, Decoder wraps it)."""
     code = nr.nr_code(64, 1)
     assert cuda_long.supported(code, DecoderConfig())
-    for bad in (dict(msg_dtype="bfloat16"), dict(crc="16"),
-                dict(outer=("bch", 16, 12))):
-        cfg = object.__new__(DecoderConfig)  # past __post_init__'s refusals
-        for f in DecoderConfig.__dataclass_fields__.values():
-            object.__setattr__(cfg, f.name, bad.get(f.name, f.default))
-        assert not cuda_long.supported(code, cfg), bad
+    assert cuda_long.supported(code, DecoderConfig(msg_dtype="bfloat16"))
+    for bad in (dict(crc="16"), dict(outer=("bch", 16, 12))):
+        assert not cuda_long.supported(code, DecoderConfig(**bad)), bad
     assert not cuda_long.supported(np.zeros((2, 4)))
 
 

@@ -224,7 +224,7 @@ def test_cli_waterfall_with_modulation(tmp_path, capsys):
     (["--mod", "8psk", "--n", "576", "--rate", "2/3A"], None),
     (["--mod", "32apsk", "--n", "576"], "divisible"),
     (["--id-outer", "2"], "needs --mod"),
-    (["--crc", "16"], "Queue 1 item 7"),
+    (["--crc", "16"], None),
 ])
 def test_cli_waterfall_modulation_checks(argv, match, tmp_path, capsys):
     base = ["waterfall", "--family", "wimax", "--snr=12", "--batch", "4",
