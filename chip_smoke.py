@@ -6,8 +6,9 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Device: print the ``nvidia-smi`` name and power limit; require CUDA.
-2. Build: compile both kernels (csrc/bp_layered.cu, csrc/bp_long.cu as
-   its min-sum and its sum-product halves), one nvcc per object started
+2. Build: compile the kernels (csrc/bp_layered.cu as its cyclic and its
+   xor group, csrc/bp_long.cu as its four f32/bf16 min-sum and
+   sum-product parts, csrc/op_rate.cu), one nvcc per object started
    together, and print each build time.
 3. Short-code kernel vs plain: the kernel on CUDA against its plain
    version (``decode_qc_cuda_plain``) on the CPU and on CUDA, at batch 1000
@@ -164,6 +165,43 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    BCH (kernel C), NR BG1 z=32 rate-matched rv0 CRC-16 (kernel B's route);
    and leg 2's code with the BCH in the decoder: kernel C + wrap equals
    the latch on true and forged frames, fewer and more than the cap.
+6. (runs first, after the build) Kernel E, the op-rate calibration
+   (csrc/op_rate.cu, tools/roofline.py): its five bodies (E's fma4, mix3
+   and mix4; sfu, the decoders' phi; mufu, bare ex2/lg2) against their
+   plain version on CUDA at 200 iterations on a grid that fills every SM,
+   bit-exact but mufu (to roofline.MUFU_ATOL); then the calibrated f32
+   instruction rate (fma4) and special-function result rate (mufu), each
+   at two depths, which must not pass the card's issue ceiling (SMs x 128
+   FP32 or x 16 MUFU per clock at the maximum SM clock) by more than 5%;
+   every later ``bound()`` divides by them.
+3i. Kernel A's xor group (RS-LDPC) vs plain: rs_ldpc(s=4, gamma=4,
+   rho=8) (n=128), rs_ldpc(s=5) (n=1024) and rs_ldpc() (2048): layered
+   alpha 0.75 and per layer, flooding, SCMS, sum-product layered and
+   flooding, soft output layered and flooding, bf16 layered and bf16
+   flooding sum-product, at an SNR where nearly every frame converges and
+   one where most run 20 iterations, early exit on, and off at the easy
+   SNR (90 cases): bit-exact at batch 101 (a ragged tile) against the
+   plain version on CUDA, posteriors included; at the easy SNR the f32
+   modes at batch 16 against it on the CPU for n <= 1024 (sum-product as
+   in 3d).
+3j. Kernel A's multi-edge cells vs plain: wimax 576 r1/2 (z=24) with extra
+   circulants in two layers, and with cells making up ten of one layer's
+   twelve circulants; layered alpha 0.75 and per layer, sum-product
+   layered, soft output layered, bf16 layered, flooding and SCMS, at 5
+   and 1 dB (42 cases), held as in 3i; then ``Decoder`` on the second code
+   at batch 1000, 5 dB.
+4k. RS-LDPC main path (benchmarks/rs_ldpc_bench.py): ``Decoder(rs_ldpc(),
+   layered NMS alpha 0.75, 20 iterations)`` at batch 2048, 6.5 dB, noise
+   from a torch.Generator on the card, must resolve to ``"cuda"`` (the xor
+   mode) and pass bench.py's gates, equal to the plain version; then
+   ``make_codec("rs_ldpc")``'s byte stream through TDMPCL (1024 codewords
+   at 7 dB) and ``make_codec("wimax", 576, "1/2", crc="16")``'s through
+   its CRC path (2048 codewords at 5 dB): the decoded bytes equal the
+   source.
+4l. BASELINE config 2 (benchmarks/run_baseline.py:368-398): the code of
+   ``make_codec("wifi", 1944, "5/6")`` at batch 4096, 6.5 dB, layered NMS
+   alpha 0.75, early exit, through ``Decoder`` on kernel A's cyclic
+   layered mode, with bench.py's gates.
 5. Times: CUDA events, median of 7 after a warm-up (for the plain versions
    but the layered short-code and NR min-sum ones, one timed call after the
    warm-up: they measure the host, not the card): each kernel and its plain version (single pass, no
@@ -176,13 +214,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    phase 4c's 1.4 dB ones; the 3m and 4m receive paths (the demap alone,
    the decode, both together); one BICM-ID step (two exchanges); and the
    bf16 main paths (kernel A at wimax 576, C at NR and at DVB-S2 64800 in
-   both placements).
+   both placements); kernel A's xor mode on 4k's path, its multi-edge mode
+   on 3j's ``Decoder`` shape and config 2 (4l).
 
 The line before the last is the kernels' JSON record, one entry per kernel
 and mode: each ``launches`` counts its launches in its main path's
 ``Decoder`` call (and ``coder_launches`` those of the Coder TDMPCL, MSCL or
 SCMS decode), each counter set to 0 just before its run; ``bound_ms`` is
-the least time the card could take for the same work (:func:`bound`); the
+the least time the card could take for the same work (:func:`bound`, at
+phase 6's calibrated rates); the
 sum-product entries' ``cpu_posterior_max_abs_err`` is their largest
 posterior difference against the plain version on the CPU (phases 3d,
 3f).  Kernel C's sum-product entry counts phase 4b's sum-product
@@ -223,10 +263,12 @@ from myldpccppapi_torch import (
     demap_llr,
     dvbs2,
     make_bicm_id_receive,
+    make_codec,
     make_modulation,
     modulate,
     nr_code,
     regular,
+    rs_ldpc,
     wimax,
 )
 from myldpccppapi_torch.codes import (
@@ -242,7 +284,7 @@ from myldpccppapi_torch.codes import (
 )
 from myldpccppapi_torch.codes.bch import bch_attach_fn, bch_matrix, bch_params_dvbs2
 from myldpccppapi_torch.codes.crc import CRC_POLYS, crc_attach_fn
-from myldpccppapi_torch.ops import _build
+from myldpccppapi_torch.ops import _build, cuda_bp
 from myldpccppapi_torch.ops.channel import sigma_from_snr_db, transmit
 from myldpccppapi_torch.ops.cuda_bp import (
     decode_qc_cuda,
@@ -259,6 +301,15 @@ from myldpccppapi_torch.ops.cuda_long import (
 from myldpccppapi_torch.ops.bp import accept_fail_fn
 from myldpccppapi_torch.ops.packing import unpack_bits_np
 from myldpccppapi_torch.sim import SimStats, sim_step
+from myldpccppapi_torch.tools.roofline import (
+    BODIES,
+    MUFU_ATOL,
+    calibrate,
+    ceilings,
+    n_elements,
+    op_rate,
+    op_rate_plain,
+)
 
 SEED = 20260816
 BATCH = 8192
@@ -373,13 +424,67 @@ ACC_CFG = DecoderConfig(algorithm="sum-product", schedule="flooding")
 ACC_BATCH = 64
 ACC_SNR = 2.0
 ACC_STEPS = 16
+#: phase 3i: RS-LDPC codes (s, gamma, rho) and, per code, an SNR where
+#: nearly every frame converges and one where most run all 20 iterations
+RS_CASES = ((4, 4, 8, (5.0, 1.0)), (5, 6, 32, (6.5, 5.0)), (6, 6, 32, (6.5, 5.0)))
+#: kernel A's modes held on the xor group (3i); "per-layer" gets one alpha
+#: per base row
+XOR_MODES = {
+    "layered": dict(normalization=0.75),
+    "per-layer": dict(normalization=None),
+    "flooding": dict(schedule="flooding"),
+    "scms": dict(schedule="flooding", self_correction=True),
+    "sp layered": dict(algorithm="sum-product"),
+    "sp flooding": dict(schedule="flooding", algorithm="sum-product"),
+    "soft layered": dict(normalization=0.75, soft_output=True),
+    "soft flooding": dict(schedule="flooding", normalization=0.75, soft_output=True),
+    "bf16 layered": dict(normalization=0.75, msg_dtype="bfloat16"),
+    "bf16 sp flooding": dict(schedule="flooding", algorithm="sum-product",
+                             msg_dtype="bfloat16"),
+}
+#: kernel A's modes held on multi-edge cells (3j)
+ME_MODES = {
+    "layered": dict(normalization=0.75),
+    "per-layer": dict(normalization=None),
+    "sp layered": dict(algorithm="sum-product"),
+    "soft layered": dict(normalization=0.75, soft_output=True),
+    "bf16 layered": dict(normalization=0.75, msg_dtype="bfloat16"),
+    "flooding": dict(schedule="flooding", normalization=0.75),
+    "scms": dict(schedule="flooding", self_correction=True),
+}
+#: 3j's SNRs on wimax 576 r1/2 with extra blocks: nearly every frame
+#: converges at the first, most run all 40 iterations at the second
+ME_SNRS = (5.0, 1.0)
+#: the multi-edge entry's shape: 3j's code with the most cells, batch
+#: 1000, 5 dB, layered NMS alpha 0.75, 40 iterations
+ME_CFG = DecoderConfig(normalization=0.75, max_iters=40)
+ME_BATCH = 1000
+#: the RS-LDPC main path (benchmarks/rs_ldpc_bench.py:28-37): rs_ldpc() =
+#: (2048, 1723), layered NMS alpha 0.75, 20 iterations, batch 2048, 6.5 dB;
+#: its byte stream through make_codec("rs_ldpc") and TDMPCL at 7 dB
+RS_CFG = DecoderConfig(schedule="layered", normalization=0.75, max_iters=20)
+RS_BATCH = 2048
+RS_SNR = 6.5
+RS_STREAM_SNR = 7.0
+RS_STREAM_CODEWORDS = 1024
+#: BASELINE config 2 (benchmarks/run_baseline.py:368-398): wifi(1944,
+#: "5/6"), layered NMS alpha 0.75, early exit, batch 4096, 6.5 dB
+WIFI_CFG = DecoderConfig(schedule="layered", normalization=0.75, early_exit=True)
+WIFI_BATCH = 4096
+WIFI_SNR = 6.5
+#: phase 6: kernel E against its plain version at this depth (bit-exact),
+#: and its entry's times (fma4) at E_DEPTH
+E_CHECK_DEPTH = 200
+E_DEPTH = 1000
 #: the three legs of __graft_entry__.dryrun_multichip on one device: name,
 #: code, config, SNR grid (its 1-D mesh case: two points), frames per point
 LEG1_CFG = DecoderConfig(algorithm="min-sum", schedule="layered", max_iters=4, crc="16")
 LEG2_CFG = DecoderConfig(schedule="layered", normalization=0.85, max_iters=2)
 LEG3_CFG = DecoderConfig(schedule="layered", normalization=0.8, max_iters=3, crc="16")
-#: the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and f32
-#: operations/s outside the tensor cores
+#: the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s, which
+#: bound() divides bytes by, and f32 operations/s outside the tensor cores
+#: (a fused multiply-add counted as two), which phase 6 logs beside its
+#: calibrated rates
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 #: the special-function units' rate (exp2, lg2): 16 results per clock and
@@ -387,24 +492,34 @@ PEAK_F32_PER_S = 67e12
 #: arithmetic-instruction throughput table) x 132 SMs x the H100 SXM's
 #: 1.98 GHz boost clock
 PEAK_SFU_PER_S = 16 * 132 * 1.98e9
-#: f32 operations per edge and sweep that the decode itself needs, by mode
-#: (what a kernel recomputes, such as q in a second pass, is not counted):
-#: layered min-sum: q, |q|, two mins and a max, the sign compare (6); the
+#: phase 6's calibrated rates on this card (kernel E's port,
+#: tools/roofline.py), which bound() divides operations by: "f32" FP32
+#: instructions/s (fma4), "sfu" special-function results/s (mufu)
+RATES = {}
+#: a calibrated rate above the card's issue ceiling by more than this
+#: share means the loop was optimised away
+RATE_SLACK = 0.05
+#: f32 operations per edge and sweep that the decode itself needs, by mode,
+#: each one FP32 instruction (what a kernel recomputes, such as q in a
+#: second pass, is not counted; an abs or a negation is an operand
+#: modifier of the instruction that reads it, so it is not counted
+#: either):
+#: layered min-sum: q, two mins and a max, the sign compare (5); the
 #: compare of |q| with m1, the magnitude and sign selects, the delta and
 #: its add to P (5);
-#: flooding min-sum: the same 6, the two selects and the compare (3), one
+#: flooding min-sum: the same 5, the two selects and the compare (3), one
 #: add of the posterior rebuild (1);
-#: SCMS: q is read, not formed: |q|, mins, max, sign (5), the compare and
+#: SCMS: q is read, not formed: mins, max, sign (4), the compare and
 #: selects (3), the rebuild add (1), and the next q: a subtraction, two
 #: sign-bit reads and a select (4);
-#: sum-product: q, |q| (2), phi(|q|) (3: two clamps and the subtraction of
-#: its two log1pf; negations are free operand modifiers), its add to the
-#: total and the sign compare (2), total - phi(|q|) and phi of that (4),
-#: the sign select (1), plus the delta and its add (2, layered) or the
-#: rebuild add (1, flooding).  Two phi per edge, each an expf and two
-#: log1pf: six special-function results, OPS_SFU_PER_EDGE_SWEEP.
-OPS_PER_EDGE_SWEEP = {"layered": 11, "flooding": 10, "scms": 13,
-                      "sp layered": 14, "sp flooding": 13}
+#: sum-product: q (1), phi(|q|) (3: two clamps and the subtraction of its
+#: two log1pf), its add to the total and the sign compare (2), total -
+#: phi(|q|) and phi of that (4), the sign select (1), plus the delta and
+#: its add (2, layered) or the rebuild add (1, flooding).  Two phi per
+#: edge, each an expf and two log1pf: six special-function results,
+#: OPS_SFU_PER_EDGE_SWEEP.
+OPS_PER_EDGE_SWEEP = {"layered": 10, "flooding": 9, "scms": 12,
+                      "sp layered": 13, "sp flooding": 12}
 OPS_SFU_PER_EDGE_SWEEP = 6
 
 
@@ -460,10 +575,12 @@ def sp_cpu_diff(a, b) -> float:
 
 
 def numpy_llr(code, batch: int, snr_db: float, seed: int) -> np.ndarray:
-    """Codewords of random info bits through BPSK/AWGN, noise from numpy."""
+    """Codewords of random info bits through BPSK/AWGN, noise from numpy
+    (the code's own encoder precompute where it has one, else RU's)."""
     rng = np.random.default_rng(seed)
-    u = rng.integers(0, 2, size=(batch, code.k), dtype=np.uint8)
-    c = encode_numpy(ru_precompute(code), u)
+    mats = getattr(code, "encoder_matrices", None) or ru_precompute(code)
+    u = rng.integers(0, 2, size=(batch, mats.w.shape[1]), dtype=np.uint8)
+    c = encode_numpy(mats, u)
     sigma = np.float32(10 ** (-snr_db / 20))
     y = 1 - 2 * c.astype(np.float32) + sigma * rng.standard_normal(c.shape).astype(np.float32)
     return (y * np.float32(2 / sigma**2)).astype(np.float32)
@@ -994,7 +1111,7 @@ def gates(dec, res, u) -> str:
     berr = int((dec.info_bits(res) != u).sum())
     if not conv > 0.98:
         raise AssertionError(f"convergence {conv} <= 0.98")
-    if berr > unconv * code.k:
+    if berr > unconv * code.k_info:
         raise AssertionError(f"{berr} bit errors > {unconv} unconverged x k")
     bits = res.bits.cpu().numpy()
     if code.syndrome(bits[res.converged.cpu().numpy()]).any():
@@ -1736,6 +1853,303 @@ def phase_legs() -> dict:
     return out
 
 
+def per_layer_alphas(code) -> tuple:
+    return tuple(float(x) for x in np.round(np.linspace(0.65, 0.85, code.m_b), 3))
+
+
+def hold_cases(tag, code, modes, snrs, max_iters, seed, counter) -> tuple:
+    """Kernel A against its plain version on ``code`` in every mode of
+    ``modes`` at each SNR of ``snrs`` (nearly every frame converges at the
+    first, most run out at the second), early exit on, and off at the
+    first: the kernel at batch 101 (a ragged tile) bit-exact against the
+    plain version on CUDA; at the first SNR, early exit on, the f32 modes at
+    batch 16 against the plain version on the CPU (sum-product to equal
+    bits and converged flags, iterations within 1) where n <= 1024.
+    ``counter`` names the launch counter each case must raise by one.
+    Returns the largest difference (0.0: any other raises),
+    sum-product's largest posterior difference against the CPU and the
+    number of cases."""
+    worst = 0.0
+    sp_cpu = 0.0
+    n_cases = 0
+    for si, snr in enumerate(snrs):
+        llr_cpu = torch.from_numpy(numpy_llr(code, 101, snr, seed + si))
+        llr_gpu = llr_cpu.cuda()
+        cpu16 = llr_cpu[:16].contiguous()
+        shown = {}
+        for name, kw in modes.items():
+            if kw.get("normalization", 1.0) is None:
+                kw = dict(kw, normalization=per_layer_alphas(code))
+            for early_exit in exits(si == 0):
+                cfg = DecoderConfig(max_iters=max_iters, early_exit=early_exit, **kw)
+                before = getattr(decode_qc_cuda, counter)
+                k = decode_qc_cuda(code, cfg, llr_gpu)
+                if getattr(decode_qc_cuda, counter) != before + 1:
+                    raise AssertionError(f"{tag} {name}: {counter} did not count the launch")
+                worst = max(worst, max_abs_diff(k, decode_qc_cuda_plain(code, cfg, llr_gpu)))
+                if (si == 0 and early_exit and code.n <= 1024
+                        and cfg.msg_dtype == "float32"):
+                    k16 = decode_qc_cuda(code, cfg, cpu16.cuda())
+                    p16 = decode_qc_cuda_plain(code, cfg, cpu16)
+                    if cfg.algorithm == "sum-product":
+                        sp_cpu = max(sp_cpu, sp_cpu_diff(k16, p16))
+                    else:
+                        max_abs_diff(k16, p16)
+                n_cases += 1
+                if early_exit:
+                    shown[name] = k
+        log(f"[{tag}] {code.name} snr={snr} tiles "
+            + "/".join(str(tile_size(code, torch.cuda.current_device(), m))
+                       for m in (0, 1, 5))
+            + " (layered/flooding/scms) conv "
+            + " ".join(f"{n.replace(' ', '_')}={r.converged.float().mean().item():.3f}"
+                       for n, r in shown.items())
+            + f": {len(exits(si == 0)) * len(modes)} cases kernel == plain (cuda"
+            + ("; cpu, sum-product within its tolerance)" if si == 0 and code.n <= 1024
+               else ")"))
+    return worst, sp_cpu, n_cases
+
+
+def phase_xor_vs_plain() -> tuple[float, float]:
+    """Phase 3i: kernel A's xor group (RS-LDPC) in every mode against its
+    plain version; returns the largest difference and sum-product's
+    largest posterior difference against the CPU."""
+    worst = sp_cpu = 0.0
+    n_cases = 0
+    for ci, (s_, gamma, rho, snrs) in enumerate(RS_CASES):
+        code = rs_ldpc(s=s_, gamma=gamma, rho=rho)
+        impl = Decoder(code, RS_CFG, device="cuda").implementation
+        if impl != "cuda":
+            raise AssertionError(f"{code.name}: resolved to {impl}")
+        w, sp, n = hold_cases("phase3i", code, XOR_MODES, snrs, RS_CFG.max_iters,
+                              SEED + 700 + 10 * ci, "xor_launches")
+        worst, sp_cpu, n_cases = max(worst, w), max(sp_cpu, sp), n_cases + n
+    log(f"[phase3i] {n_cases} cases bit-exact against the plain version on CUDA "
+        "(posteriors included); against the CPU every f32 min-sum case "
+        "bit-exact, sum-product with equal bits and converged flags, iterations "
+        f"within 1 (largest posterior difference {sp_cpu})")
+    return worst, sp_cpu
+
+
+def multi_edge_codes() -> list:
+    """Phase 3j's codes: wimax 576 r1/2 (z = 24) with extra circulants in
+    the information columns of two layers, and with extra circulants in
+    five of layer 2's seven columns, so that ten of its twelve circulants
+    sit in multi-edge cells (the parity part untouched, so RU encodes)."""
+    base = wimax(576, "1/2").base
+    two = ((0, 1, (int(base[0, 1]) + 5) % 24), (1, 5, (int(base[1, 5]) + 7) % 24))
+    most = tuple((2, j, (int(base[2, j]) + 3 + j) % 24) for j in (3, 4, 5, 7, 11))
+    return [QCCode(name="wimax576r12_extra2", base=base, z=24, extra_blocks=two),
+            QCCode(name="wimax576r12_extra_most", base=base, z=24, extra_blocks=most)]
+
+
+def phase_multi_edge_vs_plain():
+    """Phase 3j: kernel A's multi-edge cells in every mode against its
+    plain version; then ``Decoder`` on the code with the most cells at
+    batch 1000, 5 dB (the entry's shape).  Returns the largest difference,
+    that Decoder, its LLRs and its launches."""
+    worst = 0.0
+    n_cases = 0
+    codes = multi_edge_codes()
+    for ci, code in enumerate(codes):
+        impl = Decoder(code, ME_CFG, device="cuda").implementation
+        if impl != "cuda" or cuda_bp.group_slots(code) == 0:
+            raise AssertionError(f"{code.name}: resolved to {impl}")
+        w, _, n = hold_cases("phase3j", code, ME_MODES, ME_SNRS, ME_CFG.max_iters,
+                             SEED + 750 + 10 * ci, "multi_edge_launches")
+        worst, n_cases = max(worst, w), n_cases + n
+    log(f"[phase3j] {n_cases} cases bit-exact against the plain version on CUDA "
+        "(posteriors included); the f32 min-sum cases against the CPU too")
+    code = codes[-1]
+    dec = Decoder(code, ME_CFG, device="cuda")
+    llr = torch.from_numpy(numpy_llr(code, ME_BATCH, 5.0, SEED + 790)).cuda()
+    decode_qc_cuda.launches = 0
+    res = dec(llr)
+    torch.cuda.synchronize()
+    launches = decode_qc_cuda.launches
+    if launches < 1 or decode_qc_cuda.multi_edge_launches < 1:
+        raise AssertionError("the multi-edge Decoder launched no kernel")
+    max_abs_diff(res, decode_qc_cuda_plain(code, ME_CFG, llr))
+    log(f"[phase3j] Decoder impl={dec.implementation} {code.name} "
+        f"({cuda_bp.group_slots(code)} delta-table rows) batch={ME_BATCH} snr=5.0 "
+        f"{summary(res)} launches={launches}; == plain (cuda)")
+    return worst, dec, llr, launches
+
+
+def stream_round_trip(tag, coder, n_codewords: int, snr_db: float) -> tuple[int, dict]:
+    """``coder``'s byte stream through encode, ``test`` at ``snr_db`` and a
+    TDMPCL decode on the card: the decoded bytes must equal the source.
+    Returns the decode's kernel launches and its stats."""
+    coder.for_encoder()
+    coder.for_decoder(2048)
+    src = bytes((ord("a") + i % 26) for i in range(n_codewords * coder._kb))
+    prior = coder.encode(src)
+    cw = unpack_bits_np(prior).reshape(-1, coder.code.n)
+    if coder.code.syndrome(cw).any():
+        raise AssertionError(f"{tag}: the encoded stream holds a non-codeword")
+    post = coder.test(prior, 10 ** (-snr_db / 20), seed=SEED)
+    decode_qc_cuda.launches = 0
+    out, stats = coder.decode(post, len(src), "TDMPCL", return_stats=True)
+    torch.cuda.synchronize()
+    launches = decode_qc_cuda.launches
+    if launches < 1:
+        raise AssertionError(f"{tag}: the Coder TDMPCL decode launched no kernel")
+    if bytes(out) != src:
+        raise AssertionError(f"{tag}: the decoded bytes differ from the source")
+    log(f"[phase4k] {tag}: {len(src)} bytes, {len(cw)} codewords at {snr_db} dB, "
+        f"mean_iters={stats['mean_iters']:.3f}, launches={launches}: the decoded "
+        "bytes equal the source")
+    return launches, stats
+
+
+def phase_rs_main_path():
+    """Phase 4k: the RS-LDPC main path through ``Decoder`` and the byte
+    stream through ``make_codec``; returns the Decoder, its LLRs, its
+    launches and the Coder's."""
+    code = rs_ldpc()
+    dec = Decoder(code, RS_CFG, device="cuda")
+    if dec.implementation != "cuda":
+        raise AssertionError(f"RS-LDPC main path resolved to {dec.implementation}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 800)
+    u = torch.randint(0, 2, (RS_BATCH, code.k_info), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    llr, _ = transmit(gen, Encoder(code, device="cuda")(u), RS_SNR)
+    llr = llr.contiguous()
+    torch.cuda.synchronize()
+    decode_qc_cuda.launches = 0
+    decode_qc_cuda.xor_launches = 0
+    res = dec(llr)
+    torch.cuda.synchronize()
+    launches = decode_qc_cuda.launches
+    if launches < 1 or decode_qc_cuda.xor_launches != launches:
+        raise AssertionError(f"RS-LDPC Decoder: {launches} launches, "
+                             f"{decode_qc_cuda.xor_launches} in the xor group")
+    log(f"[phase4k] Decoder impl={dec.implementation} {code.name} (n={code.n}, "
+        f"k={code.k_info}) tile={tile_size(code, torch.cuda.current_device())} "
+        f"batch={RS_BATCH} snr={RS_SNR} {gates(dec, res, u)} launches={launches}")
+    max_abs_diff(res, decode_qc_cuda_plain(code, RS_CFG, llr))
+    log("[phase4k] Decoder(cuda) == the plain version on the same LLRs (cuda)")
+    coder_launches, _ = stream_round_trip(
+        "make_codec('rs_ldpc') TDMPCL", make_codec("rs_ldpc", device="cuda"),
+        RS_STREAM_CODEWORDS, RS_STREAM_SNR)
+    crc_coder = make_codec("wimax", 576, "1/2", crc="16", device="cuda")
+    crc_launches, stats = stream_round_trip(
+        "make_codec('wimax', 576, '1/2', crc='16') TDMPCL", crc_coder, 2048, SNR_DB)
+    if not stats["accepted"].all() or stats["crc_rejected"]:
+        raise AssertionError("the CRC-16 stream: a frame was not accepted")
+    return dec, llr, launches, coder_launches, crc_launches
+
+
+def phase_wifi_main_path():
+    """Phase 4l: BASELINE config 2 through make_codec("wifi", 1944, "5/6")'s
+    code on kernel A's cyclic layered mode; returns the Decoder, its LLRs
+    and its launches."""
+    code = make_codec("wifi", 1944, "5/6", device="cuda").code
+    dec = Decoder(code, WIFI_CFG, device="cuda")
+    if dec.implementation != "cuda":
+        raise AssertionError(f"config 2 resolved to {dec.implementation}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 900)
+    u = torch.randint(0, 2, (WIFI_BATCH, code.k), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    llr, _ = transmit(gen, Encoder(code, device="cuda")(u), WIFI_SNR)
+    llr = llr.contiguous()
+    torch.cuda.synchronize()
+    decode_qc_cuda.launches = 0
+    res = dec(llr)
+    torch.cuda.synchronize()
+    launches = decode_qc_cuda.launches
+    if launches < 1:
+        raise AssertionError("config 2 launched no kernel")
+    log(f"[phase4l] Decoder impl={dec.implementation} {code.name} batch={WIFI_BATCH} "
+        f"snr={WIFI_SNR} {gates(dec, res, u)} launches={launches}")
+    return dec, llr, launches
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
+
+
+def phase_op_rate() -> dict:
+    """Phase 6: kernel E (csrc/op_rate.cu) against its plain version on
+    CUDA at a small depth, every body bit-exact but mufu (within
+    MUFU_ATOL); then the calibrated f32 instruction and special-function
+    result rates (into RATES, for bound()), each no higher than the card's
+    issue ceiling plus RATE_SLACK; then the kernel's and the plain
+    version's times at E_DEPTH (fma4).  Returns E's record."""
+    dev = torch.cuda.current_device()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1000)
+    x = torch.randn(n_elements(dev), generator=gen, device="cuda")
+    mufu_err = 0.0
+    for body in BODIES:
+        k = op_rate(x, body, E_CHECK_DEPTH)
+        p = op_rate_plain(x, body, E_CHECK_DEPTH)
+        torch.cuda.synchronize()
+        err = float((k - p).abs().max())
+        if body == "mufu":
+            mufu_err = err
+            if not err <= MUFU_ATOL:
+                raise AssertionError(f"op_rate mufu: kernel != plain (max abs {err} "
+                                     f"> {MUFU_ATOL})")
+        elif not torch.equal(k, p):
+            raise AssertionError(f"op_rate {body}: kernel != plain (max abs {err})")
+    log(f"[phase6] op_rate: {len(BODIES)} bodies x {x.numel()} elements x "
+        f"{E_CHECK_DEPTH} iterations: kernel == plain (cuda), bit-exact but mufu "
+        f"(max abs {mufu_err:.3e}, tolerance {MUFU_ATOL})")
+    op_rate.launches = 0
+    rates = calibrate(device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    launches = op_rate.launches
+    if launches < 1:
+        raise AssertionError("the calibration launched no kernel")
+    for name, r in rates["bodies"].items():
+        log(f"[phase6] {name}: {r['rate']:.6e} per s ({r['lo']} -> {r['hi']} "
+            f"iterations: {r['t_lo_ms']:.4f} -> {r['t_hi_ms']:.4f} ms)")
+    clock = max_sm_clock_hz()
+    ceiling = ceilings(dev, clock)
+    for key, name in (("f32_ops_per_s", "f32"), ("sfu_per_s", "mufu")):
+        if rates[key] > ceiling[name] * (1 + RATE_SLACK):
+            raise AssertionError(f"calibrated {key} {rates[key]:.4e} exceeds the "
+                                 f"card's issue ceiling {ceiling[name]:.4e} by more "
+                                 f"than {RATE_SLACK:.0%}: the loop was optimised away")
+    RATES["f32"] = rates["f32_ops_per_s"]
+    RATES["sfu"] = rates["sfu_per_s"]
+    log(f"[phase6] calibrated: f32 {RATES['f32']:.6e} instructions/s (fma4), special "
+        f"functions {RATES['sfu']:.6e} results/s (mufu), the decoders' phi "
+        f"{rates['phi_per_s']:.6e} results/s (sfu); issue ceilings at "
+        f"{clock / 1e6:.0f} MHz: f32 {ceiling['f32']:.6e}, special functions "
+        f"{ceiling['mufu']:.6e}; the data sheet's: f32 {PEAK_F32_PER_S:.6e} (a "
+        f"multiply-add as two), special functions {PEAK_SFU_PER_S:.6e}; "
+        f"launches={launches}")
+    ms = median_ms(lambda: op_rate(x, "fma4", E_DEPTH))
+    plain_ms = median_ms(lambda: op_rate_plain(x, "fma4", E_DEPTH), 1)
+    # fma4's operations are FP32 instructions (a mul and an add, kept apart)
+    t_ops = BODIES["fma4"][1] * E_DEPTH * x.numel() / ceiling["f32"]
+    t_bytes = 2 * 4 * x.numel() / PEAK_BYTES_PER_S
+    log(f"[phase6] op_rate fma4 at {E_DEPTH} iterations: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {1e3 * max(t_ops, t_bytes):.4f} ms at the f32 "
+        f"issue ceiling")
+    return {"name": "op_rate", "route": "cuda",
+            "source": "myldpccppapi_torch/csrc/op_rate.cu",
+            "replaces": "benchmarks/roofline.py:123", "launches": launches,
+            # mufu's: every other body is bit-exact
+            "max_abs_err": mufu_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            # no single PyTorch call computes E's loop
+            "library_ms": None,
+            "f32_ops_per_s": RATES["f32"], "sfu_per_s": RATES["sfu"],
+            "phi_per_s": rates["phi_per_s"], "sm_clock_hz": clock,
+            "f32_issue_ceiling": ceiling["f32"], "sfu_issue_ceiling": ceiling["mufu"],
+            "f32_ops_per_s_datasheet": PEAK_F32_PER_S,
+            "sfu_per_s_datasheet": PEAK_SFU_PER_S,
+            "body_rates": {n: r["rate"] for n, r in rates["bodies"].items()}}
+
+
 def bound(code, cfg, llr, res) -> tuple[float, str]:
     """The least time the card could take for one decode of ``llr``: the
     largest of its bytes (each LLR read once, each output -- bits,
@@ -1744,9 +2158,10 @@ def bound(code, cfg, llr, res) -> tuple[float, str]:
     config's mode per Tanner-graph edge and sweep, over the sweeps this
     run's frames ran: ``iterations`` each with early exit, else every sweep)
     over the f32 rate, and, for sum-product, its special-function results
-    over the SFU rate.  bf16 messages do the same operations on the same
-    f32 LLRs and write their posteriors at 2 B.  Returns (ms, "bytes" or
-    "operations")."""
+    over the SFU rate.  The rates are phase 6's calibrated ones (RATES).
+    bf16 messages do the same operations
+    on the same f32 LLRs and write their posteriors at 2 B.  Returns (ms,
+    "bytes" or "operations")."""
     batch = llr.shape[0]
     item = 2 if cfg.msg_dtype == "bfloat16" else 4  # the posterior output's
     nbytes = batch * code.n * (4 + 1) + batch * (1 + 4)
@@ -1761,9 +2176,9 @@ def bound(code, cfg, llr, res) -> tuple[float, str]:
         if cfg.algorithm == "sum-product":
             key = f"sp {cfg.schedule}"
     edge_sweeps = sweeps * code.num_edges
-    t_ops = edge_sweeps * OPS_PER_EDGE_SWEEP[key] / PEAK_F32_PER_S
+    t_ops = edge_sweeps * OPS_PER_EDGE_SWEEP[key] / RATES["f32"]
     if cfg.algorithm == "sum-product":
-        t_ops = max(t_ops, edge_sweeps * OPS_SFU_PER_EDGE_SWEEP / PEAK_SFU_PER_S)
+        t_ops = max(t_ops, edge_sweeps * OPS_SFU_PER_EDGE_SWEEP / RATES["sfu"])
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1790,10 +2205,11 @@ def phase_times(dec, llr, kernel, plain, cfg, plain_reps: int = 7, tag: str = ""
         "plain": median_ms(lambda: plain(code, cfg, llr), plain_reps),
         "decoder": median_ms(lambda: dec(llr)),
     }
-    out["bound"], out["bound_by"] = bound(code, cfg, llr, kernel(code, cfg, llr))
+    res = kernel(code, cfg, llr)
+    out["bound"], out["bound_by"] = bound(code, cfg, llr, res)
     for name in ("kernel", "plain", "decoder", "bound"):
         ms = out[name]
-        mbits = llr.shape[0] * code.k / (ms * 1e-3) / 1e6
+        mbits = llr.shape[0] * code.k_info / (ms * 1e-3) / 1e6
         log(f"[phase5] {code.name}{tag} {name}: {ms:.4f} ms per batch of "
             f"{llr.shape[0]} = {mbits:.1f} Mbit/s decoded info"
             + (f" (bound by {out['bound_by']})" if name == "bound" else ""))
@@ -1893,15 +2309,21 @@ def main() -> int:
         log(f"[time] {fn.__name__} done at {time.perf_counter() - t0:.1f} s")
         return out
 
+    op_rate_entry = phase(phase_op_rate)
     worst = phase(phase_kernel_vs_plain)
     worst_modes, sp_cpu_post = phase(phase_modes_vs_plain)
     worst_b, b_dec, b_llr, b_launches = phase(phase_route_b_vs_plain)
+    worst_xor, xor_sp_cpu = phase(phase_xor_vs_plain)
+    worst_me, me_dec, me_llr, me_launches = phase(phase_multi_edge_vs_plain)
     worst_long = phase(phase_long_kernel_vs_plain)
     worst_shared, worst_global = phase(phase_dvbs2_kernel_vs_plain)
     worst_c_modes, c_sp_cpu_post = phase(phase_long_modes_vs_plain)
     dec, llr, u, launches, coder_launches, stream = phase(phase_main_path)
     flood_decs, flood_launches, mode_coder_launches = phase(
         phase_flooding_main_path, llr, u, stream)
+    rs_dec, rs_llr, rs_launches, rs_coder_launches, crc_coder_launches = phase(
+        phase_rs_main_path)
+    wifi_dec, wifi_llr, wifi_launches = phase(phase_wifi_main_path)
     nr_dec, nr_llrs, nr_launches, sp_dec, sp_launches, nr_soft_dec, nr_u = phase(
         phase_nr_main_path)
     nr_llr = nr_llrs[5.0]
@@ -1923,6 +2345,12 @@ def main() -> int:
                   for group, d in flood_decs.items()}
     b_times = phase_times(b_dec, b_llr, decode_qc_cuda, decode_qc_cuda_plain,
                           NR_CFG, plain_reps=1, tag=" kernel B route")
+    rs_times = phase_times(rs_dec, rs_llr, decode_qc_cuda, decode_qc_cuda_plain,
+                           RS_CFG, plain_reps=1, tag=" xor")
+    me_times = phase_times(me_dec, me_llr, decode_qc_cuda, decode_qc_cuda_plain,
+                           ME_CFG, plain_reps=1, tag=" multi-edge")
+    wifi_times = phase_times(wifi_dec, wifi_llr, decode_qc_cuda, decode_qc_cuda_plain,
+                             WIFI_CFG, plain_reps=1, tag=" config 2")
     nr_times = phase_times(nr_dec, nr_llr, decode_qc_long,
                            decode_qc_long_plain, NR_CFG)
     dvb_times = phase_dvbs2_times(dvb_dec, dvb_llr)["lazy"]
@@ -1964,7 +2392,18 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("bp_layered", "bp_layered.cu", kernel_a,
               launches, worst, times, coder_launches=coder_launches,
-              acceptance_leg_wimax576_crc16=legs["wimax576_crc16"]),
+              acceptance_leg_wimax576_crc16=legs["wimax576_crc16"],
+              crc16_stream_coder_launches=crc_coder_launches,
+              config2_launches=wifi_launches, config2_ms=wifi_times["kernel"],
+              config2_plain_ms=wifi_times["plain"],
+              config2_decoder_ms=wifi_times["decoder"],
+              config2_bound_ms=wifi_times["bound"]),
+        # kernel A's xor group (RS-LDPC, phase 4k) and multi-edge cells (3j)
+        entry("bp_layered_xor", "bp_layered.cu", kernel_a, rs_launches, worst_xor,
+              rs_times, coder_launches=rs_coder_launches,
+              cpu_posterior_max_abs_err=xor_sp_cpu),
+        entry("bp_layered_multi_edge", "bp_layered.cu", kernel_a, me_launches,
+              worst_me, me_times),
         # kernel A's modes in the same source, each on its phase-4d path
         entry("bp_layered_flooding", "bp_layered.cu", kernel_a,
               flood_launches["flooding"], worst_modes["flooding"],
@@ -2023,6 +2462,8 @@ def main() -> int:
               sp_flooding_ms=bf16_times["a sp flooding"],
               waterfall_fer_f32=bf16_fers["float32"],
               waterfall_fer_bf16=bf16_fers["bfloat16"]),
+        # kernel E: the calibration whose rates set every bound_ms above
+        op_rate_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

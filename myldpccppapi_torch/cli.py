@@ -32,6 +32,10 @@ Examples::
         --rate 1/2 --bch --snr 1.5,2 --normalization 0.85 --max-iters 30
     python -m myldpccppapi_torch waterfall --family wimax --n 576 \
         --rate 1/2 --msg-dtype bfloat16 --snr 2,3
+    python -m myldpccppapi_torch waterfall --family rs_ldpc --n 2048 \
+        --snr 6,6.5 --normalization 0.75 --max-iters 20
+    python -m myldpccppapi_torch waterfall --family wifi --n 1944 \
+        --rate 5/6 --snr 6.5 --normalization 0.75
 """
 from __future__ import annotations
 
@@ -108,6 +112,18 @@ def _make_code(args):
         from .codes import dvbs2
 
         return dvbs2(args.n, args.rate)
+    if args.family == "wifi":
+        from .codes import wifi
+
+        return wifi(args.n, args.rate)
+    if args.family == "rs_ldpc":
+        # 802.3an-class RS-based LDPC: n = 32 * 2^s (2048 = the standard's)
+        from .codes import rs_ldpc_from_n
+
+        try:
+            return rs_ldpc_from_n(args.n)
+        except ValueError as e:
+            raise SystemExit(str(e))
     from .codes import nr_code
 
     return nr_code(z=args.z, bg=args.bg)
@@ -238,11 +254,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     w = sub.add_parser("waterfall", help="BER/FER waterfall campaign")
     w.add_argument("--family", default="wimax",
-                   choices=["wimax", "regular", "nr", "dvbs2"])
+                   choices=["wimax", "wifi", "regular", "nr", "dvbs2",
+                            "rs_ldpc"])
     w.add_argument("--n", type=int, default=576,
-                   help="code length (wimax; regular: a multiple of 6; "
-                        "dvbs2: 16200 or 64800)")
-    w.add_argument("--rate", default="1/2", help="wimax or dvbs2 rate")
+                   help="code length (wimax; wifi: 648, 1296 or 1944; "
+                        "regular: a multiple of 6; dvbs2: 16200 or 64800; "
+                        "rs_ldpc: 32 * 2^s, 2048 the 802.3an code)")
+    w.add_argument("--rate", default="1/2", help="wimax, wifi or dvbs2 rate")
     w.add_argument("--z", type=int, default=384, help="NR lifting size")
     w.add_argument("--bg", type=int, default=1, choices=[1, 2],
                    help="NR base graph")

@@ -1,4 +1,5 @@
-"""Code construction: base matrices, QC lifting, GF(2) algebra, encoders."""
+"""Code construction: base matrices, QC lifting, RS-LDPC, GF(2) algebra,
+encoders."""
 from .qc import QCCode
 from .encoder import (
     Encoder,
@@ -28,11 +29,14 @@ from .nr import (
     triangular_encode_numpy,
 )
 from .regular import regular
+from .rs_ldpc import RSLDPCCode, rs_ldpc, rs_ldpc_from_n
+from .wifi import wifi
 from .wimax import wimax
 
 __all__ = [
     "BIT_INTERLEAVER_COLS",
     "QCCode",
+    "RSLDPCCode",
     "bit_deinterleave",
     "bit_interleave",
     "dvbs2",
@@ -50,9 +54,12 @@ __all__ = [
     "rate_match_llr",
     "regular",
     "ru_precompute",
+    "rs_ldpc",
+    "rs_ldpc_from_n",
     "rv_start",
     "std_interleave",
     "triangular_encode_fn",
     "triangular_encode_numpy",
+    "wifi",
     "wimax",
 ]

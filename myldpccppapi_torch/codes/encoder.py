@@ -117,13 +117,17 @@ def encode_numpy(mats: EncoderMatrices, info_bits: np.ndarray) -> np.ndarray:
 
 class Encoder:
     """Batched encoder: [B, k] info bits -> [B, n] codeword bits on
-    ``device``, the card unless ``device="cpu"``: systematic (RU), or for a
-    code with ``info_cols`` the information-set encoder, whose info bits
-    land at ``code.info_positions``."""
+    ``device``, the card unless ``device="cpu"``: the code's own
+    precompute where it carries one (``encoder_matrices``, RS-LDPC's
+    information set), systematic (RU), or for a code with ``info_cols``
+    the information-set encoder, whose info bits land at
+    ``code.info_positions``."""
 
     def __init__(self, code: QCCode, mats: EncoderMatrices | None = None,
                  *, device=DEFAULT_DEVICE):
         self.code = code
+        if mats is None:
+            mats = getattr(code, "encoder_matrices", None)
         if mats is None:
             if getattr(code, "info_cols", None) is not None:
                 mats = generic_precompute(code.h_dense())

@@ -138,6 +138,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "phi.cuh"  // phi, the sum-product transform
+
 namespace {
 
 constexpr float kInf = 1e30f;
@@ -195,13 +197,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // x rounded to the storage type (as a float; the identity for f32)
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
-
-// phi(x) = -log(tanh(x / 2)) on x clamped to [1e-7, 30]
-__device__ __forceinline__ float phi(float x) {
-  x = fminf(fmaxf(x, 1e-7f), 30.0f);
-  const float ex = expf(-x);
-  return log1pf(ex) - log1pf(-ex);
-}
 
 // kGeneral = false is the plain sweep that 5G NR takes under min-sum: no
 // masks, no multi-edge layers, the exact syndrome only.  kSumProduct

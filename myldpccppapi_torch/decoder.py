@@ -13,8 +13,9 @@ ops/cuda_bp.py) when it serves the code and the config, else to the
 long-code kernel (``"cuda_long"``, ops/cuda_long.py), else it raises; it
 never goes to the torch path quietly.  The short-code kernel serves the
 layered and flooding schedules, min-sum, sum-product, SCMS and soft output
-on codes of up to 120 circulants, and layered min-sum on the small-z 5G NR
-codes (z < 64, kernel B's route).  The long-code kernel serves the layered
+on codes of up to 120 circulants (multi-edge cells included) and on
+RS-LDPC codes (the xor group, up to 256 blocks), and layered min-sum on
+the small-z 5G NR codes (z < 64, kernel B's route).  The long-code kernel serves the layered
 schedule on 5G NR and DVB-S2 (min-sum or sum-product, soft output,
 multi-edge cells, masked rows, the exact or the lazy syndrome), with the
 posterior in shared memory where it fits (NR, DVB-S2 16200) and in global
@@ -36,7 +37,9 @@ the same device.  The torch path runs the check in its own latch.
 
 Refused at construction, as the reference refuses them: soft output with
 triage (the two-phase wrapper merges hard outputs only) and SCMS on the
-long-code kernel.
+long-code kernel.  An RS-LDPC code whose state does not fit a thread
+block (``rs_ldpc(s=8)``, n = 8192) raises on the card where the reference
+runs its jnp path: the long-code kernel aligns circulants only.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from functools import partial
 import torch
 
 from .codes.qc import QCCode
+from .codes.rs_ldpc import RSLDPCCode
 from .ops import cuda_bp, cuda_long
 from .ops.bp import DecodeResult, accept_fail_fn, decode_qc
 from .ops.crc_accept import decode_with_crc_accept
@@ -81,7 +85,8 @@ def _implementation(code, cfg: DecoderConfig, device: torch.device) -> str:
             if kernel.supported(code, cfg, device):
                 return name
         raise ValueError(
-            f"no CUDA kernel serves {code.name} under this config: the "
+            f"no CUDA kernel serves {code.name} (n={code.n}, z={code.z}, "
+            f"{code.num_blocks} blocks) under this config: the "
             f"short-code kernel (\"cuda\") needs {cuda_bp.REQUIREMENTS}; the "
             f"long-code kernel (\"cuda_long\") needs {cuda_long.REQUIREMENTS}; "
             "use implementation=\"torch\" for the plain path")
@@ -109,10 +114,11 @@ class Decoder:
         if overrides:
             config = dataclasses.replace(config, **overrides)
         device = resolve_device(device)
-        if not isinstance(code, QCCode):
+        if not isinstance(code, (QCCode, RSLDPCCode)):
             raise NotImplementedError(
-                "codes without QC block structure (edge lists) are not "
-                "ported to the PyTorch package yet (ROADMAP Queue 1 item 9)"
+                "codes without QC or XOR block structure (edge lists) are "
+                "not ported to the PyTorch package yet (ROADMAP Queue 1 "
+                "item 9)"
             )
         if config.soft_output and config.triage_iters > 0:
             raise ValueError(
@@ -198,7 +204,7 @@ class Decoder:
 
     def info_bits(self, result: DecodeResult) -> torch.Tensor:
         """Information bits of the decoded codewords: [B, k_info]."""
-        if self.code.info_cols is None:
+        if isinstance(self.code, QCCode) and self.code.info_cols is None:
             return result.bits[:, : self.code.k]
         pos = torch.as_tensor(self.code.info_positions, device=result.bits.device)
         return result.bits[:, pos]

@@ -11,6 +11,7 @@ import numpy as np
 
 from .codes.encoder import EncoderMatrices
 from .codes.qc import QCCode
+from .codes.rs_ldpc import RSLDPCCode
 from .ops.modulation import Modulation
 from .utils.config import DecoderConfig
 
@@ -27,9 +28,13 @@ IMPLEMENTATION_NAMES = {
 }
 
 
-def code_from_reference(obj) -> QCCode:
+def code_from_reference(obj) -> "QCCode | RSLDPCCode":
     """A reference ``QCCode`` (name, base, z and the optional structure
-    fields) -> the port's :class:`QCCode`."""
+    fields) -> the port's :class:`QCCode`; a reference ``RSLDPCCode`` (the
+    xor group: name, s, shifts) -> the port's :class:`RSLDPCCode`."""
+    if getattr(obj, "group", "cyclic") == "xor":
+        return RSLDPCCode(name=obj.name, s=int(obj.s),
+                          shifts=np.array(obj.shifts, dtype=np.int64))
     info_cols = getattr(obj, "info_cols", None)
     return QCCode(
         name=obj.name,

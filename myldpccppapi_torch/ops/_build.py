@@ -2,11 +2,13 @@
 
 The sources have a plain ``extern "C"`` interface and include no PyTorch
 header, so ``nvcc`` compiles each in seconds; :func:`build` starts one
-``nvcc`` per object, all together (``bp_long.cu`` as four objects, its
-f32 and bf16 min-sum and sum-product instantiations), and links the objects into
+``nvcc`` per object, all together (``bp_layered.cu`` as two objects, its
+cyclic and xor groups; ``bp_long.cu`` as four, its f32 and bf16 min-sum
+and sum-product instantiations; ``op_rate.cu``), and links the objects into
 one shared library that :mod:`ctypes` loads.  The library goes into
 ``myldpccppapi_torch/_build/`` (listed in ``.gitignore``), named by a hash
-of every source and the flags, and is built at first use, never at import.
+of every source and header and the flags, and is built at first use, never
+at import.
 A machine with CUDA but without ``nvcc`` raises: there is no fallback.
 """
 from __future__ import annotations
@@ -22,19 +24,23 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-__all__ = ["build", "load", "find_nvcc", "SOURCES"]
+__all__ = ["build", "load", "find_nvcc", "HEADERS", "SOURCES"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 #: the kernel sources
-SOURCES = ("bp_layered.cu", "bp_long.cu")
+SOURCES = ("bp_layered.cu", "bp_long.cu", "op_rate.cu")
+#: the headers they include from csrc
+HEADERS = ("phi.cuh",)
 #: the objects, (source, its own flags), each compiled by its own nvcc
-#: process: bp_long.cu's four parts (csrc/bp_long.cu, BP_LONG_PART: its
+#: process: bp_layered.cu's two parts (BP_LAYERED_PART: the cyclic and the
+#: xor group's instantiations) and bp_long.cu's four (BP_LONG_PART: its
 #: f32 and bf16 min-sum and sum-product instantiations) take comparable
 #: times, so the build takes the longest one
-_OBJECTS = (("bp_layered.cu", ()),
-            *(("bp_long.cu", (f"-DBP_LONG_PART={part}",)) for part in (1, 2, 3, 4)))
+_OBJECTS = (*(("bp_layered.cu", (f"-DBP_LAYERED_PART={part}",)) for part in (1, 2)),
+            *(("bp_long.cu", (f"-DBP_LONG_PART={part}",)) for part in (1, 2, 3, 4)),
+            ("op_rate.cu", ()))
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # keep the f32 operation order: no contracted multiply-adds
@@ -46,12 +52,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures: (argtypes, restype) per exported function
 _SIGNATURES = {
-    # thirteen tensors (the posterior output may be null), ten ints, the
-    # stream
-    "ldpc_bp_layered": ([_P] * 13 + [_I] * 10 + [_P], _I),
-    # (n, z, m_b, num_blocks, mode, itemsize, device)
+    # fourteen tensors (the posterior output may be null), twelve ints,
+    # the stream
+    "ldpc_bp_layered": ([_P] * 14 + [_I] * 12 + [_P], _I),
+    # (n, z, m_b, num_blocks, group_slots, mode, itemsize, device)
     #   -> codewords per thread block
-    "ldpc_bp_layered_tile": ([_I] * 7, _I),
+    "ldpc_bp_layered_tile": ([_I] * 8, _I),
     # fifteen tensors (the posterior output and the P scratch may be null),
     # fifteen ints, the stream
     "ldpc_bp_long": ([_P] * 15 + [_I] * 15 + [_P], _I),
@@ -63,6 +69,8 @@ _SIGNATURES = {
     #  max_row_degree, lazy, sum_product, itemsize, placement)
     #   -> resident blocks per SM
     "ldpc_bp_long_blocks_per_sm": ([_I] * 12, _I),
+    # (x, out, n, body, n_iter, stream)
+    "ldpc_op_rate": ([_P, _P, _I, _I, _I, _P], _I),
 }
 
 
@@ -88,7 +96,7 @@ def find_nvcc() -> str:
 def _lib_path() -> pathlib.Path:
     digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     digest.update(repr(_OBJECTS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update(name.encode())
         digest.update((_CSRC / name).read_bytes())
     return _BUILD / f"libldpc_kernels-{digest.hexdigest()[:16]}.so"

@@ -17,6 +17,9 @@ the kernels (``chip_smoke.py``):
   per entry in row-major block order, never rebuilt from the channel plus
   R; the flooding posterior is rebuilt as ``chan + col_align(R)`` added in
   (layer, entry) order;
+* the alignments are the code's group's (:func:`_aligners`): rolls for QC
+  circulants, ``x[arange(z) ^ c]`` for RS-LDPC's additive blocks, in
+  every schedule, algorithm, soft output and bf16;
 * every sign is taken by comparison (``q < 0``, ``P <= 0``), except the
   SCMS flip test, which reads the sign bit as the reference does (a -0.0
   message counts as negative there);
@@ -125,6 +128,28 @@ def _col_align(x: torch.Tensor, shift: int) -> torch.Tensor:
     return torch.roll(x, shift, dims=0) if shift else x
 
 
+def _aligners(code):
+    """(row_align, col_align) for the code's block group
+    (``myldpccppapi_tpu/ops/bp.py::_aligners``): circulant rolls for
+    cyclic codes; for RS-LDPC's additive blocks (``code.group == "xor"``)
+    the self-inverse permutation ``y[i] = x[i ^ c]``, one gather along z
+    (its index cached per shift and device)."""
+    if getattr(code, "group", "cyclic") != "xor":
+        return _row_align, _col_align
+    z = code.z
+    index = {}
+
+    def xor_align(x: torch.Tensor, c: int) -> torch.Tensor:
+        if not c:
+            return x
+        key = (c, x.device)
+        if key not in index:
+            index[key] = torch.as_tensor(np.arange(z) ^ c, device=x.device)
+        return x[index[key]]
+
+    return xor_align, xor_align
+
+
 def _check_update_minsum(qs: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
     """Min-sum check-node update with self-exclusion over axis 0 (the jnp
     form of ``myldpccppapi_tpu/ops/bp.py::_check_update_minsum``): the
@@ -216,11 +241,17 @@ def _layers(code: QCCode):
 def _syndrome_tables(code: QCCode, device: torch.device):
     """The exact syndrome's gather, per (code, device): for every edge e in
     block order and check row r, the posterior index j*z + (r + s) % z that
-    row reads ([E*z] int64); whether row r is an edge of block e ([E, z, 1]
-    bool, None when no block is masked); and the layer pointers."""
+    row reads (j*z + (r ^ s) for the xor group) ([E*z] int64); whether row
+    r is an edge of block e ([E, z, 1] bool, None when no block is
+    masked); and the layer pointers."""
     _, bc, sh = code.blocks
     z = code.z
-    idx = bc[:, None].astype(np.int64) * z + (np.arange(z)[None, :] + sh[:, None]) % z
+    rows = np.arange(z)[None, :]
+    if getattr(code, "group", "cyclic") == "xor":
+        within = rows ^ sh[:, None]
+    else:
+        within = (rows + sh[:, None]) % z
+    idx = bc[:, None].astype(np.int64) * z + within
     masks = code.block_row_masks
     live = None
     if any(m is not None for m in masks):
@@ -379,6 +410,7 @@ def _decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
     # message type (each bf16 operation rounds, as kernel A's do)
     wt = torch.float32 if group_rounding else dt
     layers = _layers(code)
+    row_align, col_align = _aligners(code)
     check_update = _check_update_fn(cfg, code.m_b)
     accept_fail = _accept_fail_blocks(code, cfg)
     masks_t = _masks(layers, dev)
@@ -398,7 +430,7 @@ def _decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
             qs = []
             par = None
             for (e, j, s, _) in entries:
-                x = _row_align(post[j], s)
+                x = row_align(post[j], s)
                 qs.append((x.to(wt) - r[e].to(wt)).float())
                 if lazy:
                     bit = (x <= 0).to(torch.int32)
@@ -415,7 +447,7 @@ def _decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
                     delta = r_new[idx].to(wt) - r[e].to(wt)
                     if e in masks_t:
                         delta = torch.where(masks_t[e], delta, 0.0)
-                    y = y + _col_align(delta, s)
+                    y = y + col_align(delta, s)
                 post[j] = y.to(dt)
             r[p0:p0 + len(entries)] = r_new
             if lazy:
@@ -472,6 +504,7 @@ def decode_flooding(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Deco
     dev = llr.device
     dt = msg_dtype(cfg)
     layers = _layers(code)
+    row_align, col_align = _aligners(code)
     check_update = _check_update_fn(cfg, code.m_b)
     accept_fail = _accept_fail_blocks(code, cfg)
     masks_t = _masks(layers, dev)
@@ -482,7 +515,7 @@ def decode_flooding(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Deco
     chan = _to_blocks(llr.to(dt), n_b, z)
     # q of a masked row is set at the check update (_mask_q), so what is
     # stored there, erased by SCMS or not, is never read
-    q = torch.stack([_row_align(chan[j], s)
+    q = torch.stack([row_align(chan[j], s)
                      for (_, entries) in layers for (_, j, s, _) in entries])
     post_out = chan if cfg.soft_output else None
     bits_out = torch.zeros((n_b, z, bsz), dtype=torch.bool, device=dev)
@@ -498,7 +531,7 @@ def decode_flooding(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Deco
         post = chan.clone()
         for (_, entries) in layers:
             for (e, j, s, _) in entries:
-                post[j] += _col_align(masked(r[e], e, 0.0), s)
+                post[j] += col_align(masked(r[e], e, 0.0), s)
         bits = post <= 0
         # the next q and the syndrome read the same row-aligned posterior
         q_next = []
@@ -506,7 +539,7 @@ def decode_flooding(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Deco
         for (_, entries) in layers:
             par = None
             for (e, j, s, _) in entries:
-                post_ra = _row_align(post[j], s)
+                post_ra = row_align(post[j], s)
                 q_next.append(post_ra - r[e])
                 bit = masked((post_ra <= 0).to(torch.int32), e, 0)
                 par = bit if par is None else par + bit

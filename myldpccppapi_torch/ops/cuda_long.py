@@ -66,7 +66,7 @@ SHARED, GLOBAL = 2, 1
 #: what :func:`supported` asks of a code and a config, for error messages;
 #: the kernel's own bounds stay in csrc/bp_long.cu, behind its fit query
 REQUIREMENTS = (
-    f"a QCCode with z >= {MIN_Z} that the kernel library's fit query "
+    f"a QCCode (cyclic circulants) with z >= {MIN_Z} that the kernel library's fit query "
     "accepts (z threads per block and the widest row within the kernel's "
     "bounds, its tables within a thread block's shared memory), the "
     "layered schedule (min-sum or sum-product, soft output or not, f32 or "
@@ -121,7 +121,11 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
     Refused: a config with CRC or outer-code acceptance (the kernel is
     syndrome-only; ``Decoder`` wraps it, ops/crc_accept.py).  The flooding
     schedule, and SCMS with it, is the TPU short-code kernel's, as here
-    (ops/cuda_bp.py)."""
+    (ops/cuda_bp.py).  So is the xor group: the kernel aligns circulants
+    only, as the TPU's z-lane kernel does, so an xor-group code is refused
+    whatever its class."""
+    if getattr(code, "group", "cyclic") == "xor":
+        return False
     if not isinstance(code, QCCode) or code.z < MIN_Z:
         return False
     if cfg is not None and not (

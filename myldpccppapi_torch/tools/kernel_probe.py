@@ -5,6 +5,7 @@
     python -m myldpccppapi_torch.tools.kernel_probe --modes [--out probe.json]
     python -m myldpccppapi_torch.tools.kernel_probe --long-modes [--out probe.json]
     python -m myldpccppapi_torch.tools.kernel_probe --bf16 [--out probe.json]
+    python -m myldpccppapi_torch.tools.kernel_probe --xor [--out probe.json]
 
 Without ``--long`` it probes the short-code kernel (csrc/bp_layered.cu).
 At bench.py's operating point (wimax 576 r3/4B, batch 8192, layered NMS
@@ -68,6 +69,13 @@ at DVB-S2 64800 r1/2 (bf16 in the placement its fit picks, global, and
 forced into shared memory) as ``--long`` does, with the bytes per sweep at the
 message's item size, and kernel A's layered mode as ``--modes`` does.
 
+With ``--xor`` it probes kernel A's xor group at the RS-LDPC main path
+(rs_ldpc() = (2048, 1723), batch 2048, 6.5 dB, layered NMS alpha 0.75)
+and, beside it, its cyclic layered mode at BASELINE config 2 (wifi 1944
+r5/6, batch 4096, 6.5 dB, alpha 0.75), each as ``--modes`` does (40
+sweeps against 1), plus the RS-LDPC ``Decoder`` call's device busy
+share (20 iterations) from one profiler window.
+
 It prints one line per measurement and, with ``--out``, writes them as JSON.
 """
 from __future__ import annotations
@@ -83,7 +91,7 @@ import time
 import torch
 import torch.profiler
 
-from .. import Decoder, DecoderConfig, Encoder, dvbs2, nr_code, wimax
+from .. import Decoder, DecoderConfig, Encoder, dvbs2, nr_code, rs_ldpc, wifi, wimax
 from ..codes.dvbs2 import ira_encode_fn
 from ..codes.nr import rate_match_bits, rate_match_llr, triangular_encode_fn
 from ..ops import _build
@@ -154,9 +162,9 @@ def busy_share(fn, calls: int = 5) -> dict:
             "device_ms_by_kernel": {k[:90]: v / 1e3 for k, v in top}}
 
 
-def channel(code, snr_db: float, seed: int) -> torch.Tensor:
+def channel(code, snr_db: float, seed: int, batch: int = BATCH) -> torch.Tensor:
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    u = torch.randint(0, 2, (BATCH, code.k), generator=gen, device="cuda",
+    u = torch.randint(0, 2, (batch, code.k_info), generator=gen, device="cuda",
                       dtype=torch.uint8)
     llr, _ = transmit(gen, Encoder(code, device="cuda")(u), snr_db)
     return llr.contiguous()
@@ -279,6 +287,18 @@ def probe_modes(seed: int) -> dict:
     return {f"mode_{name}": probe_mode(code, cfg, llr) for name, cfg in MODES.items()}
 
 
+def probe_xor(seed: int) -> dict:
+    cfg = DecoderConfig(normalization=0.75, max_iters=40)
+    code = rs_ldpc()
+    llr = channel(code, 6.5, seed, batch=2048)
+    dec = Decoder(code, dataclasses.replace(cfg, max_iters=20), device="cuda")
+    out = {"rs_ldpc_2048": probe_mode(code, cfg, llr),
+           "rs_ldpc_2048_decoder_profiled": busy_share(lambda: dec(llr))}
+    code = wifi(1944, "5/6")
+    out["wifi_1944_r56"] = probe_mode(code, cfg, channel(code, 6.5, seed + 1, batch=4096))
+    return out
+
+
 def probe_bf16(seed: int) -> dict:
     """f32 and bf16 messages side by side (f32, bf16, then bf16 again and
     f32, so that a drift of the card's clocks shows)."""
@@ -365,6 +385,9 @@ def main(argv=None) -> int:
                          "soft-output modes")
     ap.add_argument("--bf16", action="store_true",
                     help="probe f32 against bf16 messages on both kernels")
+    ap.add_argument("--xor", action="store_true",
+                    help="probe the short-code kernel's xor group at RS-LDPC "
+                         "(2048, 1723) beside its cyclic mode at wifi 1944")
     ap.add_argument("--out", help="write the measurements as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -382,6 +405,8 @@ def main(argv=None) -> int:
         out.update(probe_long_modes(args.seed))
     elif args.modes:
         out.update(probe_modes(args.seed))
+    elif args.xor:
+        out.update(probe_xor(args.seed))
     else:
         out.update(probe_short(args.seed))
     for key, val in out.items():

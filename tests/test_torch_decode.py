@@ -111,7 +111,8 @@ def test_ragged_batch_and_other_rate_match_jnp():
 def test_masked_and_multi_edge_codes_match_jnp():
     """Partial circulants and two circulants in one block (the DVB-S2
     structures) run on the torch path with the reference's masking and
-    delta write-back; the CUDA kernel refuses them (test_kernel_gate)."""
+    delta write-back; the short-code CUDA kernel refuses the partial
+    circulants (test_kernel_gate)."""
     base = np.asarray(ref.wimax(576, "1/2").base)
     j0 = int(np.flatnonzero(base[0] >= 0)[0])  # first circulant of layer 0
     j1 = int(np.flatnonzero(base[1] >= 0)[0])  # first circulant of layer 1
@@ -132,7 +133,10 @@ def test_masked_and_multi_edge_codes_match_jnp():
 def test_kernel_gate():
     """supported(): the TPU kernels' split at 120 circulants; past it only
     kernel B's route (layered min-sum, z < 64, where kernel C does not
-    serve)."""
+    serve).  Multi-edge cells are served (kernel A's layered sweep is
+    multi-edge safe, pallas_bp.py:301-310, and the CUDA kernel writes a
+    cell's deltas through a table); partial circulants are refused, as
+    pallas_bp.supported refuses them."""
     assert all(cuda_bp.supported(wimax(n, r))
                for n, r in [(576, "1/2"), (576, "3/4B"), (2304, "5/6")])
     dense = type(CODE)(name="dense", base=np.zeros((12, 24), np.int32), z=24)
@@ -142,8 +146,62 @@ def test_kernel_gate():
     assert not cuda_bp.supported(wide)
     multi = type(CODE)(name="multi", base=CODE.base, z=CODE.z,
                        extra_blocks=((0, 0, 5),))
-    assert not cuda_bp.supported(multi)
+    assert cuda_bp.supported(multi)
     masked = type(CODE)(name="masked", base=CODE.base, z=CODE.z,
                         masked_rows=(((0, 1, int(CODE.base[0, 1])), (0,)),))
     assert not cuda_bp.supported(masked)
     assert cuda_bp.supported(CODE, DecoderConfig(normalization=PER_LAYER))
+
+
+def _multi_edge_z8():
+    """A small multi-edge code (z = 8): a 3 x 6 base of circulants with one
+    extra circulant in each layer, in both packages."""
+    base = np.array([[0, 1, 2, 3, 4, 5], [0, 2, 4, 6, 1, 3], [0, 3, 6, 1, 4, 7]],
+                    dtype=np.int32)
+    extra = ((0, 0, 4), (1, 3, 2), (2, 5, 0))
+    theirs = ref.QCCode(name="multi_z8", base=base, z=8, extra_blocks=extra)
+    return interop.code_from_reference(theirs), theirs
+
+
+def test_cell_table_marks_each_cell_in_block_order():
+    """Kernel A's cell table (ops/cuda_bp.py::cell_table): a block that
+    shares its column with another of its layer gets the next row of the
+    layer's delta table, in block order; a lone circulant gets -1; then
+    each layer's count of rows.  A code without cells has none."""
+    mine, _ = _multi_edge_z8()
+    _, bc, _ = mine.blocks
+    table = cuda_bp.cell_table(mine)
+    slot, rows = table[:mine.num_blocks], table[mine.num_blocks:]
+    assert table.dtype == np.int32 and rows.tolist() == [2, 2, 2]
+    for i in range(mine.m_b):
+        lo, hi = mine.layer_ptr[i], mine.layer_ptr[i + 1]
+        cols = bc[lo:hi].tolist()
+        cell = [cols.count(j) > 1 for j in cols]
+        assert slot[lo:hi][cell].tolist() == list(range(sum(cell)))
+        assert (slot[lo:hi][~np.array(cell)] == -1).all()
+    assert cuda_bp.group_slots(mine) == 2
+    plain = cuda_bp.cell_table(CODE)
+    assert (plain[:CODE.num_blocks] == -1).all() and not plain[CODE.num_blocks:].any()
+    assert cuda_bp.group_slots(CODE) == 0
+
+
+@pytest.mark.parametrize("schedule", ["layered", "flooding"])
+def test_multi_edge_plain_matches_kernel_a_interpret(schedule):
+    """The CUDA kernel's plain version on multi-edge cells against the TPU
+    kernel A itself (Pallas interpret mode): the layered sweep reads every
+    q of a layer from the old posterior and adds a cell's deltas in block
+    order, the flooding rebuild walks a column's circulants in order."""
+    from myldpccppapi_tpu.ops.pallas_bp import decode_qc_pallas
+
+    mine, theirs = _multi_edge_z8()
+    assert cuda_bp.group_slots(mine) == 2  # one two-circulant cell a layer
+    llr = (1.0 + 2.0 * np.random.default_rng(12).standard_normal(
+        (8, mine.n))).astype(np.float32)
+    cfg = dict(schedule=schedule, normalization=0.75, max_iters=12)
+    got = cuda_bp.decode_qc_cuda_plain(mine, DecoderConfig(**cfg),
+                                       torch.from_numpy(llr))
+    want = decode_qc_pallas(theirs, ref.DecoderConfig(**cfg), jnp.asarray(llr), True)
+    for f in ("bits", "iterations", "converged"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)), err_msg=f)
+    assert cuda_bp.supported(mine, DecoderConfig(**cfg))

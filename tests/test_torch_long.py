@@ -308,14 +308,15 @@ def test_ctypes_signatures_match_the_sources():
 
 
 def test_library_name_covers_every_source(monkeypatch, tmp_path):
-    """The library's name hashes every source: editing either kernel names
-    a new library, so a stale build is never loaded."""
+    """The library's name hashes every source and header: editing any of
+    them names a new library, so a stale build is never loaded."""
     before = _build._lib_path().name
-    for name in _build.SOURCES:
+    assert set(_build.HEADERS) == {p.name for p in _build._CSRC.glob("*.cuh")}
+    for name in _build.SOURCES + _build.HEADERS:
         (tmp_path / name).write_bytes((_build._CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "_CSRC", tmp_path)
     assert _build._lib_path().name == before
-    for name in _build.SOURCES:
+    for name in _build.SOURCES + _build.HEADERS:
         path = tmp_path / name
         text = path.read_bytes()
         path.write_bytes(text + b"\n// edited\n")
