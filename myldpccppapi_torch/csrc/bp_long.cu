@@ -2,22 +2,15 @@
 // LONG QC-LDPC codewords (5G NR, DVB-S2), the whole iterative decode in one
 // launch.
 //
-// Replaces two TPU kernels, as modes of one sweep:
-// * myldpccppapi_tpu/ops/pallas_zlane.py::_build_kernel (kernel C, launched
-//   by decode_qc_zlane) in its f32 and bf16 modes: the min-sum check update with
-//   scalar or per-layer alpha/beta, or the log-domain sum-product one;
-//   multi-edge base cells (extra_blocks), row-masked partial circulants
-//   (masked_rows), the exact or the lazy syndrome, a per-codeword latch of
-//   bits, iterations and (soft output) the posterior, early exit on or off.
-//   The posterior lives in shared memory ("shared placement").
-// * myldpccppapi_tpu/ops/pallas_stream.py::_build_stream_kernel (kernel D),
-//   the TPU's answer for codes whose posterior does not fit on chip: here
-//   the same sweep with the posterior in a global-memory scratch ("global
-//   placement"), for every code the shared placement cannot hold (DVB-S2
-//   64800 first).  D's TPU-only devices -- the 128-codeword lane tile, the
-//   double-buffered layer DMA with its `safe` RAW table, the dummy pad
-//   block, _neg_roll -- have no counterpart: within a block __syncthreads()
-//   orders the block's own global writes, and blocks share nothing.
+// Replaces myldpccppapi_tpu/ops/pallas_zlane.py::_build_kernel (kernel C,
+// launched by decode_qc_zlane) in its f32 and bf16 modes: the min-sum check
+// update with scalar or per-layer alpha/beta, or the log-domain sum-product
+// one; multi-edge base cells (extra_blocks), row-masked partial circulants
+// (masked_rows), the exact or the lazy syndrome, a per-codeword latch of
+// bits, iterations and (soft output) the posterior, early exit on or off.
+// The posterior lives in shared memory (the "shared placement"); a code
+// whose posterior does not fit goes to csrc/bp_stream.cu (kernel D's port,
+// the "global placement"), which computes the same function.
 // The plain version of the same function is
 // myldpccppapi_torch/ops/cuda_long.py::decode_qc_long_plain.
 //
@@ -63,24 +56,13 @@
 // layer in registers between the two passes (row degree <= kPlainDeg, or
 // <= kWideDeg in an instantiation with one block per SM), so R is
 // read once and written once per edge and sweep.  The posterior P [n]
-// lives in shared memory when it fits with the tables (f32: 104,448 B at
-// NR BG1 Z=384, 64,800 B at DVB-S2 16200; bf16: half, and 129,600 B at
-// DVB-S2 64800), else in a [batch, n] global scratch that the wrapper
-// allocates (f32: 259,200 B per DVB-S2 64800 codeword, past a block's
-// 232,448 B).
+// lives in shared memory with the tables (f32: 104,448 B at NR BG1 Z=384,
+// 64,800 B at DVB-S2 16200; bf16: half).
 //
 // What bounds it on Hopper: the global-memory traffic per sweep.  At NR
 // BG1 Z=384 the R traffic, 2 x 310 x 384 x 4 B = 0.95 MB per codeword, is
-// all of it.  At DVB-S2 64800 r1/2 (630 blocks, 17 of them extra, 90
-// layers, mean row degree 7, widest row 14), per codeword and sweep: R
-// read and written, 2 x 630 x 360 x 4 B = 1.81 MB; in the global
-// placement P read and written at least once per edge, another 1.81 MB
-// (pass 2's re-read should mostly hit L1, little shared memory being in
-// use); the exact syndrome, 0.91 MB of P reads, which the lazy mode skips
-// on most sweeps.  At batch 1024 that is 3.7-4.6 GB per all-frame sweep,
-// 1.1-1.4 ms at 3.35 TB/s.  Later options: compressed R per row (m1, m2,
-// argmin index, sign bits), or P split over a 2-block cluster's
-// distributed shared memory in place of the global scratch.
+// all of it.  A later option: compressed R per row (m1, m2, argmin index,
+// sign bits), as bp_stream.cu stores it.
 //
 // SOFT OUTPUT: the wrapper passes a [batch, n] output in the message type
 // (null when off).
@@ -112,9 +94,9 @@
 // bit, so the +-0 LLRs of NR's punctured columns decode as on the jnp path.
 // Build with --fmad=false so that no multiply-add is contracted.
 //
-// BF16 MESSAGES (the storage type T, a template parameter: ten
+// BF16 MESSAGES (the storage type T, a template parameter: five
 // instantiations for each type, compiled as four objects side by side):
-// the LLR input, R, P (shared or global) and the posterior output are
+// the LLR input, R, P and the posterior output are
 // stored as __nv_bfloat16; the arithmetic stays f32, at kernel C's
 // rounding points (pallas_zlane.py:276-309): q from the upcast P and R,
 // r_new rounded to bf16 (to nearest even, as torch's .to(bfloat16))
@@ -122,7 +104,7 @@
 // and P rounded once per column and layer.  R then moves 2 B per edge and
 // sweep, half the f32 bytes.  64800's posterior, 129.6 KB, fits a block's
 // shared memory but leaves one block to an SM, so the fit query (which
-// takes the item size) keeps it in global memory, two blocks to an SM.
+// takes the item size) sends it to the global placement.
 //
 // MULTI-EDGE layers write back through a small shared delta table (one z
 // row per circulant of a multi-edge cell, `group_slots` rows, sized by the
@@ -138,7 +120,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "phi.cuh"  // phi, the sum-product transform
+#include "phi.cuh"      // phi, the sum-product transform
+#include "storage.cuh"  // message storage, layer flags, live-row words
 
 namespace {
 
@@ -157,58 +140,35 @@ constexpr int kMaxThreads = 384;
 constexpr int kPlaceNone = 0;
 constexpr int kPlaceGlobal = 1;
 constexpr int kPlaceShared = 2;
-// layer_flags bits
-constexpr int kMultiEdge = 1;
-constexpr int kHasMask = 2;
 
-__host__ __device__ inline int mask_words(int z) { return (z + 31) / 32; }
-
-// Bytes of the shared posterior P [n] at `itemsize` bytes a value (0 in
-// the global placement), rounded up to 16 so the tables after it align.
-__host__ __device__ inline size_t p_bytes(int n, int itemsize, bool global_p) {
-  return global_p ? 0 : ((size_t)n * itemsize + 15) / 16 * 16;
+// Bytes of the shared posterior P [n] at `itemsize` bytes a value, rounded
+// up to 16 so the tables after it align.
+__host__ __device__ inline size_t p_bytes(int n, int itemsize) {
+  return ((size_t)n * itemsize + 15) / 16 * 16;
 }
 
-// Shared-memory bytes of one block: P in the shared placement, then
-// alpha/beta [m_b] each, block column/shift [num_blocks] each, layer
-// pointers [m_b + 1], layer flags [m_b], live-row bits of the masked
-// blocks, and the multi-edge delta table [group_slots][z] (f32).
+// Shared-memory bytes of one block: P, then alpha/beta [m_b] each, block
+// column/shift [num_blocks] each, layer pointers [m_b + 1], layer flags
+// [m_b], live-row bits of the masked blocks, and the multi-edge delta
+// table [group_slots][z] (f32).
 inline size_t smem_bytes(int n, int z, int m_b, int num_blocks, int n_masks,
-                         int group_slots, int itemsize, bool global_p) {
-  return p_bytes(n, itemsize, global_p) +
+                         int group_slots, int itemsize) {
+  return p_bytes(n, itemsize) +
          4 * (2 * (size_t)m_b + 2 * (size_t)num_blocks + (size_t)m_b + 1 +
               (size_t)m_b + (size_t)n_masks * mask_words(z) +
               (size_t)group_slots * z);
 }
-
-// Message storage: float or __nv_bfloat16 (the template parameter T of
-// the kernel).  Loads give f32; stores round to bf16 to nearest even, as
-// torch's .to(torch.bfloat16) does.
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// x rounded to the storage type (as a float; the identity for f32)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
 
 // kGeneral = false is the plain sweep that 5G NR takes under min-sum: no
 // masks, no multi-edge layers, the exact syndrome only.  kSumProduct
 // selects the check update (only with kGeneral).  T is the message
 // storage type (float or __nv_bfloat16) of the LLR input, R, P and the
 // posterior output.
-template <typename T, bool kGlobalP, int kMaxDeg, int kMinBlocks, bool kGeneral,
-          bool kSumProduct>
+template <typename T, int kMaxDeg, int kMinBlocks, bool kGeneral, bool kSumProduct>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_long_kernel(
     const void* llr_in, uint8_t* __restrict__ bits,
     uint8_t* __restrict__ converged, int32_t* __restrict__ iterations,
-    int32_t* __restrict__ executed, void* post_out_p, void* R_all, void* P_all,
+    int32_t* __restrict__ executed, void* post_out_p, void* R_all,
     const int32_t* __restrict__ blk_col, const int32_t* __restrict__ blk_shift,
     const int32_t* __restrict__ layer_ptr, const int32_t* __restrict__ layer_flags,
     const uint32_t* __restrict__ live_rows, const float* __restrict__ alpha,
@@ -220,15 +180,14 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_long_kernel(
   const int64_t b = blockIdx.x;  // codeword
   const int words = mask_words(z);
 
-  // [n]: in shared memory, or this codeword's row of the global scratch
-  T* P = kGlobalP ? static_cast<T*>(P_all) + b * n : reinterpret_cast<T*>(smem);
+  T* P = reinterpret_cast<T*>(smem);  // [n]
   // [num_blocks][z]: this codeword's messages
   T* __restrict__ R = static_cast<T*>(R_all) + b * (int64_t)num_blocks * z;
   const T* __restrict__ llr = static_cast<const T*>(llr_in) + b * n;
   T* __restrict__ post_out =
       post_out_p == nullptr ? nullptr : static_cast<T*>(post_out_p) + b * n;
   float* s_alpha =
-      reinterpret_cast<float*>(smem + p_bytes(n, sizeof(T), kGlobalP));  // [m_b]
+      reinterpret_cast<float*>(smem + p_bytes(n, sizeof(T)));  // [m_b]
   float* s_beta = s_alpha + m_b;                      // [m_b]
   int* s_col = reinterpret_cast<int*>(s_beta + m_b);  // [num_blocks]
   int* s_shift = s_col + num_blocks;                  // [num_blocks]
@@ -437,37 +396,28 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_long_kernel(
 }
 
 using KernelFn = void (*)(const void*, uint8_t*, uint8_t*, int32_t*, int32_t*,
-                          void*, void*, void*, const int32_t*, const int32_t*,
+                          void*, void*, const int32_t*, const int32_t*,
                           const int32_t*, const int32_t*, const uint32_t*,
                           const float*, const float*, int, int, int, int, int,
                           int, int, int);
 
-// The min-sum instantiation for storage type T: its placement, its width
-// (two blocks per SM with rows of up to kPlainDeg or kGeneralDeg
-// circulants, else kWideDeg at one) and whether it needs the general
-// sweep (masks, multi-edge layers, the lazy syndrome).
+// The min-sum instantiation for storage type T: its width (two blocks per
+// SM with rows of up to kPlainDeg or kGeneralDeg circulants, else
+// kWideDeg at one) and whether it needs the general sweep (masks,
+// multi-edge layers, the lazy syndrome).
 template <typename T>
-KernelFn min_sum_instance(int placement, bool narrow, bool general) {
-  if (placement == kPlaceShared) {
-    if (!narrow) return bp_long_kernel<T, false, kWideDeg, 1, true, false>;
-    return general ? bp_long_kernel<T, false, kGeneralDeg, 2, true, false>
-                   : bp_long_kernel<T, false, kPlainDeg, 2, false, false>;
-  }
-  if (!narrow) return bp_long_kernel<T, true, kWideDeg, 1, true, false>;
-  return general ? bp_long_kernel<T, true, kGeneralDeg, 2, true, false>
-                 : bp_long_kernel<T, true, kPlainDeg, 2, false, false>;
+KernelFn min_sum_instance(bool narrow, bool general) {
+  if (!narrow) return bp_long_kernel<T, kWideDeg, 1, true, false>;
+  return general ? bp_long_kernel<T, kGeneralDeg, 2, true, false>
+                 : bp_long_kernel<T, kPlainDeg, 2, false, false>;
 }
 
 // The sum-product instantiation for storage type T (the general sweep):
-// its placement and width.
+// its width.
 template <typename T>
-KernelFn sum_product_instance(int placement, bool narrow) {
-  if (placement == kPlaceShared) {
-    return narrow ? bp_long_kernel<T, false, kGeneralDeg, 2, true, true>
-                  : bp_long_kernel<T, false, kWideDeg, 1, true, true>;
-  }
-  return narrow ? bp_long_kernel<T, true, kGeneralDeg, 2, true, true>
-                : bp_long_kernel<T, true, kWideDeg, 1, true, true>;
+KernelFn sum_product_instance(bool narrow) {
+  return narrow ? bp_long_kernel<T, kGeneralDeg, 2, true, true>
+                : bp_long_kernel<T, kWideDeg, 1, true, true>;
 }
 
 }  // namespace
@@ -476,50 +426,52 @@ KernelFn sum_product_instance(int placement, bool narrow) {
 // = 1 (the f32 min-sum instantiations and the exported functions), 2 (the
 // bf16 min-sum ones), 3 and 4 (the f32 and bf16 sum-product ones, whose
 // unrolled phi chains take about as long to compile as six min-sum ones);
-// without BP_LONG_PART one object holds all twenty.  The parts meet in
+// without BP_LONG_PART one object holds all ten.  The parts meet in
 // these four functions.
-KernelFn bp_long_min_sum_f32(int placement, bool narrow, bool general);
-KernelFn bp_long_min_sum_bf16(int placement, bool narrow, bool general);
-KernelFn bp_long_sum_product_f32(int placement, bool narrow);
-KernelFn bp_long_sum_product_bf16(int placement, bool narrow);
+KernelFn bp_long_min_sum_f32(bool narrow, bool general);
+KernelFn bp_long_min_sum_bf16(bool narrow, bool general);
+KernelFn bp_long_sum_product_f32(bool narrow);
+KernelFn bp_long_sum_product_bf16(bool narrow);
 
 #if !defined(BP_LONG_PART) || BP_LONG_PART == 1
-KernelFn bp_long_min_sum_f32(int placement, bool narrow, bool general) {
-  return min_sum_instance<float>(placement, narrow, general);
+KernelFn bp_long_min_sum_f32(bool narrow, bool general) {
+  return min_sum_instance<float>(narrow, general);
 }
 #endif
 #if !defined(BP_LONG_PART) || BP_LONG_PART == 2
-KernelFn bp_long_min_sum_bf16(int placement, bool narrow, bool general) {
-  return min_sum_instance<__nv_bfloat16>(placement, narrow, general);
+KernelFn bp_long_min_sum_bf16(bool narrow, bool general) {
+  return min_sum_instance<__nv_bfloat16>(narrow, general);
 }
 #endif
 #if !defined(BP_LONG_PART) || BP_LONG_PART == 3
-KernelFn bp_long_sum_product_f32(int placement, bool narrow) {
-  return sum_product_instance<float>(placement, narrow);
+KernelFn bp_long_sum_product_f32(bool narrow) {
+  return sum_product_instance<float>(narrow);
 }
 #endif
 #if !defined(BP_LONG_PART) || BP_LONG_PART == 4
-KernelFn bp_long_sum_product_bf16(int placement, bool narrow) {
-  return sum_product_instance<__nv_bfloat16>(placement, narrow);
+KernelFn bp_long_sum_product_bf16(bool narrow) {
+  return sum_product_instance<__nv_bfloat16>(narrow);
 }
 #endif
+
+// The global placement's shared memory for a code, the most of any mode
+// (csrc/bp_stream.cu; 0 when that kernel cannot serve it).
+size_t bp_stream_fit_bytes(int n_b, int z, int m_b, int num_blocks, int n_masks,
+                           int group_slots, int max_row_degree, int itemsize);
 
 #if !defined(BP_LONG_PART) || BP_LONG_PART == 1
 namespace {
 
-// The instantiation that serves a code: its storage type, its placement,
-// its check update, whether it needs the general sweep (sum-product
-// always takes it), and its widest row.
-KernelFn pick(int placement, int max_row_degree, bool general, bool sum_product,
-              bool bf16) {
+// The instantiation that serves a code: its storage type, its check
+// update, whether it needs the general sweep (sum-product always takes
+// it), and its widest row.
+KernelFn pick(int max_row_degree, bool general, bool sum_product, bool bf16) {
   general = general || sum_product;
   const bool narrow = max_row_degree <= (general ? kGeneralDeg : kPlainDeg);
   if (sum_product) {
-    return bf16 ? bp_long_sum_product_bf16(placement, narrow)
-                : bp_long_sum_product_f32(placement, narrow);
+    return bf16 ? bp_long_sum_product_bf16(narrow) : bp_long_sum_product_f32(narrow);
   }
-  return bf16 ? bp_long_min_sum_bf16(placement, narrow, general)
-              : bp_long_min_sum_f32(placement, narrow, general);
+  return bf16 ? bp_long_min_sum_bf16(narrow, general) : bp_long_min_sum_f32(narrow, general);
 }
 
 }  // namespace
@@ -530,11 +482,10 @@ extern "C" {
 // converged [batch] (uint8 0/1), iterations [batch] (int32), executed
 // [batch] (int32 sweeps run by each codeword's block) and, unless post_out
 // is null, the latched posteriors post_out [batch, n].  bf16 = 0: llr,
-// post_out and the scratches are float32; bf16 = 1: all four are
-// bfloat16.  r_scratch is [batch, num_blocks, z] of any content;
-// p_scratch is [batch, n] of any content in the global placement
-// (placement 1) and unused (may be null) in the shared one (placement 2).
-// blk_shift holds each block's shift in bits 0..15 and its mask slot (0 =
+// post_out and the scratch are float32; bf16 = 1: all three are
+// bfloat16.  r_scratch is [batch, num_blocks, z] of any content.  The
+// posterior lives in shared memory: the fit query must have answered 2
+// (shared) for the code.  blk_shift holds each block's shift in bits 0..15 and its mask slot (0 =
 // full, else 1 + its index into live_rows) in bits 16..; live_rows is
 // [n_masks, (z + 31) / 32] uint32, bit r set where row r is an edge;
 // layer_flags [m_b] has bit 0 for a multi-edge layer and bit 1 for a
@@ -543,53 +494,44 @@ extern "C" {
 // widest layer has (the delta table's rows); sum_product selects the
 // check update (alpha and beta are then unread).  Launches on `stream`
 // and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
-// for a placement or row degree it does not serve.
+// for a row degree it does not serve.
 int ldpc_bp_long(const void* llr, uint8_t* bits, uint8_t* converged,
                  int32_t* iterations, int32_t* executed, void* post_out,
-                 void* r_scratch, void* p_scratch, const int32_t* blk_col,
+                 void* r_scratch, const int32_t* blk_col,
                  const int32_t* blk_shift, const int32_t* layer_ptr,
                  const int32_t* layer_flags, const uint32_t* live_rows,
                  const float* alpha, const float* beta, int batch, int n_b, int z,
                  int m_b, int num_blocks, int n_masks, int multi_edge,
                  int group_slots, int max_row_degree, int max_iters,
-                 int early_exit, int lazy, int sum_product, int bf16,
-                 int placement, void* stream) {
-  if ((placement != kPlaceShared && placement != kPlaceGlobal) ||
-      max_row_degree > kWideDeg || z < 1 || z > kMaxThreads ||
-      (placement == kPlaceGlobal && p_scratch == nullptr)) {
+                 int early_exit, int lazy, int sum_product, int bf16, void* stream) {
+  if (max_row_degree > kWideDeg || z < 1 || z > kMaxThreads) {
     return (int)cudaErrorInvalidValue;
   }
   const bool general = n_masks > 0 || multi_edge || lazy;
-  const KernelFn kernel = pick(placement, max_row_degree, general, sum_product, bf16);
+  const KernelFn kernel = pick(max_row_degree, general, sum_product, bf16);
   const size_t smem = smem_bytes(n_b * z, z, m_b, num_blocks, n_masks, group_slots,
-                                 bf16 ? 2 : 4, placement == kPlaceGlobal);
+                                 bf16 ? 2 : 4);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<batch, z, smem, static_cast<cudaStream_t>(stream)>>>(
-      llr, bits, converged, iterations, executed, post_out, r_scratch, p_scratch,
+      llr, bits, converged, iterations, executed, post_out, r_scratch,
       blk_col, blk_shift, layer_ptr, layer_flags, live_rows, alpha, beta, n_b, z,
       m_b, num_blocks, n_masks, max_iters, early_exit, lazy);
   return (int)cudaGetLastError();
 }
 
-// Thread blocks that one SM holds at once for a code in a placement (the
-// occupancy of the instantiation that serves it, at z threads and its
-// shared memory for `itemsize`-byte messages), on the current device;
-// minus the CUDA error code on failure.
+// Thread blocks that one SM holds at once for a code in the shared
+// placement (the occupancy of the instantiation that serves it, at z
+// threads and its shared memory for `itemsize`-byte messages), on the
+// current device; minus the CUDA error code on failure.
 int ldpc_bp_long_blocks_per_sm(int n, int z, int m_b, int num_blocks, int n_masks,
                                int multi_edge, int group_slots, int max_row_degree,
-                               int lazy, int sum_product, int itemsize,
-                               int placement) {
-  if ((placement != kPlaceShared && placement != kPlaceGlobal) ||
-      max_row_degree > kWideDeg) {
-    return -(int)cudaErrorInvalidValue;
-  }
-  const KernelFn kernel = pick(placement, max_row_degree,
-                               n_masks > 0 || multi_edge || lazy, sum_product,
-                               itemsize == 2);
-  const size_t smem = smem_bytes(n, z, m_b, num_blocks, n_masks, group_slots, itemsize,
-                                 placement == kPlaceGlobal);
+                               int lazy, int sum_product, int itemsize) {
+  if (max_row_degree > kWideDeg) return -(int)cudaErrorInvalidValue;
+  const KernelFn kernel = pick(max_row_degree, n_masks > 0 || multi_edge || lazy,
+                               sum_product, itemsize == 2);
+  const size_t smem = smem_bytes(n, z, m_b, num_blocks, n_masks, group_slots, itemsize);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int blocks = 0;
@@ -603,11 +545,13 @@ int ldpc_bp_long_blocks_per_sm(int n, int z, int m_b, int num_blocks, int n_mask
 // on `device`: 2 (shared) when P and the tables fit the block's opt-in
 // shared memory, as many blocks to an SM as the instantiation that serves
 // the code is built for (two with rows of up to kGeneralDeg circulants,
-// else one); 1 (global) when only the tables fit; 0 when the kernel
-// cannot serve the code (z threads past the kernel's thread bound, or a
-// row wider than kWideDeg circulants).  On an H100, DVB-S2 64800 r1/2 in
-// bf16 ran slower with its 142 KB posterior in shared memory, one block
-// to an SM, than in global memory, two to an SM (PERF.md).
+// else one); 1 (global) when csrc/bp_stream.cu's ring and tables fit
+// instead; 0 when neither kernel can serve the code (z threads past the
+// kernels' thread bound, or a row wider than kWideDeg circulants).  On an
+// H100, DVB-S2 64800 r1/2 in bf16 ran slower with its 142 KB posterior in
+// shared memory, one block to an SM (55.35 ms a batch of 1024 at 1.4 dB),
+// than in bp_stream.cu's global placement, three to an SM (22.84 ms;
+// PERF.md).
 // Returns minus the CUDA error code if the device cannot be queried.
 int ldpc_bp_long_fits(int n, int z, int m_b, int num_blocks, int n_masks,
                       int group_slots, int max_row_degree, int itemsize,
@@ -627,14 +571,14 @@ int ldpc_bp_long_fits(int n, int z, int m_b, int num_blocks, int n_masks,
   }
   if (err != cudaSuccess) return -(int)err;
   if (z < 1 || z > kMaxThreads || max_row_degree > kWideDeg) return kPlaceNone;
-  const size_t shared =
-      smem_bytes(n, z, m_b, num_blocks, n_masks, group_slots, itemsize, false);
+  const size_t shared = smem_bytes(n, z, m_b, num_blocks, n_masks, group_slots, itemsize);
   const size_t blocks = max_row_degree <= kGeneralDeg ? 2 : 1;
   if (shared <= (size_t)smem_limit && blocks * (shared + reserved) <= (size_t)smem_per_sm) {
     return kPlaceShared;
   }
-  if (smem_bytes(n, z, m_b, num_blocks, n_masks, group_slots, itemsize, true) <=
-      (size_t)smem_limit) {
+  const size_t ring = bp_stream_fit_bytes(n / z, z, m_b, num_blocks, n_masks, group_slots,
+                                          max_row_degree, itemsize);
+  if (ring > 0 && ring <= (size_t)smem_limit) {
     return kPlaceGlobal;
   }
   return kPlaceNone;

@@ -3,9 +3,12 @@
 The sources have a plain ``extern "C"`` interface and include no PyTorch
 header, so ``nvcc`` compiles each in seconds; :func:`build` starts one
 ``nvcc`` per object, all together (``bp_layered.cu`` as two objects, its
-cyclic and xor groups; ``bp_long.cu`` as four, its f32 and bf16 min-sum
-and sum-product instantiations; ``op_rate.cu``), and links the objects into
-one shared library that :mod:`ctypes` loads.  The library goes into
+cyclic and xor groups; ``bp_long.cu`` and ``bp_stream.cu`` as four each,
+their f32 and bf16 min-sum and sum-product instantiations; ``op_rate.cu``),
+and links the objects into one shared library that :mod:`ctypes` loads.
+``bp_stream.cu``'s objects are compiled with ``-Xptxas -v``; what ptxas
+reports of its registers, shared memory and spills is kept beside the
+library (:func:`ptxas_report`).  The library goes into
 ``myldpccppapi_torch/_build/`` (listed in ``.gitignore``), named by a hash
 of every source and header and the flags, and is built at first use, never
 at import.
@@ -24,22 +27,25 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-__all__ = ["build", "load", "find_nvcc", "HEADERS", "SOURCES"]
+__all__ = ["build", "load", "find_nvcc", "ptxas_report", "HEADERS", "SOURCES"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 #: the kernel sources
-SOURCES = ("bp_layered.cu", "bp_long.cu", "op_rate.cu")
+SOURCES = ("bp_layered.cu", "bp_long.cu", "bp_stream.cu", "op_rate.cu")
 #: the headers they include from csrc
-HEADERS = ("phi.cuh",)
+HEADERS = ("async_copy.cuh", "phi.cuh", "storage.cuh")
 #: the objects, (source, its own flags), each compiled by its own nvcc
 #: process: bp_layered.cu's two parts (BP_LAYERED_PART: the cyclic and the
-#: xor group's instantiations) and bp_long.cu's four (BP_LONG_PART: its
-#: f32 and bf16 min-sum and sum-product instantiations) take comparable
-#: times, so the build takes the longest one
+#: xor group's instantiations), bp_long.cu's four (BP_LONG_PART: its f32
+#: and bf16 min-sum and sum-product instantiations) and bp_stream.cu's four
+#: (BP_STREAM_PART, the same split) take comparable times, so the build
+#: takes the longest one
 _OBJECTS = (*(("bp_layered.cu", (f"-DBP_LAYERED_PART={part}",)) for part in (1, 2)),
             *(("bp_long.cu", (f"-DBP_LONG_PART={part}",)) for part in (1, 2, 3, 4)),
+            *(("bp_stream.cu", (f"-DBP_STREAM_PART={part}", "-Xptxas", "-v"))
+              for part in (1, 2, 3, 4)),
             ("op_rate.cu", ()))
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,20 +61,27 @@ _SIGNATURES = {
     # fourteen tensors (the posterior output may be null), twelve ints,
     # the stream
     "ldpc_bp_layered": ([_P] * 14 + [_I] * 12 + [_P], _I),
+    # sixteen tensors (the posterior output may be null), fifteen ints, the
+    # stream
+    "ldpc_bp_stream": ([_P] * 16 + [_I] * 15 + [_P], _I),
+    # (n_b, z, m_b, num_blocks, total_cols, max_cols, n_masks, group_slots,
+    #  max_row_degree, sum_product, itemsize)
+    #   -> resident blocks per SM
+    "ldpc_bp_stream_blocks_per_sm": ([_I] * 11, _I),
     # (n, z, m_b, num_blocks, group_slots, mode, itemsize, device)
     #   -> codewords per thread block
     "ldpc_bp_layered_tile": ([_I] * 8, _I),
-    # fifteen tensors (the posterior output and the P scratch may be null),
-    # fifteen ints, the stream
-    "ldpc_bp_long": ([_P] * 15 + [_I] * 15 + [_P], _I),
+    # fourteen tensors (the posterior output may be null), fourteen ints,
+    # the stream
+    "ldpc_bp_long": ([_P] * 14 + [_I] * 14 + [_P], _I),
     # (n, z, m_b, num_blocks, n_masks, group_slots, max_row_degree,
     #  itemsize, device)
     #   -> 2 posterior in shared memory / 1 in global memory / 0 not served
     "ldpc_bp_long_fits": ([_I] * 9, _I),
     # (n, z, m_b, num_blocks, n_masks, multi_edge, group_slots,
-    #  max_row_degree, lazy, sum_product, itemsize, placement)
-    #   -> resident blocks per SM
-    "ldpc_bp_long_blocks_per_sm": ([_I] * 12, _I),
+    #  max_row_degree, lazy, sum_product, itemsize)
+    #   -> resident blocks per SM in the shared placement
+    "ldpc_bp_long_blocks_per_sm": ([_I] * 11, _I),
     # (x, out, n, body, n_iter, stream)
     "ldpc_op_rate": ([_P, _P, _I, _I, _I, _P], _I),
 }
@@ -102,9 +115,9 @@ def _lib_path() -> pathlib.Path:
     return _BUILD / f"libldpc_kernels-{digest.hexdigest()[:16]}.so"
 
 
-def _compile(nvcc: str, job: tuple, obj: str) -> float:
+def _compile(nvcc: str, job: tuple, obj: str) -> tuple[float, str]:
     """Compile one object, ``job`` = (source, its own flags), to ``obj``;
-    returns its wall seconds."""
+    returns its wall seconds and what nvcc printed."""
     name, flags = job
     t0 = time.perf_counter()
     run = subprocess.run([nvcc, *_NVCC_FLAGS, *flags, "-c", "-o", obj,
@@ -112,7 +125,14 @@ def _compile(nvcc: str, job: tuple, obj: str) -> float:
     if run.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {name} {' '.join(flags)}:\n"
                            f"{run.stdout}{run.stderr}")
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, run.stdout + run.stderr
+
+
+def ptxas_report() -> str:
+    """What ptxas printed (``-Xptxas -v``: registers, shared memory, spills
+    per kernel) when the current library was built; empty before."""
+    path = _lib_path().with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
 
 
 def build() -> tuple[pathlib.Path, dict]:
@@ -130,9 +150,11 @@ def build() -> tuple[pathlib.Path, dict]:
     with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
         objs = [os.path.join(tmp, f"{i}.o") for i in range(len(_OBJECTS))]
         with ThreadPoolExecutor(len(_OBJECTS)) as pool:
-            times = pool.map(functools.partial(_compile, nvcc), _OBJECTS, objs)
-            seconds = {" ".join((name, *flags)): t
-                       for (name, flags), t in zip(_OBJECTS, times)}
+            runs = list(pool.map(functools.partial(_compile, nvcc), _OBJECTS, objs))
+        seconds = {" ".join((name, *flags)): t
+                   for (name, flags), (t, _) in zip(_OBJECTS, runs)}
+        report = "".join(out for (_, flags), (_, out) in zip(_OBJECTS, runs)
+                         if "-v" in flags)
         t0 = time.perf_counter()
         tmp_lib = os.path.join(tmp, "lib.so")
         link = subprocess.run([nvcc, *_NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs],
@@ -140,6 +162,7 @@ def build() -> tuple[pathlib.Path, dict]:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc failed to link the kernel library:\n"
                                f"{link.stdout}{link.stderr}")
+        lib_path.with_suffix(".ptxas.txt").write_text(report)
         os.replace(tmp_lib, lib_path)
         seconds["link"] = time.perf_counter() - t0
     return lib_path, seconds

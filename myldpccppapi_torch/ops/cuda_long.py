@@ -1,22 +1,24 @@
-"""Wrapper of the hand-written long-code layered BP kernel
-(``csrc/bp_long.cu``).
+"""Wrapper of the hand-written long-code layered BP kernels
+(``csrc/bp_long.cu`` and ``csrc/bp_stream.cu``).
 
-Counterpart of two TPU kernels, served as modes of one CUDA sweep:
+Counterpart of two TPU kernels, which compute one function in two
+placements of the posterior:
 
 * ``myldpccppapi_tpu/ops/pallas_zlane.py`` (``decode_qc_zlane``, kernel C)
   in its layered modes, f32 or bf16 messages: min-sum or sum-product,
   single-circulant and multi-edge cells, row-masked partial circulants, the
   exact or the lazy syndrome, soft output (the latched posterior).  The
   posterior lives in a thread block's shared memory (the *shared*
-  placement): 5G NR, DVB-S2 16200.
+  placement, ``bp_long.cu``): 5G NR, DVB-S2 16200.
 * ``myldpccppapi_tpu/ops/pallas_stream.py`` (``decode_qc_stream``, kernel
-  D), which serves codes whose posterior does not fit on chip: the same
-  sweep with the posterior in a [B, n] global-memory scratch that this
-  wrapper allocates (the *global* placement): DVB-S2 64800, whose bf16
-  posterior would fit a block's shared memory but leave one block to an
-  SM where the global placement runs two.  The TPU's D
-  refuses sum-product and soft output; the global placement runs C's sweep,
-  so it serves them as C does.
+  D), which serves codes whose posterior does not fit on chip: the
+  posterior in a global-memory scratch, each layer staged in shared memory
+  by bulk copies, min-sum messages compressed to a record per row (the
+  *global* placement, ``bp_stream.cu``, whose stage plan and launch are in
+  ``ops/cuda_stream.py``): DVB-S2 64800, whose bf16 posterior would fit a
+  block's shared memory but leave one block to an SM.  The TPU's D
+  refuses sum-product and soft output; the global placement serves every
+  mode of kernel C's sweep.
 
 The kernel library's fit query (:func:`placement`) picks the placement from
 its own shared-memory layout and the message item size: shared where as
@@ -53,6 +55,8 @@ from ..utils.config import DecoderConfig
 from ..utils.device import cuda_index
 from . import _build
 from .bp import DecodeResult, _decode_layered, layer_weights, msg_dtype
+from . import cuda_stream
+from .cuda_stream import MULTI_EDGE, group_slots, layer_flags, live_words, n_masks
 
 __all__ = ["GLOBAL", "MIN_Z", "REQUIREMENTS", "SHARED", "blocks_per_sm",
            "decode_qc_long", "decode_qc_long_plain", "placement", "supported"]
@@ -74,22 +78,19 @@ REQUIREMENTS = (
 )
 
 
-def _n_masks(code: QCCode) -> int:
-    return sum(m is not None for m in code.block_row_masks)
-
-
 @functools.lru_cache(maxsize=64)
 def placement(code: QCCode, device_index: int, itemsize: int = 4) -> int:
     """Where the kernel keeps ``code``'s posterior on CUDA device
     ``device_index`` with ``itemsize``-byte messages (4 f32, 2 bf16):
     :data:`SHARED` when it fits a thread block's shared memory with the
-    tables, :data:`GLOBAL` when only the tables do, 0 when the kernel cannot
-    serve the code (z threads or the widest row past the kernel's bounds).
+    tables, :data:`GLOBAL` when only the global kernel's stage ring and
+    tables do, 0 when neither kernel can serve the code (z threads or the
+    widest row past the kernels' bounds).
     The kernel library answers from its own layout and the device's limits,
     so this builds the kernel at first use."""
     got = _build.load().ldpc_bp_long_fits(
-        code.n, code.z, code.m_b, code.num_blocks, _n_masks(code),
-        _group_slots(code), code.max_row_degree, itemsize, device_index)
+        code.n, code.z, code.m_b, code.num_blocks, n_masks(code),
+        group_slots(code), code.max_row_degree, itemsize, device_index)
     if got < 0:
         raise RuntimeError(f"bp_long fit query failed: CUDA error {-got}")
     return got
@@ -100,11 +101,14 @@ def blocks_per_sm(code: QCCode, cfg: DecoderConfig, place: int) -> int:
     at once for ``code`` under ``cfg`` in placement ``place`` (the
     occupancy of the instantiation that serves them, with cfg's message
     item size)."""
+    sum_product = cfg.algorithm == "sum-product"
+    if place == GLOBAL:
+        return cuda_stream.blocks_per_sm(code, sum_product, msg_dtype(cfg).itemsize)
     got = _build.load().ldpc_bp_long_blocks_per_sm(
-        code.n, code.z, code.m_b, code.num_blocks, _n_masks(code),
-        int((_layer_flags(code) & _MULTI_EDGE).any()), _group_slots(code),
+        code.n, code.z, code.m_b, code.num_blocks, n_masks(code),
+        int((layer_flags(code) & MULTI_EDGE).any()), group_slots(code),
         code.max_row_degree, int(cfg.syndrome_mode == "lazy"),
-        int(cfg.algorithm == "sum-product"), msg_dtype(cfg).itemsize, place)
+        int(sum_product), msg_dtype(cfg).itemsize)
     if got < 1:
         raise RuntimeError(f"bp_long occupancy query returned {got}")
     return got
@@ -148,53 +152,6 @@ def decode_qc_long_plain(code: QCCode, cfg: DecoderConfig,
                            group_rounding=True)
 
 
-#: layer flag bits, as the kernel reads them
-_MULTI_EDGE, _HAS_MASK = 1, 2
-
-
-def _layer_flags(code: QCCode) -> np.ndarray:
-    """[m_b] int32: _MULTI_EDGE where two circulants share a (layer, column)
-    cell (they are adjacent in block order, QCCode.blocks), _HAS_MASK where
-    the layer has a row-masked block."""
-    _, bc, _ = code.blocks
-    masks = code.block_row_masks
-    ptr = code.layer_ptr
-    flags = np.zeros(code.m_b, dtype=np.int32)
-    for i in range(code.m_b):
-        cols = bc[ptr[i]:ptr[i + 1]]
-        if len(np.unique(cols)) < len(cols):
-            flags[i] |= _MULTI_EDGE
-        if any(masks[e] is not None for e in range(ptr[i], ptr[i + 1])):
-            flags[i] |= _HAS_MASK
-    return flags
-
-
-@functools.lru_cache(maxsize=64)
-def _group_slots(code: QCCode) -> int:
-    """Circulants of multi-edge cells (adjacent blocks of one layer and
-    column) in the layer that has the most: the rows of the kernel's
-    shared delta table."""
-    _, bc, _ = code.blocks
-    ptr = code.layer_ptr
-    most = 0
-    for i in range(code.m_b):
-        cols = bc[ptr[i]:ptr[i + 1]]
-        same = cols[1:] == cols[:-1]
-        grouped = np.zeros(len(cols), dtype=bool)
-        grouped[1:] |= same
-        grouped[:-1] |= same
-        most = max(most, int(grouped.sum()))
-    return most
-
-
-def _live_words(mask: np.ndarray, words: int) -> np.ndarray:
-    """bool[z] live rows -> [words] int32 bit words (bit r of word w is row
-    32 w + r), as the kernel reads them."""
-    bits = np.zeros(words * 32, dtype=bool)
-    bits[:len(mask)] = mask
-    return np.packbits(bits, bitorder="little").view("<u4").view(np.int32)
-
-
 @functools.lru_cache(maxsize=32)
 def _device_tables(code: QCCode, normalization, offset, device: torch.device):
     """The kernel's tables as device arrays, cached per (code, weights,
@@ -208,9 +165,9 @@ def _device_tables(code: QCCode, normalization, offset, device: torch.device):
     live = []
     for e, mask in enumerate(code.block_row_masks):
         if mask is not None:
-            live.append(_live_words(mask, words))
+            live.append(live_words(mask, words))
             shift[e] |= len(live) << 16
-    flags = _layer_flags(code)
+    flags = layer_flags(code)
     alphas, betas = layer_weights(normalization, offset, code.m_b)
 
     def dev(a, dtype):
@@ -220,13 +177,34 @@ def _device_tables(code: QCCode, normalization, offset, device: torch.device):
     tables = tuple(dev(a, np.int32)
                    for a in (bc, shift, code.layer_ptr, flags, live_rows))
     tables += (dev(alphas, np.float32), dev(betas, np.float32))
-    return tables, bool((flags & _MULTI_EDGE).any())
+    return tables, bool((flags & MULTI_EDGE).any())
+
+
+def _launch_shared(code: QCCode, cfg: DecoderConfig, llr_k: torch.Tensor, bits, conv,
+                   iters, executed, post, stream: int) -> None:
+    """Launch csrc/bp_long.cu (the shared placement) on checked CUDA
+    tensors; ``llr_k`` in the message dtype."""
+    dt = llr_k.dtype
+    # the messages R [batch, num_blocks, z]: written before they are read
+    r_scratch = torch.empty((llr_k.shape[0], code.num_blocks, code.z), dtype=dt,
+                            device=llr_k.device)
+    tables, multi_edge = _device_tables(code, cfg.normalization, cfg.offset, llr_k.device)
+    err = _build.load().ldpc_bp_long(
+        llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
+        executed.data_ptr(), None if post is None else post.data_ptr(),
+        r_scratch.data_ptr(), *(t.data_ptr() for t in tables),
+        llr_k.shape[0], code.n_b, code.z, code.m_b, code.num_blocks, n_masks(code),
+        int(multi_edge), group_slots(code), code.max_row_degree,
+        cfg.max_iters, int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
+        int(cfg.algorithm == "sum-product"), int(dt == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"bp_long kernel launch failed: CUDA error {err}")
 
 
 def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
                    _place: int = 0) -> DecodeResult:
     """Decode [B, n] float32 LLRs (positive => bit 0) with the long-code
-    kernel, one thread block per codeword, the posterior where the fit
+    kernels, one thread block per codeword, the posterior where the fit
     query places it (``_place``, :data:`SHARED` or :data:`GLOBAL`, puts it
     there instead, for tests and probes; a launch that does not fit
     raises).  Returns the same
@@ -265,32 +243,14 @@ def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
                             posteriors=post)
     llr_k = llr.to(dt)  # bf16: cast on the card (the reference casts first)
     executed = torch.empty((batch,), dtype=torch.int32, device=dev)
-    # the messages R [batch, num_blocks, z] and, in the global placement,
-    # the posterior P [batch, n]: written by the kernel before it reads
-    # them, so left uninitialised
-    r_scratch = torch.empty((batch, code.num_blocks, code.z), dtype=dt, device=dev)
-    p_scratch = (torch.empty((batch, code.n), dtype=dt, device=dev)
-                 if place == GLOBAL else None)
-    tables, multi_edge = _device_tables(code, cfg.normalization, cfg.offset, dev)
-    col, shift, ptr, flags, live_rows, alpha, beta = tables
-    lib = _build.load()
+    sum_product = cfg.algorithm == "sum-product"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        sum_product = cfg.algorithm == "sum-product"
-        err = lib.ldpc_bp_long(
-            llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-            executed.data_ptr(), None if post is None else post.data_ptr(),
-            r_scratch.data_ptr(),
-            None if p_scratch is None else p_scratch.data_ptr(),
-            col.data_ptr(), shift.data_ptr(), ptr.data_ptr(), flags.data_ptr(),
-            live_rows.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-            batch, code.n_b, code.z, code.m_b, code.num_blocks, _n_masks(code),
-            int(multi_edge), _group_slots(code), code.max_row_degree,
-            cfg.max_iters, int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
-            int(sum_product), int(dt == torch.bfloat16), place, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"bp_long kernel launch failed: CUDA error {err}")
+        if place == GLOBAL:
+            cuda_stream.launch(code, cfg, llr_k, bits, conv, iters, executed, post,
+                               stream)
+        else:
+            _launch_shared(code, cfg, llr_k, bits, conv, iters, executed, post, stream)
     if place == GLOBAL:
         decode_qc_long.global_launches += 1
     else:

@@ -27,20 +27,22 @@ min and max):
 - a tile sweep: single pass and triage decode for several codewords per
   thread block, each held bit-exact against the largest tile.
 
-With ``--long`` it probes the long-code kernel (csrc/bp_long.cu) at two
-operating points, with CUDA events as above: the NR path's (NR BG1 Z=384,
-rv0 over the full buffer, layered NMS alpha 0.8, 30 iterations, batch 512,
-5 dB; posterior in shared memory) and BASELINE config 3's (DVB-S2 64800
+With ``--long`` it probes the long-code kernels at two operating points,
+with CUDA events as above: the NR path's (NR BG1 Z=384, rv0 over the full
+buffer, layered NMS alpha 0.8, 30 iterations, batch 512, 5 dB; posterior
+in shared memory, csrc/bp_long.cu) and BASELINE config 3's (DVB-S2 64800
 r1/2, alpha 0.85, 30 iterations, lazy syndrome, batch 1024, 1.4 dB;
-posterior in global memory, the port of kernel D); noise from a
-torch.Generator on the card.  For each:
+posterior in global memory, csrc/bp_stream.cu, the port of kernel D);
+noise from a torch.Generator on the card.  For each:
 
 - one thread block alone, one full wave of blocks (the blocks every SM
   holds at once, from the kernel library's occupancy query) and the full
   batch, early exit off, at 30 sweeps and at 1 sweep: (t30 - t1) / 29 is
-  the time of one sweep of each, beside the bytes of the messages R (and,
-  in global memory, of the posterior P: one read and one write per edge)
-  moved per sweep and the rate that makes;
+  the time of one sweep of each, beside the device-memory bytes one sweep
+  moves and the rate that makes: in shared memory the messages R, read
+  and written once per edge; in global memory the stage plan's bytes
+  (``cuda_stream.stream_bytes``: P columns loaded and written, R records
+  read and written);
 - the batch with early exit on, its iteration counts, and the ``Decoder``
   call with its device busy share from one profiler window; for DVB-S2
   also the kernel in exact mode.
@@ -58,7 +60,8 @@ With ``--long-modes`` it probes the long-code kernel's modes at the
 ``--long`` operating points: at NR BG1 Z=384 (batch 512, 5 dB) layered
 min-sum alpha 0.8 (the reference row), sum-product, soft output and
 sum-product with soft output; at DVB-S2 64800 r1/2 (batch 1024, 1.4 dB,
-lazy, posterior in global memory) min-sum and soft output.  For each, as
+posterior in global memory) min-sum lazy and exact, soft output, and
+sum-product exact and lazy.  For each, as
 ``--modes`` does: the batch with early exit on and its iteration counts,
 and one thread block alone and the batch with early exit off at 30 sweeps
 and at 1 sweep, whose difference over 29 is the time of one sweep.
@@ -94,7 +97,7 @@ import torch.profiler
 from .. import Decoder, DecoderConfig, Encoder, dvbs2, nr_code, rs_ldpc, wifi, wimax
 from ..codes.dvbs2 import ira_encode_fn
 from ..codes.nr import rate_match_bits, rate_match_llr, triangular_encode_fn
-from ..ops import _build
+from ..ops import _build, cuda_stream
 from ..ops.bp import msg_dtype
 from ..ops.channel import transmit
 from ..ops.cuda_bp import _launch, decode_qc_cuda, mode, tile_size
@@ -215,6 +218,9 @@ def probe_long_code(code, cfg, batch: int, llr_all, force: int = 0) -> dict:
     out: dict = {"code": code.name, "placement": "global" if place == GLOBAL else "shared",
                  "syndrome_mode": cfg.syndrome_mode, "sms": sms,
                  "blocks_per_sm": per_sm, "batch": batch}
+    if place == GLOBAL:
+        out["bytes_per_codeword_sweep"] = cuda_stream.stream_bytes(
+            code, item, cfg.algorithm == "sum-product")
     no_exit = dataclasses.replace(cfg, early_exit=False)
     one_sweep = dataclasses.replace(no_exit, max_iters=1)
     sweeps = no_exit.max_iters
@@ -224,16 +230,20 @@ def probe_long_code(code, cfg, batch: int, llr_all, force: int = 0) -> dict:
         full = timed(lambda: decode(code, no_exit, x))
         one = timed(lambda: decode(code, one_sweep, x))
         per_sweep = (full["median"] - one["median"]) / (sweeps - 1)
-        # each sweep after the first reads and writes every message of R,
-        # and in global memory reads and writes P once per edge
-        r_bytes = 2 * n_cw * code.num_blocks * code.z * item
-        p_bytes = 2 * n_cw * code.num_edges * item if place == GLOBAL else 0
+        if place == GLOBAL:
+            # the stage plan's traffic of a sweep after the first
+            moved = {k: n_cw * v for k, v in cuda_stream.stream_bytes(
+                code, item, cfg.algorithm == "sum-product").items()}
+        else:
+            # each sweep after the first reads and writes every message of R
+            moved = {"r_read": n_cw * code.num_blocks * code.z * item,
+                     "r_written": n_cw * code.num_blocks * code.z * item}
+        total = sum(moved.values())
         out[name] = {"codewords": n_cw, f"{sweeps}_sweeps": full,
                      "1_sweep": one, "ms_per_sweep": per_sweep,
-                     "r_bytes_per_sweep": r_bytes,
-                     "r_gbytes_per_s": r_bytes / (per_sweep * 1e-3) / 1e9,
-                     "p_bytes_per_sweep": p_bytes,
-                     "rp_gbytes_per_s": (r_bytes + p_bytes) / (per_sweep * 1e-3) / 1e9}
+                     **{f"{k}_bytes_per_sweep": v for k, v in moved.items()},
+                     "bytes_per_sweep": total,
+                     "gbytes_per_s": total / (per_sweep * 1e-3) / 1e9}
     llr = llr_all[:batch].contiguous()
     out["iterations"] = iteration_stats(decode(code, cfg, llr))
     out["kernel"] = timed(lambda: decode(code, cfg, llr))
@@ -332,7 +342,11 @@ LONG_MODES = {
            "sum_product_soft": DecoderConfig(algorithm="sum-product", max_iters=30,
                                              soft_output=True)},
     "dvbs2_64800": {"min_sum": DVB_CFG,
-                    "soft": dataclasses.replace(DVB_CFG, soft_output=True)},
+                    "exact": dataclasses.replace(DVB_CFG, syndrome_mode="exact"),
+                    "soft": dataclasses.replace(DVB_CFG, soft_output=True),
+                    "sum_product": DecoderConfig(algorithm="sum-product", max_iters=30),
+                    "sum_product_lazy": DecoderConfig(algorithm="sum-product", max_iters=30,
+                                                      syndrome_mode="lazy")},
 }
 
 
