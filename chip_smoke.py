@@ -10,13 +10,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    xor group, csrc/bp_long.cu and csrc/bp_stream.cu each as their four
    f32/bf16 min-sum and sum-product parts, csrc/op_rate.cu), one nvcc per
    object started together, and print each build time and what ptxas
-   reports of bp_stream.cu's kernels (registers, shared memory, spills).
+   reports of bp_layered.cu's and bp_stream.cu's kernels (registers,
+   shared memory, spills).
 3. Short-code kernel vs plain: the kernel on CUDA against its plain
    version (``decode_qc_cuda_plain``) on the CPU and on CUDA, at batch 1000
-   (a ragged tail) for all six 802.16e rates at n=576 plus n=2304 rate
-   1/2, 5 and 2 dB, a per-layer alpha tuple, early exit on, and off at 5
-   dB (:func:`exits`; alpha 0.75 is phase 3d's "soft layered" case): 21
-   cases.  Bits, converged, iterations and total_iters must be equal.
+   for all six 802.16e rates at n=576 plus n=2304 rate 1/2, 5 and 2 dB, a
+   per-layer alpha tuple, early exit on, and off at 5 dB (:func:`exits`;
+   alpha 0.75 is phase 3d's "soft layered" case); then bench.py's single
+   pass at the launch shapes the main path meets: batch 1 (one block),
+   batch 70 (fewer codewords than SMs) and the triage's straggler pass
+   (1024 frames of a batch of 8192 at 5 dB, those that failed the
+   5-iteration fast pass first): 24 cases.  Bits, converged, iterations
+   and total_iters must be equal.  Every kernel-A log line names the tile
+   (codewords per block, which the wrapper picks from the batch) and L
+   (lanes per check row).
 3b. Long-code kernel vs plain: the kernel against ``decode_qc_long_plain``
    on CUDA (batch 101) and on the CPU (batch 16), for nr_code(384, 1),
    nr_code(384, 2) and nr_code(208, 1), rate-matched rv0 LLRs at an SNR
@@ -43,12 +50,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    corners, forced global: a code whose consecutive layers share five of
    their six columns (nearly every cell forwarded), a z of 101 (z x 4 and
    z x 2 bytes not multiples of 16: the padded layout) in f32 and bf16:
-   53 cases.
+   47 cases (the 64800 codes run exact and lazy at the easy SNR with early
+   exit on, and lazy at the hard one: early exit off runs in the main
+   path's batch case).
 3d. Kernel A's new modes vs plain: flooding min-sum (alpha 1.0, alpha 0.75,
    per-layer alpha, beta 0.25), SCMS, sum-product (flooding and layered)
    and soft output (min-sum layered and flooding, sum-product layered and
-   flooding), at 5 and 2 dB, early exit on, and off at 5 dB (210 cases),
-   on all six 802.16e rates at n=576 plus n=2304 rate 1/2: the kernel at
+   flooding), at 5 dB on all six 802.16e rates at n=576 plus n=2304 rate
+   1/2, early exit on and off, and at 2 dB on r1/2, r3/4B and n=2304
+   (170 cases): the kernel at
    batch 1000 (a ragged tail) against its plain version on CUDA, and at 5
    dB at batch 16 against it on the CPU.  Bits, converged, iterations,
    total_iters and the posteriors of every frame must be equal, with one
@@ -214,7 +224,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 5. Times: CUDA events, median of 7 after a warm-up (for the plain versions
    but the layered short-code and NR min-sum ones, one timed call after the
    warm-up: they measure the host, not the card): each kernel and its plain version (single pass, no
-   triage) and the whole Decoder call, at the main paths' shapes, DVB-S2
+   triage) and the whole Decoder call, at the main paths' shapes (the
+   wimax Decoder's two triage passes apart: the fast pass over the batch
+   and the straggler pass over its cap), DVB-S2
    64800 in lazy and exact mode, kernel A's flooding, SCMS, sum-product and
    layered soft-output modes at phase 4d's shape, kernel B's route at
    nr_code(32, 1), batch 4096, 3 dB; the kernel on dvbs2(16200, "1/2") at
@@ -542,6 +554,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def shape(code, batch: int, mode_bits: int = 0, itemsize: int = 4) -> str:
+    """Kernel A's launch shape for ``batch`` codewords: codewords per block
+    (the tile the wrapper picks from the batch) and lanes per check row."""
+    tile = tile_size(code, torch.cuda.current_device(), batch, mode_bits, itemsize)
+    return f"tile={tile} L={cuda_bp.lanes(code)}"
+
+
 def exits(easy: bool) -> tuple:
     """Early exit on, and off at the SNR where nearly every frame converges:
     there every latched block keeps sweeping, the path that early exit off
@@ -847,9 +866,12 @@ def phase_dvbs2_kernel_vs_plain() -> tuple[float, float]:
             # 64800: alpha scalar at the easy SNR, per layer at the hard one
             alphas = (0.85, per_layer) if n == 16200 else ((0.85, per_layer)[si],)
             before = decode_qc_long.global_launches
-            for mode in ("exact", "lazy"):
+            # 64800: early exit off runs in the main path's batch case
+            # below, and the hard SNR runs lazy only (its plain version on
+            # CUDA is what the phase's time goes to)
+            for mode in ("exact", "lazy") if n == 16200 or si == 0 else ("lazy",):
                 for alpha in alphas:
-                    for early_exit in exits(si == 0):
+                    for early_exit in exits(si == 0 and n == 16200):
                         cfg = DecoderConfig(normalization=alpha, max_iters=30,
                                             early_exit=early_exit,
                                             syndrome_mode=mode)
@@ -935,8 +957,10 @@ def phase_dvbs2_kernel_vs_plain() -> tuple[float, float]:
 def phase_kernel_vs_plain() -> float:
     """Phase 3: the per-layer alpha only; alpha 0.75 runs the same layered
     instantiation in phase 3d's "soft layered" case on every code, SNR and
-    early-exit setting."""
-    dev = torch.cuda.current_device()
+    early-exit setting.  Then bench.py's single pass at the launch shapes
+    the main path meets: batch 1 (one block), a batch below the SM count,
+    and the triage's straggler pass (its cap of frames, those that failed
+    the fast pass first)."""
     codes = [wimax(576, r) for r in RATES_576] + [wimax(2304, "1/2")]
     worst = 0.0
     n_cases = 0
@@ -956,10 +980,27 @@ def phase_kernel_vs_plain() -> float:
                             max_abs_diff(k, decode_qc_cuda_plain(code, cfg, llr_gpu)),
                             max_abs_diff(k, decode_qc_cuda_plain(code, cfg, llr_cpu)))
                 n_cases += 1
-            log(f"[phase3] {code.name} tile={tile_size(code, dev)} "
-                f"tail={1000 % tile_size(code, dev)} snr={snr} "
+            log(f"[phase3] {code.name} {shape(code, 1000)} snr={snr} "
                 f"conv={k.converged.float().mean().item():.4f} "
                 f"total_iters={int(k.total_iters)}: kernel == plain (cpu, cuda)")
+    code = wimax(576, "3/4B")
+    single = dataclasses.replace(BENCH_CFG, triage_iters=0)
+    fast = dataclasses.replace(single, max_iters=BENCH_CFG.triage_iters)
+    llr = torch.from_numpy(numpy_llr(code, BATCH, SNR_DB, SEED + 60)).cuda()
+    bad = ~decode_qc_cuda(code, fast, llr).ok
+    cap = max(8, int(BATCH * BENCH_CFG.triage_cap_frac))
+    stragglers = llr[torch.argsort((~bad).to(torch.uint8), stable=True)[:cap]].contiguous()
+    small = (("batch 1", llr[:1].contiguous()), ("batch 70", llr[:70].contiguous()),
+             (f"straggler pass ({int(bad.sum())} of {cap} failed the fast pass)",
+              stragglers))
+    for what, x in small:
+        k = decode_qc_cuda(code, single, x)
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs_diff(k, decode_qc_cuda_plain(code, single, x)))
+        n_cases += 1
+        log(f"[phase3] {code.name} {what} {shape(code, x.shape[0])} "
+            f"conv={k.converged.float().mean().item():.4f} "
+            f"total_iters={int(k.total_iters)}: kernel == plain (cuda)")
     log(f"[phase3] {n_cases} cases bit-exact")
     return worst
 
@@ -987,7 +1028,9 @@ def phase_modes_vs_plain() -> tuple[dict, float]:
     for ci, code in enumerate(codes):
         per_layer = tuple(float(x) for x in np.round(
             np.linspace(0.65, 0.85, code.m_b), 3))
-        for snr in (5.0, 2.0):
+        # 2 dB on three of the codes: every mode there runs the same
+        # instantiations as at 5 dB, with most blocks at 40 sweeps
+        for snr in (5.0, 2.0) if ci in (0, 4, 6) else (5.0,):
             llr_cpu = torch.from_numpy(numpy_llr(code, 1000, snr, SEED + 400 + ci))
             llr_gpu = llr_cpu.cuda()
             cpu16 = llr_cpu[:16].contiguous()
@@ -1019,8 +1062,8 @@ def phase_modes_vs_plain() -> tuple[dict, float]:
                         != shown["flooding alpha 1.0"].iterations).sum())
             erased += diff
             log(f"[phase3d] {code.name} snr={snr} tiles "
-                + "/".join(str(tile_size(code, dev, m)) for m in (1, 5, 2))
-                + " (flooding/scms/sp) conv "
+                + "/".join(str(tile_size(code, dev, 1000, m)) for m in (1, 5, 2))
+                + f" (flooding/scms/sp) L={cuda_bp.lanes(code)} conv "
                 + " ".join(f"{n.split()[0]}={shown[n].converged.float().mean().item():.3f}"
                            for n in ("flooding alpha 0.75", "scms", "sp flooding"))
                 + f" scms!=flooding on {diff} frames: "
@@ -1063,7 +1106,7 @@ def phase_route_b_vs_plain():
                 if early_exit:
                     shown = k
             log(f"[phase3e] {code.name} ({code.num_blocks} circulants) impl=cuda "
-                f"tile={tile_size(code, torch.cuda.current_device())} snr={snr} "
+                f"{shape(code, 101)} snr={snr} "
                 f"{summary(shown)}: kernel == plain (cpu, cuda)")
     log(f"[phase3e] {n_cases} cases bit-exact")
     code = nr_code(*B_MAIN)
@@ -1563,9 +1606,10 @@ def phase_bf16_modes_vs_plain() -> float:
     dev = torch.cuda.current_device()
     n_cases = 0
     code = wimax(576, "3/4B")
-    tiles = {name: f"{tile_size(code, dev, m)}/{tile_size(code, dev, m, 2)}"
+    tiles = {name: f"{tile_size(code, dev, 1000, m)}/{tile_size(code, dev, 1000, m, 2)}"
              for name, m in (("layered", 0), ("flooding", 1), ("scms", 5))}
-    log(f"[phase3g] {code.name} codewords per block f32/bf16: {tiles}")
+    log(f"[phase3g] {code.name} batch=1000 codewords per block f32/bf16: {tiles}, "
+        f"L={cuda_bp.lanes(code)}")
     for snr in (5.0, 2.0):
         llr = torch.from_numpy(numpy_llr(code, 1000, snr, SEED + 300)).cuda()
         for name, kw in BF16_A_MODES.items():
@@ -1951,9 +1995,9 @@ def hold_cases(tag, code, modes, snrs, max_iters, seed, counter) -> tuple:
                 if early_exit:
                     shown[name] = k
         log(f"[{tag}] {code.name} snr={snr} tiles "
-            + "/".join(str(tile_size(code, torch.cuda.current_device(), m))
+            + "/".join(str(tile_size(code, torch.cuda.current_device(), 101, m))
                        for m in (0, 1, 5))
-            + " (layered/flooding/scms) conv "
+            + f" (layered/flooding/scms) L={cuda_bp.lanes(code)} conv "
             + " ".join(f"{n.replace(' ', '_')}={r.converged.float().mean().item():.3f}"
                        for n, r in shown.items())
             + f": {len(exits(si == 0)) * len(modes)} cases kernel == plain (cuda"
@@ -2077,7 +2121,7 @@ def phase_rs_main_path():
         raise AssertionError(f"RS-LDPC Decoder: {launches} launches, "
                              f"{decode_qc_cuda.xor_launches} in the xor group")
     log(f"[phase4k] Decoder impl={dec.implementation} {code.name} (n={code.n}, "
-        f"k={code.k_info}) tile={tile_size(code, torch.cuda.current_device())} "
+        f"k={code.k_info}) {shape(code, RS_BATCH)} "
         f"batch={RS_BATCH} snr={RS_SNR} {gates(dec, res, u)} launches={launches}")
     max_abs_diff(res, decode_qc_cuda_plain(code, RS_CFG, llr))
     log("[phase4k] Decoder(cuda) == the plain version on the same LLRs (cuda)")
@@ -2292,6 +2336,27 @@ def phase_times(dec, llr, kernel, plain, cfg, plain_reps: int = 7, tag: str = ""
     return out
 
 
+def triage_times(dec, llr) -> dict:
+    """The main path's ``Decoder`` call (two-phase triage) split into its
+    two kernel launches: the fast pass over the batch, and the straggler
+    pass over the cap of frames with those that failed the fast pass
+    first, each at the tile the wrapper picks for its batch."""
+    code, cfg = dec.code, dec.config
+    single = dataclasses.replace(cfg, triage_iters=0)
+    fast = dataclasses.replace(single, max_iters=cfg.triage_iters)
+    bad = ~decode_qc_cuda(code, fast, llr).ok
+    cap = max(8, int(llr.shape[0] * cfg.triage_cap_frac))
+    sel = llr[torch.argsort((~bad).to(torch.uint8), stable=True)[:cap]].contiguous()
+    out = {"fast": median_ms(lambda: decode_qc_cuda(code, fast, llr)),
+           "straggler": median_ms(lambda: decode_qc_cuda(code, single, sel)),
+           "failures": int(bad.sum()), "cap": cap}
+    log(f"[phase5] {code.name} Decoder passes: fast ({cfg.triage_iters} sweeps, "
+        f"batch {llr.shape[0]}, {shape(code, llr.shape[0])}) {out['fast']:.4f} ms; "
+        f"straggler ({out['failures']} failed the fast pass, batch {cap}, "
+        f"{shape(code, cap)}) {out['straggler']:.4f} ms")
+    return out
+
+
 def receive_times(tag, dec, mod, y, n0, derate):
     """A receive path's times: the demap alone, the decode (kernel, plain
     version, Decoder, bound) of its LLRs, and demap + decode together."""
@@ -2360,14 +2425,17 @@ def phase_bf16_times(decs, llr, nr_llr, dvb_llr) -> dict:
 
 
 def ptxas_lines() -> list:
-    """bp_stream.cu's kernels as ptxas reported them at the build: each
-    instantiation's registers, shared memory and spills."""
+    """bp_layered.cu's and bp_stream.cu's kernels as ptxas reported them at
+    the build: each instantiation's (mangled template arguments) registers,
+    shared memory and spills."""
     out, name = [], None
     for line in _build.ptxas_report().splitlines():
-        if "Compiling entry function" in line and "bp_stream_kernel" in line:
-            name = line.split("bp_stream_kernel")[1].split("EEEv")[0]
+        if "Compiling entry function" in line:
+            name = next((f"{k}<{line.split(k)[1].split(chr(39))[0]}>"
+                         for k in ("bp_layered_kernel", "bp_stream_kernel") if k in line),
+                        None)
         elif name and ("registers" in line or "spill" in line):
-            out.append(f"bp_stream_kernel<{name}>: {line.split(':', 1)[-1].strip()}")
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
 
 
@@ -2430,6 +2498,7 @@ def main() -> int:
     legs = phase(phase_legs)
     times = phase_times(dec, llr, decode_qc_cuda, decode_qc_cuda_plain,
                         dataclasses.replace(BENCH_CFG, triage_iters=0))
+    passes = triage_times(dec, llr)
     mode_times = {group: phase_times(d, llr, decode_qc_cuda, decode_qc_cuda_plain,
                                      MODE_CFGS[group], plain_reps=1, tag=f" {group}")
                   for group, d in flood_decs.items()}
@@ -2483,7 +2552,9 @@ def main() -> int:
     kernel_d = "myldpccppapi_tpu/ops/pallas_stream.py:120"
     print(json.dumps({"kernels": [
         entry("bp_layered", "bp_layered.cu", kernel_a,
-              launches, worst, times, coder_launches=coder_launches,
+              launches, worst, times, decoder_ms=times["decoder"],
+              fast_pass_ms=passes["fast"], straggler_pass_ms=passes["straggler"],
+              coder_launches=coder_launches,
               acceptance_leg_wimax576_crc16=legs["wimax576_crc16"],
               crc16_stream_coder_launches=crc_coder_launches,
               config2_launches=wifi_launches, config2_ms=wifi_times["kernel"],

@@ -40,12 +40,10 @@
 //   written through to the global scratch, so a loaded column is always
 //   current and every column ends each sweep written back.  A stage is
 //   never updated in place, so P_old stays intact for the whole layer.
-// * COMPRESSES R under min-sum: a row's messages are four things, m1s and
-//   m2s (alpha/beta applied, rounded to the storage type T), the first edge
-//   whose |q| equals m1, and the sign bit of each edge's message.  r_old of
-//   edge k is sign_k ? -mag : mag with mag = (k == idx ? m2s : m1s): ties at
-//   m1 make m2 == m1, the stored sign keeps -0.0, and a row with no edge at
-//   m1 (every |q| past 1e30) stores m2s = m1s.  f32: 12 B a row for rows of
+// * COMPRESSES R under min-sum: a row's messages are one record
+//   (record.cuh, shared with bp_layered.cu): m1s and m2s (alpha/beta
+//   applied, rounded to the storage type T), the first edge whose |q|
+//   equals m1, and the sign bit of each edge's message.  f32: 12 B a row for rows of
 //   up to 26 edges, 16 B up to 58 (3 and 4 words), 20 B up to 64; bf16: 8,
 //   12 and 16 B.  Sum-product keeps per-edge R (its message is not a
 //   function of two magnitudes): for rows of up to kNarrowDeg edges a
@@ -86,6 +84,7 @@
 
 #include "async_copy.cuh"  // bulk copies, mbarriers, the proxy fence
 #include "phi.cuh"         // phi, the sum-product transform
+#include "record.cuh"      // the min-sum record codec
 #include "storage.cuh"     // message storage, layer flags, live-row words
 
 namespace {
@@ -111,19 +110,8 @@ constexpr int kMaskShift = 20;
 constexpr int kLoadBit = 16;
 constexpr int kFwdSlotShift = 17;
 constexpr int kFwdBit = 23;
-// a record's index field (the first edge at m1) takes the low 6 bits of
-// its first meta word, the sign of edge k bit 6 + k
-constexpr int kIdxBits = 6;
 
 __host__ __device__ inline int pad_z(int z) { return (z + 7) / 8 * 8; }
-__host__ __device__ inline int meta_words(int max_deg) {
-  return (kIdxBits + max_deg + 31) / 32;
-}
-// 32-bit words of a min-sum record: m1s and m2s (two f32 or two packed
-// bf16), then the meta words
-__host__ __device__ inline int record_words(int max_deg, int itemsize) {
-  return (itemsize == 4 ? 2 : 1) + meta_words(max_deg);
-}
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) / 16 * 16; }
 
 // Bytes of one block's shared memory: kStages stages of max_cols column
@@ -176,16 +164,6 @@ __host__ __device__ inline size_t record_bytes(int z, int max_deg, int itemsize,
   return (size_t)record_words(max_deg, itemsize) * pad_z(z) * 4;
 }
 
-// A value's storage bits as a 32-bit word (f32) or half word (bf16), and back.
-__device__ __forceinline__ uint32_t bits_of(float x) { return __float_as_uint(x); }
-__device__ __forceinline__ uint32_t bits_of(__nv_bfloat16 x) {
-  return __bfloat16_as_ushort(x);
-}
-__device__ __forceinline__ float f32_of_bits(uint32_t w, float*) { return __uint_as_float(w); }
-__device__ __forceinline__ float f32_of_bits(uint32_t w, __nv_bfloat16*) {
-  return __bfloat162float(__ushort_as_bfloat16((unsigned short)w));
-}
-
 struct Params {
   const void* llr;
   uint8_t* bits;
@@ -211,7 +189,7 @@ template <typename T, int kMaxDeg, int kMinBlocks, bool kSumProduct>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(const Params p) {
   extern __shared__ __align__(128) char smem[];
   constexpr int kMeta = (kIdxBits + kMaxDeg + 31) / 32;
-  constexpr int kValueWords = sizeof(T) == 4 ? 2 : 1;
+  constexpr int kValueWords = value_words<T>();
   // whether a layer's messages come with its columns (min-sum records;
   // sum-product's per-edge messages for narrow rows)
   constexpr bool kStaged = !kSumProduct || stages_messages(kMaxDeg);
@@ -377,30 +355,16 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(cons
         T* rsp = reinterpret_cast<T*>(R) + (size_t)p0 * zp;
         const T* rsp_in = kStaged ? reinterpret_cast<const T*>(st + L.rec) : rsp;
         if (!kSumProduct && t > 0) {
-          if (kValueWords == 2) {
-            m1o = __uint_as_float(rec_in[r]);
-            m2o = __uint_as_float(rec_in[zp + r]);
-          } else {
-            const uint32_t v = rec_in[r];
-            m1o = f32_of_bits(v & 0xFFFFu, (T*)nullptr);
-            m2o = f32_of_bits(v >> 16, (T*)nullptr);
-          }
+          load_values<T>(rec_in + r, zp, m1o, m2o);
   #pragma unroll
           for (int w = 0; w < kMeta; ++w) {
             if (w < rec_words - kValueWords) meta_o[w] = rec_in[(kValueWords + w) * zp + r];
           }
         }
-        // a record's message on edge k
-        auto message_of = [&](float m1s, float m2s, const uint32_t* meta, int k) -> float {
-          const int bit = kIdxBits + k;
-          const bool neg = (meta[bit >> 5] >> (bit & 31)) & 1u;
-          const float mag = k == (int)(meta[0] & ((1u << kIdxBits) - 1)) ? m2s : m1s;
-          return neg ? -mag : mag;
-        };
         // r_old of edge k (this thread's row; 0 on sweep 0 and on a masked row)
         auto r_old = [&](int k) -> float {
           if (t == 0) return 0.0f;
-          return kSumProduct ? to_f32(rsp_in[k * zp + r]) : message_of(m1o, m2o, meta_o, k);
+          return kSumProduct ? to_f32(rsp_in[k * zp + r]) : record_message(m1o, m2o, meta_o, k);
         };
         // the layer's messages as the next layer's stage must hold them,
         // when they are forwarded (one layer)
@@ -436,7 +400,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(cons
           }
           const bool neg = q < 0.0f;
           neg_total ^= neg;
-          if (neg) meta[(kIdxBits + k) >> 5] |= 1u << ((kIdxBits + k) & 31);
+          if (neg) set_sign(meta, k);
         }
         pre_bad |= par;
 
@@ -447,30 +411,18 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(cons
           const float be = s_beta[i];
           const float m1s = al * fmaxf(m1 - be, 0.0f);
           const float m2s = al * fmaxf(m2 - be, 0.0f);
-          const T m1t = from_f32<T>(m1s);
-          const T m2t = from_f32<T>(idx < 0 ? m1s : m2s);
-          m1n = to_f32(m1t);
-          m2n = to_f32(m2t);
-          if (neg_total) {
-  #pragma unroll
-            for (int k = 0; k < kMaxDeg; ++k) {
-              if (k >= deg) break;
-              meta[(kIdxBits + k) >> 5] ^= 1u << ((kIdxBits + k) & 31);
-            }
-          }
-          meta[0] |= (uint32_t)(idx < 0 ? 0 : idx);
+          uint32_t vals[2];
+          pack_values<T>(m1s, idx < 0 ? m1s : m2s, vals, m1n, m2n);
+          if (neg_total) flip_signs(meta, deg);
+          set_index(meta, idx);
           uint32_t* rec_out = reinterpret_cast<uint32_t*>(R + messages_at(i));
           uint32_t* rec_fwd = reinterpret_cast<uint32_t*>(fwd_messages);
           auto store = [&](int w, uint32_t v) {
             rec_out[w * zp + r] = v;
             if (rec_fwd != nullptr) rec_fwd[w * zp + r] = v;
           };
-          if (kValueWords == 2) {
-            store(0, bits_of(m1t));
-            store(1, bits_of(m2t));
-          } else {
-            store(0, bits_of(m1t) | (bits_of(m2t) << 16));
-          }
+          store(0, vals[0]);
+          if (kValueWords == 2) store(1, vals[1]);
   #pragma unroll
           for (int w = 0; w < kMeta; ++w) {
             if (w < rec_words - kValueWords) store(kValueWords + w, meta[w]);
@@ -508,7 +460,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(cons
                 reinterpret_cast<T*>(fwd_messages)[k * zp + r] = from_f32<T>(r_new);
               }
             } else {
-              r_new = message_of(m1n, m2n, meta, k);
+              r_new = record_message(m1n, m2n, meta, k);
             }
             delta = r_new - ro;
           }

@@ -1,9 +1,9 @@
-// The long-code kernels' shared conventions (bp_long.cu, bp_stream.cu):
-// how messages are stored, and the layer-flag and live-row tables that
-// both read.  Both kernels must round bf16 at the same points to stay
-// bit-exact with one plain version
-// (myldpccppapi_torch/ops/cuda_long.py::decode_qc_long_plain), so the
-// conversions live here once.
+// The kernels' shared conventions: how messages are stored (every kernel:
+// bp_layered.cu, bp_long.cu, bp_stream.cu), and the layer-flag and
+// live-row tables that the long-code kernels read.  The two long-code
+// kernels must round bf16 at the same points to stay bit-exact with one
+// plain version (myldpccppapi_torch/ops/cuda_long.py::decode_qc_long_plain),
+// so the conversions live here once.
 
 #pragma once
 

@@ -6,9 +6,9 @@ header, so ``nvcc`` compiles each in seconds; :func:`build` starts one
 cyclic and xor groups; ``bp_long.cu`` and ``bp_stream.cu`` as four each,
 their f32 and bf16 min-sum and sum-product instantiations; ``op_rate.cu``),
 and links the objects into one shared library that :mod:`ctypes` loads.
-``bp_stream.cu``'s objects are compiled with ``-Xptxas -v``; what ptxas
-reports of its registers, shared memory and spills is kept beside the
-library (:func:`ptxas_report`).  The library goes into
+``bp_layered.cu``'s and ``bp_stream.cu``'s objects are compiled with
+``-Xptxas -v``; what ptxas reports of their registers, shared memory and
+spills is kept beside the library (:func:`ptxas_report`).  The library goes into
 ``myldpccppapi_torch/_build/`` (listed in ``.gitignore``), named by a hash
 of every source and header and the flags, and is built at first use, never
 at import.
@@ -35,14 +35,15 @@ _BUILD = _PKG / "_build"
 #: the kernel sources
 SOURCES = ("bp_layered.cu", "bp_long.cu", "bp_stream.cu", "op_rate.cu")
 #: the headers they include from csrc
-HEADERS = ("async_copy.cuh", "phi.cuh", "storage.cuh")
+HEADERS = ("async_copy.cuh", "phi.cuh", "record.cuh", "storage.cuh")
 #: the objects, (source, its own flags), each compiled by its own nvcc
 #: process: bp_layered.cu's two parts (BP_LAYERED_PART: the cyclic and the
 #: xor group's instantiations), bp_long.cu's four (BP_LONG_PART: its f32
 #: and bf16 min-sum and sum-product instantiations) and bp_stream.cu's four
 #: (BP_STREAM_PART, the same split) take comparable times, so the build
 #: takes the longest one
-_OBJECTS = (*(("bp_layered.cu", (f"-DBP_LAYERED_PART={part}",)) for part in (1, 2)),
+_OBJECTS = (*(("bp_layered.cu", (f"-DBP_LAYERED_PART={part}", "-Xptxas", "-v"))
+              for part in (1, 2)),
             *(("bp_long.cu", (f"-DBP_LONG_PART={part}",)) for part in (1, 2, 3, 4)),
             *(("bp_stream.cu", (f"-DBP_STREAM_PART={part}", "-Xptxas", "-v"))
               for part in (1, 2, 3, 4)),
@@ -58,9 +59,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C signatures: (argtypes, restype) per exported function
 _SIGNATURES = {
-    # fourteen tensors (the posterior output may be null), twelve ints,
+    # thirteen tensors (the posterior output may be null), fourteen ints,
     # the stream
-    "ldpc_bp_layered": ([_P] * 14 + [_I] * 12 + [_P], _I),
+    "ldpc_bp_layered": ([_P] * 13 + [_I] * 14 + [_P], _I),
     # sixteen tensors (the posterior output may be null), fifteen ints, the
     # stream
     "ldpc_bp_stream": ([_P] * 16 + [_I] * 15 + [_P], _I),
@@ -68,9 +69,9 @@ _SIGNATURES = {
     #  max_row_degree, sum_product, itemsize)
     #   -> resident blocks per SM
     "ldpc_bp_stream_blocks_per_sm": ([_I] * 11, _I),
-    # (n, z, m_b, num_blocks, group_slots, mode, itemsize, device)
-    #   -> codewords per thread block
-    "ldpc_bp_layered_tile": ([_I] * 8, _I),
+    # (n, z, m_b, num_blocks, group_slots, max_deg, mode, itemsize, xor,
+    #  lanes, tile, device) -> resident blocks per SM
+    "ldpc_bp_layered_blocks_per_sm": ([_I] * 12, _I),
     # fourteen tensors (the posterior output may be null), fourteen ints,
     # the stream
     "ldpc_bp_long": ([_P] * 14 + [_I] * 14 + [_P], _I),

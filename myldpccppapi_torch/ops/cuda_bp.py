@@ -20,6 +20,12 @@ keeps its state in bf16, rounding after every operation as kernel A and
 the jnp path do; its plain version is the torch path's bf16 decode
 (ops/bp.py), which rounds at the same points.
 
+The wrapper decides the launch's shape: :func:`lanes`, the lanes that
+split each check row (from the code's widest row), and :func:`tile_size`,
+the codewords per thread block, which :func:`choose_tile` picks from the
+batch and the kernel library's occupancy query so that a batch spreads
+over every SM in small blocks.
+
 :func:`decode_qc_cuda` launches the kernel for a CUDA tensor and raises if
 it cannot; for a CPU tensor it runs the plain version,
 :func:`decode_qc_cuda_plain` (the torch path of ops/bp.py).  There is no
@@ -45,8 +51,8 @@ from . import _build
 from .bp import DecodeResult, decode_qc, layer_weights, msg_dtype
 from .cuda_long import MIN_Z as _LONG_MIN_Z
 
-__all__ = ["REQUIREMENTS", "decode_qc_cuda", "decode_qc_cuda_plain",
-           "mode", "supported", "tile_size"]
+__all__ = ["REQUIREMENTS", "choose_tile", "decode_qc_cuda", "decode_qc_cuda_plain",
+           "lanes", "mode", "supported", "tile_size"]
 
 #: the TPU kernels' split (pallas_bp._DYN_BLOCK_THRESHOLD): up to this many
 #: circulants kernel A's statically unrolled body, above it kernel B's
@@ -57,12 +63,24 @@ _MAX_BLOCKS = 120
 _MAX_XOR_BLOCKS = 256
 #: mode bits, as csrc/bp_layered.cu reads them
 FLOODING, SUM_PRODUCT, SCMS = 1, 2, 4
+#: the kernel's edges of a row per lane (its kNarrow and kWide
+#: instantiations), its widest lane group (kMaxLanes) and row (kMaxDeg)
+_NARROW, _WIDE, _MAX_LANES, _MAX_ROW_DEGREE = 4, 8, 16, 64
+#: the threads of a narrow instantiation's block (a wide one's: half)
+_MAX_THREADS = 1024
+#: the most threads a codeword's lanes may take before the wrapper takes
+#: the wide instantiation (8 edges a lane, half the lanes)
+_NARROW_THREADS = 128
+#: bit fields of the kernel's tables: an edge word is col * z << 10 |
+#: shift; a flooding column-list word block | layer << 9 | position << 20
+_SHIFT_BITS, _EDGE_BITS, _LAYER_BITS = 10, 9, 11
 #: what :func:`supported` asks of a code and a config, for error messages
 REQUIREMENTS = (
     "an unmasked QCCode or an RSLDPCCode whose codeword state (posterior "
     "and messages, f32 or bf16; the channel too for flooding, the sent "
     "messages too for SCMS, the multi-edge delta table too for layered) "
-    "fits a thread block's shared memory; at most "
+    "fits a thread block's shared memory; rows of at most "
+    f"{_MAX_ROW_DEGREE} circulants; at most "
     f"{_MAX_BLOCKS} circulants (multi-edge cells allowed) or "
     f"{_MAX_XOR_BLOCKS} xor blocks under any schedule and algorithm, with "
     "soft output or not, or more circulants, none multi-edge, with z < "
@@ -109,21 +127,82 @@ def group_slots(code) -> int:
     return int(cell_table(code)[code.num_blocks:].max(initial=0))
 
 
+def _pow2_lanes(max_row_degree: int, per_lane: int) -> int:
+    return 1 << max(0, -(-max_row_degree // per_lane) - 1).bit_length()
+
+
+def lanes(code) -> int:
+    """The lanes that split each check row of ``code`` in the kernel: the
+    least power of two that leaves a lane at most four edges of the widest
+    row (the narrow instantiation: wimax 576 r3/4B's rows of 15, 4 lanes),
+    unless that takes a codeword past 128 threads (z times the lanes); then
+    at most eight (the wide one, half the lanes: RS-LDPC's rows of 32 at z
+    = 64, 4 lanes; wifi 1944's rows of 20 at z = 81, 4).  Measured on an
+    H100 (PERF.md), the narrow lanes give the shortest lone sweep and
+    the wide ones hold more codewords an SM.  0 for rows past 64."""
+    if code.max_row_degree > _MAX_ROW_DEGREE:
+        return 0
+    narrow = _pow2_lanes(code.max_row_degree, _NARROW)
+    if code.z * narrow <= _NARROW_THREADS:
+        return narrow
+    return _pow2_lanes(code.max_row_degree, _WIDE)
+
+
+def _max_threads(code) -> int:
+    """The block thread limit of the instantiation :func:`lanes` takes."""
+    wide = code.max_row_degree > _NARROW * lanes(code)
+    return _MAX_THREADS // 2 if wide else _MAX_THREADS
+
+
+def choose_tile(batch: int, sms: int, blocks_per_sm) -> int:
+    """Codewords per thread block for ``batch`` codewords on ``sms`` SMs,
+    where ``blocks_per_sm[t - 1]`` blocks of ``t`` codewords fit on one SM
+    at once: the smallest tile at which the whole batch is resident at once
+    (``sms * blocks * tile >= batch``), so that it spreads over every SM in
+    the smallest blocks; else the tile that holds the most codewords at once
+    (the smallest of equals).  0 if not even one codeword fits."""
+    best, most = 0, 0
+    for tile, blocks in enumerate(blocks_per_sm, start=1):
+        resident = sms * blocks * tile
+        if resident >= batch:
+            return tile
+        if resident > most:
+            best, most = tile, resident
+    return best
+
+
 @functools.lru_cache(maxsize=64)
-def tile_size(code, device_index: int, mode_bits: int = 0,
+def _blocks_per_sm(code, device_index: int, mode_bits: int, itemsize: int) -> tuple:
+    """The kernel library's occupancy query for ``code`` in ``mode_bits``
+    with ``itemsize``-byte messages on CUDA device ``device_index``: blocks
+    of 1, 2, ... codewords that one SM holds at once, up to the last tile
+    that fits (empty if not even one codeword does).  It builds the kernel
+    at first use."""
+    lib = _build.load()
+    width = lanes(code)
+    out = []
+    for tile in range(1, _max_threads(code) // max(1, code.z * width) + 1):
+        blocks = lib.ldpc_bp_layered_blocks_per_sm(
+            code.n, code.z, code.m_b, code.num_blocks, group_slots(code),
+            code.max_row_degree, mode_bits, itemsize, int(_xor(code)), width, tile,
+            device_index)
+        if blocks < 0:
+            raise RuntimeError(f"bp_layered occupancy query failed: CUDA error {-blocks}")
+        if blocks == 0:
+            break
+        out.append(blocks)
+    return tuple(out)
+
+
+def tile_size(code, device_index: int, batch: int, mode_bits: int = 0,
               itemsize: int = 4) -> int:
-    """Codewords per thread block on CUDA device ``device_index`` in mode
-    ``mode_bits`` (:func:`mode`; 0 = layered min-sum) with ``itemsize``-byte
-    messages (4 f32, 2 bf16): the most whose state fits the block's shared
-    memory, with z threads per codeword (0 if not even one fits).  The
-    kernel library computes it from its own shared-memory layout and the
-    device's limits, so it builds the kernel at first use."""
-    tile = _build.load().ldpc_bp_layered_tile(
-        code.n, code.z, code.m_b, code.num_blocks, group_slots(code),
-        mode_bits, itemsize, device_index)
-    if tile < 0:
-        raise RuntimeError(f"bp_layered tile query failed: CUDA error {-tile}")
-    return tile
+    """Codewords per thread block for a launch of ``batch`` codewords on
+    CUDA device ``device_index`` in mode ``mode_bits`` (:func:`mode`; 0 =
+    layered min-sum) with ``itemsize``-byte messages (4 f32, 2 bf16):
+    :func:`choose_tile` over the device's SMs and the kernel library's
+    occupancy (0 if not even one codeword fits)."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return choose_tile(batch, sms, _blocks_per_sm(code, device_index, mode_bits, itemsize))
 
 
 def _route_b(code: QCCode, cfg: DecoderConfig | None) -> bool:
@@ -158,11 +237,13 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
         return False
     elif code.num_blocks > _MAX_BLOCKS and not _route_b(code, cfg):
         return False
+    if not lanes(code) or code.z * lanes(code) > _max_threads(code):
+        return False
     if cfg is not None and not (cfg.crc is None and cfg.outer is None):
         return False
     mode_bits = 0 if cfg is None else mode(cfg)
-    return device is None or tile_size(code, cuda_index(device), mode_bits,
-                                       msg_dtype(cfg).itemsize) >= 1
+    return device is None or len(_blocks_per_sm(
+        code, cuda_index(device), mode_bits, msg_dtype(cfg).itemsize)) >= 1
 
 
 def decode_qc_cuda_plain(code, cfg: DecoderConfig,
@@ -174,29 +255,42 @@ def decode_qc_cuda_plain(code, cfg: DecoderConfig,
     return decode_qc(code, cfg, llr)
 
 
-def _column_edges(code: QCCode) -> tuple[np.ndarray, np.ndarray]:
-    """Per-column edge lists (CSC order): col_ptr [n_b + 1] and col_edge
-    [num_blocks], the edges of block column j ascending at col_edge[col_ptr
-    [j]:col_ptr[j + 1]], the order in which the flooding rebuild adds R."""
+def edge_words(code) -> np.ndarray:
+    """The kernel's edge table, int64 [num_blocks]: each block's column's
+    first variable (col * z) above its shift's 10 bits."""
+    _, bc, sh = code.blocks
+    return (bc.astype(np.int64) * code.z << _SHIFT_BITS) | sh
+
+
+def column_edges(code) -> tuple[np.ndarray, np.ndarray]:
+    """Per-column edge lists (CSC order): col_ptr [n_b + 1] and the
+    column-list words [num_blocks], the blocks of block column j ascending
+    at [col_ptr[j]:col_ptr[j + 1]] (the order in which the flooding rebuild
+    adds R), each as block | layer << 9 | position within its row << 20
+    (where the rebuild finds the block's message in a min-sum record)."""
     _, bc, _ = code.blocks
+    ptr = np.asarray(code.layer_ptr)
+    layer = np.repeat(np.arange(code.m_b), np.diff(ptr))
+    pos = np.arange(code.num_blocks) - ptr[layer]
     col_edge = np.argsort(bc, kind="stable")
     col_ptr = np.searchsorted(bc[col_edge], np.arange(code.n_b + 1))
-    return col_ptr, col_edge
+    words = (col_edge | (layer[col_edge] << _EDGE_BITS)
+             | (pos[col_edge] << (_EDGE_BITS + _LAYER_BITS)))
+    return col_ptr, words
 
 
 @functools.lru_cache(maxsize=32)
 def _device_tables(code: QCCode, normalization, offset, device: torch.device):
-    """Code structure, per-column edge lists, the cell table and per-layer
-    weights as device arrays, cached per (code, weights, device) so a
-    launch copies nothing from the host."""
-    _, bc, sh = code.blocks
+    """Code structure (edge words, layer pointers), per-column edge lists,
+    the cell table and per-layer weights as device arrays, cached per
+    (code, weights, device) so a launch copies nothing from the host."""
     alphas, betas = layer_weights(normalization, offset, code.m_b)
-    col_ptr, col_edge = _column_edges(code)
+    col_ptr, col_edge = column_edges(code)
 
     def dev(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=device)
 
-    return (dev(bc, np.int32), dev(sh, np.int32), dev(code.layer_ptr, np.int32),
+    return (dev(edge_words(code), np.int32), dev(code.layer_ptr, np.int32),
             dev(col_ptr, np.int32), dev(col_edge, np.int32),
             dev(cell_table(code), np.int32),
             dev(alphas, np.float32), dev(betas, np.float32))
@@ -225,15 +319,16 @@ def decode_qc_cuda(code, cfg: DecoderConfig,
             f"the CUDA short-code kernel does not serve {code.name} under "
             f"this config: it needs {REQUIREMENTS}"
         )
-    tile = tile_size(code, llr.device.index, mode(cfg), msg_dtype(cfg).itemsize)
+    tile = tile_size(code, llr.device.index, llr.shape[0], mode(cfg),
+                     msg_dtype(cfg).itemsize)
     return _launch(code, cfg, llr, tile)
 
 
 def _launch(code, cfg: DecoderConfig, llr: torch.Tensor,
             tile: int) -> DecodeResult:
     """Launch the kernel on a checked, contiguous CUDA ``llr`` with ``tile``
-    codewords per thread block (any tile from 1 to :func:`tile_size` gives
-    the same result)."""
+    codewords per thread block (any tile that fits gives the same
+    result)."""
     batch = llr.shape[0]
     dev = llr.device
     dt = msg_dtype(cfg)
@@ -249,7 +344,7 @@ def _launch(code, cfg: DecoderConfig, llr: torch.Tensor,
     llr_k = llr.to(dt)  # bf16: cast on the card (the reference casts first)
     executed = torch.empty(((batch + tile - 1) // tile,), dtype=torch.int32,
                            device=dev)
-    col, shift, ptr, col_ptr, col_edge, cell, alpha, beta = _device_tables(
+    edge, ptr, col_ptr, col_edge, cell, alpha, beta = _device_tables(
         code, cfg.normalization, cfg.offset, dev)
     lib = _build.load()
     with torch.cuda.device(dev):
@@ -257,10 +352,10 @@ def _launch(code, cfg: DecoderConfig, llr: torch.Tensor,
         err = lib.ldpc_bp_layered(
             llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
             executed.data_ptr(), None if post is None else post.data_ptr(),
-            col.data_ptr(), shift.data_ptr(), ptr.data_ptr(),
-            col_ptr.data_ptr(), col_edge.data_ptr(), cell.data_ptr(),
-            alpha.data_ptr(), beta.data_ptr(), batch, code.n_b, code.z, code.m_b,
-            code.num_blocks, group_slots(code), tile, cfg.max_iters,
+            edge.data_ptr(), ptr.data_ptr(), col_ptr.data_ptr(), col_edge.data_ptr(),
+            cell.data_ptr(), alpha.data_ptr(), beta.data_ptr(), batch, code.n_b,
+            code.z, code.m_b, code.num_blocks, group_slots(code),
+            code.max_row_degree, lanes(code), tile, cfg.max_iters,
             int(cfg.early_exit), mode(cfg), int(dt == torch.bfloat16),
             int(_xor(code)), stream,
         )

@@ -15,17 +15,22 @@ min and max):
 
 - the kernel's single pass at 5 dB with early exit on and off, and the
   frames' iteration counts;
-- one thread block alone and one full wave of blocks (one block per SM),
-  early exit off, at 40 sweeps and at 1 sweep: (t40 - t1) / 39 of the lone
-  block is one block's latency per sweep;
-- the triage ``Decoder`` call, its fast pass and its straggler pass;
+- one codeword alone (one thread block) and one full wave (the codewords
+  every SM holds at once in blocks of one, from the kernel library's
+  occupancy query), early exit off, at 40 sweeps and at 1 sweep: (t40 -
+  t1) / 39 of the lone codeword is one codeword's latency per sweep, which
+  sets the straggler tail;
+- the triage ``Decoder`` call, its fast pass and its straggler pass (the
+  cap of frames, those that failed the fast pass first), each at the tile
+  the wrapper picks for its batch;
 - the device's busy share of the ``Decoder`` call, from one
   ``torch.profiler`` window: the union of the device events' intervals over
   the wall time of the same calls (the profiler's own host cost lengthens
   that wall time, so the share is a lower bound);
 - the single pass and the ``Decoder`` call at 2 dB;
 - a tile sweep: single pass and triage decode for several codewords per
-  thread block, each held bit-exact against the largest tile.
+  thread block (those that fit), each held bit-exact against the tile the
+  wrapper picks.
 
 With ``--long`` it probes the long-code kernels at two operating points,
 with CUDA events as above: the NR path's (NR BG1 Z=384, rv0 over the full
@@ -51,10 +56,11 @@ With ``--modes`` it probes the short-code kernel's modes at the same
 operating point (batch 8192, 5 dB, 40 iterations, single pass): layered
 min-sum alpha 0.75 (the reference row), flooding min-sum alpha 0.75, SCMS,
 flooding and layered sum-product, and layered and flooding soft output.
-For each, with CUDA events as above: the tile (codewords per block), the
-batch with early exit on and its iteration counts, and one thread block
-alone and the batch with early exit off at 40 sweeps and at 1 sweep, whose
-difference over 39 is the time of one sweep.
+For each, with CUDA events as above: the tile (codewords per block) and
+lanes per row, the batch with early exit on and its iteration counts,
+and one codeword alone (one block) and the batch with early exit off at
+40 sweeps and at 1 sweep, whose difference over 39 is the time of one
+sweep.
 
 With ``--long-modes`` it probes the long-code kernel's modes at the
 ``--long`` operating points: at NR BG1 Z=384 (batch 512, 5 dB) layered
@@ -100,7 +106,7 @@ from ..codes.nr import rate_match_bits, rate_match_llr, triangular_encode_fn
 from ..ops import _build, cuda_stream
 from ..ops.bp import msg_dtype
 from ..ops.channel import transmit
-from ..ops.cuda_bp import _launch, decode_qc_cuda, mode, tile_size
+from ..ops.cuda_bp import _blocks_per_sm, _launch, decode_qc_cuda, lanes, mode, tile_size
 from ..ops.cuda_long import GLOBAL, SHARED, blocks_per_sm, decode_qc_long, placement
 from ..ops.triage import decode_two_phase
 
@@ -273,17 +279,18 @@ MODES = {
 
 
 def probe_mode(code, cfg, llr) -> dict:
-    """The short-code kernel in ``cfg``'s mode on ``llr``: its tile, the
-    batch with early exit and its iteration counts, and one block alone
-    and the batch with early exit off, per sweep."""
+    """The short-code kernel in ``cfg``'s mode on ``llr``: its tile and
+    lanes, the batch with early exit and its iteration counts, and one
+    codeword alone (one block) and the batch with early exit off, per
+    sweep."""
     no_exit = dataclasses.replace(cfg, early_exit=False)
     one_sweep = dataclasses.replace(no_exit, max_iters=1)
-    tile = tile_size(code, torch.cuda.current_device(), mode(cfg),
+    tile = tile_size(code, torch.cuda.current_device(), llr.shape[0], mode(cfg),
                      msg_dtype(cfg).itemsize)
-    row = {"tile": tile,
+    row = {"tile": tile, "lanes": lanes(code),
            "iterations": iteration_stats(decode_qc_cuda(code, cfg, llr)),
            "batch": timed(lambda: decode_qc_cuda(code, cfg, llr))}
-    for what, x in (("one_block", llr[:tile].contiguous()), ("batch_no_exit", llr)):
+    for what, x in (("one_block", llr[:1].contiguous()), ("batch_no_exit", llr)):
         full = timed(lambda: decode_qc_cuda(code, no_exit, x))
         one = timed(lambda: decode_qc_cuda(code, one_sweep, x))
         row[what] = {"40_sweeps": full, "1_sweep": one,
@@ -434,9 +441,11 @@ def main(argv=None) -> int:
 def probe_short(seed: int) -> dict:
     out: dict = {}
     code = wimax(576, "3/4B")
-    tile = tile_size(code, torch.cuda.current_device())
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    out.update(tile=tile, sms=sms)
+    dev = torch.cuda.current_device()
+    tile = tile_size(code, dev, BATCH)
+    resident = _blocks_per_sm(code, dev, 0, 4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out.update(tile=tile, lanes=lanes(code), sms=sms, blocks_per_sm=resident[tile - 1])
     llr5 = channel(code, 5.0, seed)
     llr2 = channel(code, 2.0, seed + 1)
     dec = Decoder(code, BENCH_CFG, device="cuda")
@@ -450,7 +459,7 @@ def probe_short(seed: int) -> dict:
     out["single_5dB"] = timed(lambda: decode_qc_cuda(code, SINGLE, llr5))
     out["single_5dB_no_exit"] = timed(lambda: decode_qc_cuda(code, NO_EXIT, llr5))
     one_sweep = dataclasses.replace(NO_EXIT, max_iters=1)
-    for name, batch in (("one_block", tile), ("one_wave", sms * tile)):
+    for name, batch in (("one_block", 1), ("one_wave", sms * resident[0])):
         x = llr5[:batch].contiguous()
         out[f"{name}_40_sweeps"] = timed(lambda: decode_qc_cuda(code, NO_EXIT, x))
         out[f"{name}_1_sweep"] = timed(lambda: decode_qc_cuda(code, one_sweep, x))
@@ -472,7 +481,7 @@ def probe_short(seed: int) -> dict:
 
     want = {snr: decode_qc_cuda(code, SINGLE, x) for snr, x in ((5, llr5), (2, llr2))}
     sweep = {}
-    for t in sorted(set(TILES) | {tile}):
+    for t in sorted({x for x in TILES if x <= len(resident)} | {tile}):
         def single(x, t=t):
             return _launch(code, SINGLE, x, t)
 
