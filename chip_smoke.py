@@ -10,8 +10,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    xor group, csrc/bp_long.cu and csrc/bp_stream.cu each as their four
    f32/bf16 min-sum and sum-product parts, csrc/op_rate.cu), one nvcc per
    object started together, and print each build time and what ptxas
-   reports of bp_layered.cu's and bp_stream.cu's kernels (registers,
-   shared memory, spills).
+   reports of the decode kernels (bp_layered.cu, bp_long.cu, bp_stream.cu:
+   registers, shared memory, spills).
 3. Short-code kernel vs plain: the kernel on CUDA against its plain
    version (``decode_qc_cuda_plain``) on the CPU and on CUDA, at batch 1000
    for all six 802.16e rates at n=576 plus n=2304 rate 1/2, 5 and 2 dB, a
@@ -31,7 +31,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    iterations, alpha 0.8 and a per-layer alpha tuple, early exit on, and
    off at the easy SNR; and at the main path's batch of 512 on
    nr_code(384, 1), past one wave of resident blocks, the hard SNR with
-   early exit off: 19 cases.  The same four fields must be equal.
+   early exit off; then at batch 1 (early exit on and off) and at more than
+   two waves (early exit off: min-sum f32 and bf16, sum-product),
+   posteriors compared: 24 cases.  The same four fields must be equal.
 3c. The same kernel on DVB-S2 (multi-edge cells, the masked wrap row) and
    the global placement (csrc/bp_stream.cu, kernel D's port: layers
    staged in shared memory by bulk copies, compressed min-sum messages),
@@ -49,10 +51,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    exit off (latched frames keep sweeping); then the stage plan's
    corners, forced global: a code whose consecutive layers share five of
    their six columns (nearly every cell forwarded), a z of 101 (z x 4 and
-   z x 2 bytes not multiples of 16: the padded layout) in f32 and bf16:
-   47 cases (the 64800 codes run exact and lazy at the easy SNR with early
-   exit on, and lazy at the hard one: early exit off runs in the main
-   path's batch case).
+   z x 2 bytes not multiples of 16: the padded layout) in f32 and bf16;
+   and dvbs2(16200, "3/4") (rows of 22 circulants, shared) at batch 1 and
+   past two waves as in 3b: 52 cases (the 64800 codes run exact and lazy
+   at the easy SNR with early exit on, and lazy at the hard one: early
+   exit off runs in the main path's batch case).
 3d. Kernel A's new modes vs plain: flooding min-sum (alpha 1.0, alpha 0.75,
    per-layer alpha, beta 0.25), SCMS, sum-product (flooding and layered)
    and soft output (min-sum layered and flooding, sum-product layered and
@@ -248,7 +251,11 @@ sum-product entries' ``cpu_posterior_max_abs_err`` is their largest
 posterior difference against the plain version on the CPU (phases 3d,
 3f).  Kernel C's sum-product entry counts phase 4b's sum-product
 ``Decoder``, its soft-output entry the BICM-ID soft passes (phase 4g; its
-times are phase 4b's soft ``Decoder``'s).  The global placement's
+times are phase 4b's soft ``Decoder``'s).  Each ``bp_long*`` entry adds
+``lone_sweep_us`` (one block alone, early exit off, 30 sweeps against 1,
+on phase 4b's first 5 dB codeword) and ``r_bytes_per_codeword_sweep``
+(the R bytes it reads and writes per codeword and sweep: min-sum
+records, or sum-product's per-edge messages).  The global placement's
 entries (``bp_stream*``, csrc/bp_stream.cu: the DVB-S2 64800 path lazy,
 with soft output (phase 4c) and in bf16 (4h)); the lazy one adds the
 exact syndrome's time (``exact_ms``).  Phase 5 logs, beside each of
@@ -324,6 +331,7 @@ from myldpccppapi_torch.ops.cuda_long import (
     decode_qc_long,
     decode_qc_long_plain,
     placement,
+    scratch_bytes,
 )
 from myldpccppapi_torch.ops.bp import accept_fail_fn, msg_dtype
 from myldpccppapi_torch.ops.packing import unpack_bits_np
@@ -673,8 +681,39 @@ def phase_long_kernel_vs_plain() -> float:
     log(f"[phase3b] {code.name} batch={NR_BATCH} snr={hard} early_exit=off "
         f"conv={k.converged.float().mean().item():.4f} "
         f"total_iters={int(k.total_iters)}: kernel == plain (cuda)")
-    log(f"[phase3b] {n_cases} cases bit-exact")
-    return worst
+    d, n = wave_cases("phase3b", code, lambda b, s: nr_numpy_llr(code, b, hard, s).cuda(),
+                      SEED + 210)
+    log(f"[phase3b] {n_cases + n} cases bit-exact")
+    return max(worst, d)
+
+
+def wave_cases(tag, code, make_llr, seed) -> tuple[float, int]:
+    """The shared placement at batch 1 (one block: early exit on and off)
+    and at more than two waves of resident blocks (early exit off: every
+    block runs every sweep, its records or messages read back each sweep),
+    min-sum in f32 and bf16 and sum-product, posteriors compared, against
+    the plain version on CUDA.  Returns the largest difference (0.0: any
+    other raises) and the cases run."""
+    base = NR_CFG if code.name.startswith("nr") else dataclasses.replace(DVB_CFG,
+                                                                      syndrome_mode="exact")
+    many = (dataclasses.replace(base, early_exit=False, soft_output=True),
+            dataclasses.replace(base, early_exit=False, msg_dtype="bfloat16", soft_output=True),
+            dataclasses.replace(NR_SP_CFG, early_exit=False))
+    wave = torch.cuda.get_device_properties(0).multi_processor_count * max(
+        blocks_per_sm(code, cfg, SHARED) for cfg in many)
+    cases = [(1, dataclasses.replace(base, soft_output=True)),
+             (1, dataclasses.replace(base, early_exit=False, soft_output=True)),
+             *((2 * wave + 37, cfg) for cfg in many)]
+    worst = 0.0
+    for batch, cfg in cases:
+        before = decode_qc_long.launches
+        k, d = check_long(code, cfg, make_llr(batch, seed + batch))
+        if decode_qc_long.launches != before + 1:
+            raise AssertionError(f"{code.name}: not launched in the shared placement")
+        worst = max(worst, d)
+        log(f"[{tag}] {code.name} batch={batch} ({wave} blocks a wave) {cfg.algorithm} "
+            f"{cfg.msg_dtype} early_exit={cfg.early_exit} {summary(k)}: kernel == plain (cuda)")
+    return worst, len(cases)
 
 
 def phase_long_modes_vs_plain() -> tuple[dict, float]:
@@ -934,6 +973,12 @@ def phase_dvbs2_kernel_vs_plain() -> tuple[float, float]:
     n_cases += 1
     log(f"[phase3c] {code.name} batch={DVB_BATCH} snr=1.4 lazy early_exit=off "
         f"{summary(k)}: kernel == plain (cuda)")
+    # rows of 22 circulants in shared memory, one block and past two waves
+    code = dvbs2(16200, "3/4")
+    d, n = wave_cases("phase3c", code, lambda b, s: dvbs2_llr(code, b, 3.0, s).cuda(),
+                      SEED + 345)
+    worst[SHARED] = max(worst[SHARED], d)
+    n_cases += n
     # the stage plan's corners, in the global placement
     corners = ((window_qc(), DecoderConfig(normalization=0.8, max_iters=30)),
                (staircase_qc(z=101, q=24, kb=48), DecoderConfig(normalization=0.8, max_iters=30,
@@ -2371,6 +2416,24 @@ def receive_times(tag, dec, mod, y, n0, derate):
     return out
 
 
+def long_sweep_fields(code, cfg, llr) -> dict:
+    """Kernel C's (bp_long.cu) lone block per sweep on the first codeword of
+    ``llr`` (early exit off: 30 sweeps against 1, CUDA events) and the
+    device-memory bytes of R it reads and writes per codeword and sweep
+    (min-sum records, or sum-product's per-edge messages)."""
+    x = llr[:1].contiguous()
+    no_exit = dataclasses.replace(cfg, early_exit=False)
+    full = median_ms(lambda: decode_qc_long(code, no_exit, x))
+    one = median_ms(lambda: decode_qc_long(code, dataclasses.replace(no_exit, max_iters=1), x))
+    out = {"lone_sweep_us": 1e3 * (full - one) / (no_exit.max_iters - 1),
+           "r_bytes_per_codeword_sweep": 2 * scratch_bytes(
+               code, cfg.algorithm == "sum-product", msg_dtype(cfg).itemsize)}
+    log(f"[phase5] {code.name} {cfg.algorithm} {cfg.msg_dtype}"
+        f"{' soft' if cfg.soft_output else ''}: lone block {out['lone_sweep_us']:.2f} us per "
+        f"sweep, R {out['r_bytes_per_codeword_sweep']} B per codeword and sweep")
+    return out
+
+
 def phase_dvbs2_times(dvb_dec, dvb_llr):
     """The DVB-S2 64800 main path in lazy and exact mode; then the kernel
     on dvbs2(16200, "1/2") at the same batch, posterior in shared and in
@@ -2425,14 +2488,15 @@ def phase_bf16_times(decs, llr, nr_llr, dvb_llr) -> dict:
 
 
 def ptxas_lines() -> list:
-    """bp_layered.cu's and bp_stream.cu's kernels as ptxas reported them at
-    the build: each instantiation's (mangled template arguments) registers,
-    shared memory and spills."""
+    """The decode kernels (bp_layered.cu, bp_long.cu, bp_stream.cu) as ptxas
+    reported them at the build: each instantiation's (mangled template
+    arguments) registers, shared memory and spills."""
     out, name = [], None
     for line in _build.ptxas_report().splitlines():
         if "Compiling entry function" in line:
             name = next((f"{k}<{line.split(k)[1].split(chr(39))[0]}>"
-                         for k in ("bp_layered_kernel", "bp_stream_kernel") if k in line),
+                         for k in ("bp_layered_kernel", "bp_long_kernel", "bp_stream_kernel")
+                         if k in line),
                         None)
         elif name and ("registers" in line or "spill" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
@@ -2534,6 +2598,10 @@ def main() -> int:
         f"16apsk, batch {ID_BATCH}, {ID_SNR} dB): {id_ms:.4f} ms, on the plain "
         f"version {id_plain_ms:.4f} ms")
     bf16_times = phase_bf16_times(bf16["decs"], llr, nr_llr, dvb_llr)
+    nr = nr_code(384, 1)
+    sweeps = {name: long_sweep_fields(nr, cfg, nr_llr) for name, cfg in (
+        ("min-sum", NR_CFG), ("sum-product", NR_SP_CFG), ("soft", nr_soft_dec.config),
+        ("bf16", BF16_NR_CFGS["min-sum"]))}
     log(f"[time] phase 5 done at {time.perf_counter() - t0:.1f} s")
 
     log(smi)
@@ -2586,7 +2654,7 @@ def main() -> int:
               "myldpccppapi_tpu/ops/pallas_bp.py:410", b_launches, worst_b,
               b_times, acceptance_leg_nr_bg1_z32_rm_crc16=legs["nr_bg1_z32_rm_crc16"]),
         entry("bp_long", "bp_long.cu", kernel_c, nr_launches,
-              max(worst_long, worst_shared), nr_times,
+              max(worst_long, worst_shared), nr_times, **sweeps["min-sum"],
               m4_launches=m4[-1], m4_demap_ms=m4_times["demap"],
               m4_receive_ms=m4_times["receive"],
               acceptance_leg_dvbs2_16200_bch=legs["dvbs2_16200_bch"]),
@@ -2599,9 +2667,10 @@ def main() -> int:
               m3_receive_ms=m3_times["receive"]),
         # kernel C's sum-product and soft-output modes, each on its main path
         entry("bp_long_sum_product", "bp_long.cu", kernel_c, sp_launches,
-              worst_c_modes["sp"], sp_times, cpu_posterior_max_abs_err=c_sp_cpu_post),
+              worst_c_modes["sp"], sp_times, cpu_posterior_max_abs_err=c_sp_cpu_post,
+              **sweeps["sum-product"]),
         entry("bp_long_soft_output", "bp_long.cu", kernel_c, bicm[4],
-              worst_c_modes["soft"], soft_times, bicm_id_ms=id_ms,
+              worst_c_modes["soft"], soft_times, **sweeps["soft"], bicm_id_ms=id_ms,
               bicm_id_plain_ms=id_plain_ms, bicm_id_fer=[bicm[5], bicm[6]]),
         entry("bp_stream_soft_output", "bp_stream.cu", kernel_d,
               dvb_soft_launches, worst_c_modes["soft"], dvb_soft_times),
@@ -2610,7 +2679,7 @@ def main() -> int:
         # C's global placement on the DVB-S2 64800 main path, kernel A at
         # wimax 576 r3/4B
         entry("bp_long_bf16", "bp_long.cu", kernel_c, bf16["launches"]["c min-sum"],
-              0.0, bf16_times["nr"],
+              0.0, bf16_times["nr"], **sweeps["bf16"],
               sp_launches=bf16["launches"]["c sum-product"],
               sp_ms=bf16_times["nr sp"], soft_launches=bf16["launches"]["c soft"],
               soft_ms=bf16_times["nr soft"],

@@ -1,8 +1,8 @@
 // The min-sum record: one check row's normalized/offset min-sum messages
 // stored as one record instead of a message per edge, shared by the
-// kernels that keep R compressed (bp_layered.cu, bp_stream.cu).  Its torch
-// codec is myldpccppapi_torch/ops/cuda_stream.py::compress_min_sum /
-// expand_min_sum.
+// kernels that keep R compressed (bp_layered.cu, bp_long.cu,
+// bp_stream.cu).  Its torch codec is
+// myldpccppapi_torch/ops/cuda_stream.py::compress_min_sum / expand_min_sum.
 //
 // A record is m1s and m2s (alpha/beta applied, rounded to the storage type
 // T: two f32 words, or one word of two bf16 halves, m1s in the low half),
@@ -46,18 +46,24 @@ __device__ __forceinline__ float f32_of_bits(uint32_t w, __nv_bfloat16*) {
   return __bfloat162float(__ushort_as_bfloat16((unsigned short)w));
 }
 
+// m1s and m2s of a record's value words (w1 unused in bf16)
+template <typename T>
+__device__ __forceinline__ void unpack_values(uint32_t w0, uint32_t w1, float& m1s,
+                                              float& m2s) {
+  if (value_words<T>() == 2) {
+    m1s = __uint_as_float(w0);
+    m2s = __uint_as_float(w1);
+  } else {
+    m1s = f32_of_bits(w0 & 0xFFFFu, (T*)nullptr);
+    m2s = f32_of_bits(w0 >> 16, (T*)nullptr);
+  }
+}
+
 // m1s and m2s of a record whose words lie `stride` words apart
 template <typename T>
 __device__ __forceinline__ void load_values(const uint32_t* rec, int stride, float& m1s,
                                             float& m2s) {
-  if (value_words<T>() == 2) {
-    m1s = __uint_as_float(rec[0]);
-    m2s = __uint_as_float(rec[stride]);
-  } else {
-    const uint32_t v = rec[0];
-    m1s = f32_of_bits(v & 0xFFFFu, (T*)nullptr);
-    m2s = f32_of_bits(v >> 16, (T*)nullptr);
-  }
+  unpack_values<T>(rec[0], value_words<T>() == 2 ? rec[stride] : 0u, m1s, m2s);
 }
 
 // The value words of m1s and m2s rounded to T (words[1] unused in bf16),

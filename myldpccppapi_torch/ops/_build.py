@@ -6,9 +6,10 @@ header, so ``nvcc`` compiles each in seconds; :func:`build` starts one
 cyclic and xor groups; ``bp_long.cu`` and ``bp_stream.cu`` as four each,
 their f32 and bf16 min-sum and sum-product instantiations; ``op_rate.cu``),
 and links the objects into one shared library that :mod:`ctypes` loads.
-``bp_layered.cu``'s and ``bp_stream.cu``'s objects are compiled with
-``-Xptxas -v``; what ptxas reports of their registers, shared memory and
-spills is kept beside the library (:func:`ptxas_report`).  The library goes into
+The decode kernels' objects (``bp_layered.cu``, ``bp_long.cu``,
+``bp_stream.cu``) are compiled with ``-Xptxas -v``; what ptxas reports of
+their registers, shared memory and spills is kept beside the library
+(:func:`ptxas_report`).  The library goes into
 ``myldpccppapi_torch/_build/`` (listed in ``.gitignore``), named by a hash
 of every source and header and the flags, and is built at first use, never
 at import.
@@ -44,7 +45,8 @@ HEADERS = ("async_copy.cuh", "phi.cuh", "record.cuh", "storage.cuh")
 #: takes the longest one
 _OBJECTS = (*(("bp_layered.cu", (f"-DBP_LAYERED_PART={part}", "-Xptxas", "-v"))
               for part in (1, 2)),
-            *(("bp_long.cu", (f"-DBP_LONG_PART={part}",)) for part in (1, 2, 3, 4)),
+            *(("bp_long.cu", (f"-DBP_LONG_PART={part}", "-Xptxas", "-v"))
+              for part in (1, 2, 3, 4)),
             *(("bp_stream.cu", (f"-DBP_STREAM_PART={part}", "-Xptxas", "-v"))
               for part in (1, 2, 3, 4)),
             ("op_rate.cu", ()))
@@ -75,6 +77,9 @@ _SIGNATURES = {
     # fourteen tensors (the posterior output may be null), fourteen ints,
     # the stream
     "ldpc_bp_long": ([_P] * 14 + [_I] * 14 + [_P], _I),
+    # (z, m_b, num_blocks, max_row_degree, sum_product, itemsize)
+    #   -> bytes of one codeword's messages in the shared placement's scratch
+    "ldpc_bp_long_scratch_bytes": ([_I] * 6, _I),
     # (n, z, m_b, num_blocks, n_masks, group_slots, max_row_degree,
     #  itemsize, device)
     #   -> 2 posterior in shared memory / 1 in global memory / 0 not served

@@ -9,7 +9,9 @@ placements of the posterior:
   single-circulant and multi-edge cells, row-masked partial circulants, the
   exact or the lazy syndrome, soft output (the latched posterior).  The
   posterior lives in a thread block's shared memory (the *shared*
-  placement, ``bp_long.cu``): 5G NR, DVB-S2 16200.
+  placement, ``bp_long.cu``): 5G NR, DVB-S2 16200; min-sum messages are
+  one record per row and layer in a device-memory scratch whose size the
+  kernel library gives (:func:`scratch_bytes`).
 * ``myldpccppapi_tpu/ops/pallas_stream.py`` (``decode_qc_stream``, kernel
   D), which serves codes whose posterior does not fit on chip: the
   posterior in a global-memory scratch, each layer staged in shared memory
@@ -59,7 +61,8 @@ from . import cuda_stream
 from .cuda_stream import MULTI_EDGE, group_slots, layer_flags, live_words, n_masks
 
 __all__ = ["GLOBAL", "MIN_Z", "REQUIREMENTS", "SHARED", "blocks_per_sm",
-           "decode_qc_long", "decode_qc_long_plain", "placement", "supported"]
+           "decode_qc_long", "decode_qc_long_plain", "placement", "scratch_bytes",
+           "supported"]
 
 #: the reference kernel's gate (pallas_zlane.zlane_supported): below half a
 #: 128-lane tile the TPU layout wastes the VPU, and small-z codes go to the
@@ -180,13 +183,29 @@ def _device_tables(code: QCCode, normalization, offset, device: torch.device):
     return tables, bool((flags & MULTI_EDGE).any())
 
 
+@functools.lru_cache(maxsize=64)
+def scratch_bytes(code: QCCode, sum_product: bool, itemsize: int) -> int:
+    """Bytes of one codeword's messages in the shared placement's scratch,
+    as the kernel library lays them out: min-sum records (``record.cuh``,
+    ``[m_b, record words, z]`` 32-bit words), or sum-product's
+    ``[num_blocks, z]`` messages.  The kernel reads and writes them once a
+    sweep."""
+    got = _build.load().ldpc_bp_long_scratch_bytes(
+        code.z, code.m_b, code.num_blocks, code.max_row_degree, int(sum_product), itemsize)
+    if got < 1:
+        raise RuntimeError(f"bp_long scratch query returned {got}")
+    return got
+
+
 def _launch_shared(code: QCCode, cfg: DecoderConfig, llr_k: torch.Tensor, bits, conv,
                    iters, executed, post, stream: int) -> None:
     """Launch csrc/bp_long.cu (the shared placement) on checked CUDA
     tensors; ``llr_k`` in the message dtype."""
     dt = llr_k.dtype
-    # the messages R [batch, num_blocks, z]: written before they are read
-    r_scratch = torch.empty((llr_k.shape[0], code.num_blocks, code.z), dtype=dt,
+    sum_product = cfg.algorithm == "sum-product"
+    # the messages R, records or per edge: written before they are read
+    per_codeword = scratch_bytes(code, sum_product, dt.itemsize)
+    r_scratch = torch.empty((llr_k.shape[0] * per_codeword,), dtype=torch.uint8,
                             device=llr_k.device)
     tables, multi_edge = _device_tables(code, cfg.normalization, cfg.offset, llr_k.device)
     err = _build.load().ldpc_bp_long(
@@ -196,7 +215,7 @@ def _launch_shared(code: QCCode, cfg: DecoderConfig, llr_k: torch.Tensor, bits, 
         llr_k.shape[0], code.n_b, code.z, code.m_b, code.num_blocks, n_masks(code),
         int(multi_edge), group_slots(code), code.max_row_degree,
         cfg.max_iters, int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
-        int(cfg.algorithm == "sum-product"), int(dt == torch.bfloat16), stream)
+        int(sum_product), int(dt == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"bp_long kernel launch failed: CUDA error {err}")
 

@@ -44,8 +44,9 @@ noise from a torch.Generator on the card.  For each:
   holds at once, from the kernel library's occupancy query) and the full
   batch, early exit off, at 30 sweeps and at 1 sweep: (t30 - t1) / 29 is
   the time of one sweep of each, beside the device-memory bytes one sweep
-  moves and the rate that makes: in shared memory the messages R, read
-  and written once per edge; in global memory the stage plan's bytes
+  moves and the rate that makes: in shared memory the messages R (min-sum:
+  a record per row and layer; sum-product: per edge), read and written
+  once; in global memory the stage plan's bytes
   (``cuda_stream.stream_bytes``: P columns loaded and written, R records
   read and written);
 - the batch with early exit on, its iteration counts, and the ``Decoder``
@@ -64,10 +65,11 @@ sweep.
 
 With ``--long-modes`` it probes the long-code kernel's modes at the
 ``--long`` operating points: at NR BG1 Z=384 (batch 512, 5 dB) layered
-min-sum alpha 0.8 (the reference row), sum-product, soft output and
-sum-product with soft output; at DVB-S2 64800 r1/2 (batch 1024, 1.4 dB,
-posterior in global memory) min-sum lazy and exact, soft output, and
-sum-product exact and lazy.  For each, as
+min-sum alpha 0.8 (the reference row), sum-product, soft output,
+sum-product with soft output and bf16 min-sum; at DVB-S2 16200 r1/2 (batch
+1024, 1.5 dB, lazy, alpha 0.85; shared memory) min-sum; at DVB-S2 64800
+r1/2 (batch 1024, 1.4 dB, posterior in global memory) min-sum lazy and
+exact, soft output, and sum-product exact and lazy.  For each, as
 ``--modes`` does: the batch with early exit on and its iteration counts,
 and one thread block alone and the batch with early exit off at 30 sweeps
 and at 1 sweep, whose difference over 29 is the time of one sweep.
@@ -103,7 +105,7 @@ import torch.profiler
 from .. import Decoder, DecoderConfig, Encoder, dvbs2, nr_code, rs_ldpc, wifi, wimax
 from ..codes.dvbs2 import ira_encode_fn
 from ..codes.nr import rate_match_bits, rate_match_llr, triangular_encode_fn
-from ..ops import _build, cuda_stream
+from ..ops import _build, cuda_long, cuda_stream
 from ..ops.bp import msg_dtype
 from ..ops.channel import transmit
 from ..ops.cuda_bp import _blocks_per_sm, _launch, decode_qc_cuda, lanes, mode, tile_size
@@ -242,8 +244,9 @@ def probe_long_code(code, cfg, batch: int, llr_all, force: int = 0) -> dict:
                 code, item, cfg.algorithm == "sum-product").items()}
         else:
             # each sweep after the first reads and writes every message of R
-            moved = {"r_read": n_cw * code.num_blocks * code.z * item,
-                     "r_written": n_cw * code.num_blocks * code.z * item}
+            # (min-sum: a record per row and layer)
+            r = cuda_long.scratch_bytes(code, cfg.algorithm == "sum-product", item)
+            moved = {"r_read": n_cw * r, "r_written": n_cw * r}
         total = sum(moved.values())
         out[name] = {"codewords": n_cw, f"{sweeps}_sweeps": full,
                      "1_sweep": one, "ms_per_sweep": per_sweep,
@@ -347,7 +350,9 @@ LONG_MODES = {
            "sum_product": DecoderConfig(algorithm="sum-product", max_iters=30),
            "soft": dataclasses.replace(LONG_CFG, soft_output=True),
            "sum_product_soft": DecoderConfig(algorithm="sum-product", max_iters=30,
-                                             soft_output=True)},
+                                             soft_output=True),
+           "bf16": dataclasses.replace(LONG_CFG, msg_dtype="bfloat16")},
+    "dvbs2_16200": {"min_sum": DVB_CFG},
     "dvbs2_64800": {"min_sum": DVB_CFG,
                     "exact": dataclasses.replace(DVB_CFG, syndrome_mode="exact"),
                     "soft": dataclasses.replace(DVB_CFG, soft_output=True),
@@ -359,6 +364,8 @@ LONG_MODES = {
 
 def probe_long_modes(seed: int) -> dict:
     points = {"nr": (nr_code(384, 1), nr_channel(nr_code(384, 1), LONG_BATCH, 5.0, seed)),
+              "dvbs2_16200": (dvbs2(16200, "1/2"),
+                              dvbs2_channel(dvbs2(16200, "1/2"), DVB_BATCH, 1.5, seed + 2)),
               "dvbs2_64800": (dvbs2(64800, "1/2"),
                               dvbs2_channel(dvbs2(64800, "1/2"), DVB_BATCH, 1.4, seed + 1))}
     out: dict = {}
