@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    f32/bf16 min-sum and sum-product parts, csrc/op_rate.cu), one nvcc per
    object started together, and print each build time and what ptxas
    reports of the decode kernels (bp_layered.cu, bp_long.cu, bp_stream.cu:
-   registers, shared memory, spills).
+   registers, shared memory, spills); hold bp_long.cu's scratch layout, as
+   the library sizes it, against the record codec
+   (:func:`check_long_scratch_layout`).
 3. Short-code kernel vs plain: the kernel on CUDA against its plain
    version (``decode_qc_cuda_plain``) on the CPU and on CUDA, at batch 1000
    for all six 802.16e rates at n=576 plus n=2304 rate 1/2, 5 and 2 dB, a
@@ -253,9 +255,9 @@ posterior difference against the plain version on the CPU (phases 3d,
 ``Decoder``, its soft-output entry the BICM-ID soft passes (phase 4g; its
 times are phase 4b's soft ``Decoder``'s).  Each ``bp_long*`` entry adds
 ``lone_sweep_us`` (one block alone, early exit off, 30 sweeps against 1,
-on phase 4b's first 5 dB codeword) and ``r_bytes_per_codeword_sweep``
-(the R bytes it reads and writes per codeword and sweep: min-sum
-records, or sum-product's per-edge messages).  The global placement's
+on phase 4b's first 5 dB codeword); phase 5 logs beside it the R bytes
+of the library's scratch layout (min-sum records, or sum-product's
+per-edge messages), which phase 2 holds against the record codec.  The global placement's
 entries (``bp_stream*``, csrc/bp_stream.cu: the DVB-S2 64800 path lazy,
 with soft output (phase 4c) and in bf16 (4h)); the lazy one adds the
 exact syndrome's time (``exact_ms``).  Phase 5 logs, beside each of
@@ -2418,19 +2420,19 @@ def receive_times(tag, dec, mod, y, n0, derate):
 
 def long_sweep_fields(code, cfg, llr) -> dict:
     """Kernel C's (bp_long.cu) lone block per sweep on the first codeword of
-    ``llr`` (early exit off: 30 sweeps against 1, CUDA events) and the
-    device-memory bytes of R it reads and writes per codeword and sweep
-    (min-sum records, or sum-product's per-edge messages)."""
+    ``llr`` (early exit off: 30 sweeps against 1, CUDA events).  The log
+    line adds the scratch layout's R bytes per codeword, which a sweep past
+    the first reads and writes (min-sum records, or sum-product's per-edge
+    messages); they are the library's layout, not a measurement."""
     x = llr[:1].contiguous()
     no_exit = dataclasses.replace(cfg, early_exit=False)
     full = median_ms(lambda: decode_qc_long(code, no_exit, x))
     one = median_ms(lambda: decode_qc_long(code, dataclasses.replace(no_exit, max_iters=1), x))
-    out = {"lone_sweep_us": 1e3 * (full - one) / (no_exit.max_iters - 1),
-           "r_bytes_per_codeword_sweep": 2 * scratch_bytes(
-               code, cfg.algorithm == "sum-product", msg_dtype(cfg).itemsize)}
+    out = {"lone_sweep_us": 1e3 * (full - one) / (no_exit.max_iters - 1)}
+    layout = scratch_bytes(code, cfg.algorithm == "sum-product", msg_dtype(cfg).itemsize)
     log(f"[phase5] {code.name} {cfg.algorithm} {cfg.msg_dtype}"
         f"{' soft' if cfg.soft_output else ''}: lone block {out['lone_sweep_us']:.2f} us per "
-        f"sweep, R {out['r_bytes_per_codeword_sweep']} B per codeword and sweep")
+        f"sweep; R scratch layout {layout} B per codeword")
     return out
 
 
@@ -2487,6 +2489,25 @@ def phase_bf16_times(decs, llr, nr_llr, dvb_llr) -> dict:
     return out
 
 
+def check_long_scratch_layout() -> None:
+    """Hold the shared placement's scratch, as the library sizes it
+    (``ldpc_bp_long_scratch_bytes``), against the record codec that kernels
+    A and D share (``cuda_stream.record_words``): ``[m_b, record words, z]``
+    32-bit words under min-sum, ``[num_blocks, z]`` messages under
+    sum-product, for the codes kernel C serves, in f32 and bf16."""
+    for code in (nr_code(384, 1), dvbs2(16200, "1/2"), dvbs2(16200, "3/4")):
+        for item in (4, 2):
+            want = {False: code.m_b * cuda_stream.record_words(code.max_row_degree, item)
+                    * code.z * 4, True: code.num_blocks * code.z * item}
+            for sp, w in want.items():
+                got = scratch_bytes(code, sp, item)
+                if got != w:
+                    raise RuntimeError(f"bp_long scratch of {code.name} (sum-product "
+                                       f"{sp}, {item} B): {got} B, the codec's {w} B")
+            log(f"[phase2] bp_long scratch of {code.name}, {item} B messages: min-sum "
+                f"{want[False]} B, sum-product {want[True]} B per codeword, as the codec")
+
+
 def ptxas_lines() -> list:
     """The decode kernels (bp_layered.cu, bp_long.cu, bp_stream.cu) as ptxas
     reported them at the build: each instantiation's (mangled template
@@ -2523,6 +2544,7 @@ def main() -> int:
     log(f"[phase2] loaded {lib_path.name}")
     for line in ptxas_lines():
         log(f"[phase2] ptxas {line}")
+    check_long_scratch_layout()
 
     t0 = time.perf_counter()
 
