@@ -101,6 +101,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    converging point to equal bits and converged flags, iterations within
    1 (torch's CPU exp/log1p are not its CUDA ones), min-sum soft output
    bit-exact.
+3k. The edge-list path (ops/bp_edgelist.py: torch ops, no kernel of its
+   own, the reference's XLA gathers and scatters) on CUDA against the same
+   function on the CPU, batch 16: dvbs2_oracle(16200, "1/2") (``Decoder``
+   auto, which must resolve to ``"edgelist"``) and wimax(576, "3/4B")
+   (explicit ``"edgelist"``), layered and flooding NMS alpha 0.75, 20
+   iterations, soft output, at an SNR where nearly every frame converges
+   and one where most run all 20 sweeps, early exit on, and off at the
+   easy SNR (12 cases): bits, converged, iterations, total_iters and
+   posteriors equal; a bf16 case on the oracle held the same way; a
+   sum-product case held as phase 3d holds sum-product against the CPU.
 4. Short-code main path: ``Decoder(wimax(576, "3/4B"), bench config,
    device="cuda")`` at batch 8192, 5 dB, noise from a torch.Generator on
    the card; then the ``Coder`` TDMPCL byte-stream round trip of the CLI
@@ -189,6 +199,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    BCH (kernel C), NR BG1 z=32 rate-matched rv0 CRC-16 (kernel B's route);
    and leg 2's code with the BCH in the decoder: kernel C + wrap equals
    the latch on true and forged frames, fewer and more than the cap.
+4n. (runs after 4j) BASELINE config 3's point on the DVB-S2 standard-domain
+   oracle: dvbs2_oracle(64800, "1/2") encoded on the card (its
+   ``encode_fn``), BPSK/AWGN at 1.4 dB, batch 1024, through ``Decoder``
+   (auto: ``"edgelist"``), layered NMS alpha 0.85, 30 iterations, with
+   bench.py's gates (the syndrome through the QC form); the same noisy
+   frames, permuted into the QC order by ``std_interleave``, through
+   dvbs2(64800, "1/2") on the global placement (csrc/bp_stream.cu, phase
+   4c's config): equal bits on every frame that both converge, both
+   convergence counts logged.
+4o. BASELINE config 4t (benchmarks/run_baseline.py:883-929): ``plan_tb(20000,
+   40000, qm=2)`` (C = 3, K' = 6699, Z = 320), 128 transport blocks encoded
+   on the card (``NRTransport.encode``), BPSK/AWGN at 3 dB, received
+   through the transport's default decoder (kernel C inside the acceptance
+   wrapper, CRC24B at span K'; its launches counted) and through the same
+   receive with ``implementation="torch"`` on CUDA: payload, tb_ok,
+   tb_crc_ok, cb_ok, converged and iterations equal, and no TB with
+   tb_ok carries a wrong payload.  Then a small-Z block, ``plan_tb(1000,
+   3000, bg=1, qm=2)`` (Z = 48, kernel B's route), the same way.
 6. (runs first, after the build) Kernel E, the op-rate calibration
    (csrc/op_rate.cu, tools/roofline.py): its five bodies (E's fma4, mix3
    and mix4; sfu, the decoders' phi; mufu, bare ex2/lg2) against their
@@ -241,7 +269,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the decode, both together); one BICM-ID step (two exchanges); and the
    bf16 main paths (kernel A at wimax 576, C at NR and at DVB-S2 64800 in
    both placements); kernel A's xor mode on 4k's path, its multi-edge mode
-   on 3j's ``Decoder`` shape and config 2 (4l).
+   on 3j's ``Decoder`` shape and config 2 (4l); phase 4n's oracle
+   ``Decoder`` call (median of 5), its sweeps, the torch ops that launch a
+   kernel (counted by a ``TorchDispatchMode``) and the CUDA kernels
+   (``torch.profiler``) of one call per sweep, and the kernels' device
+   time over the call's time (the busy share); config 4t's receive alone
+   and encode + channel + receive (median of 5), as payload Mbit/s.
 
 The line before the last is the kernels' JSON record, one entry per kernel
 and mode: each ``launches`` counts its launches in its main path's
@@ -268,7 +301,13 @@ global and shared entries.  The bf16 entries count phase 4h's
 ``Decoder`` calls (the shared placement at DVB-S2 64800 its forced
 decode; the bound writes posteriors at 2 B); config 1/1c (``config1*``) and the legs
 (``acceptance_leg_*``) add their counts and times to the entries whose
-kernel the acceptance wraps.  The last line is ``{"ok": true,
+kernel the acceptance wraps; ``bp_long`` adds config 4t's (``config4t_*``:
+the launches of phase 4o's receive, its accepted TBs of ``config4t_tbs``,
+the receive's time and payload Mbit/s, and those of encode + channel +
+receive).  The edge-list path launches no kernel of its own, so its
+record (phase 3k's worst difference, 4n's convergence counts and phase
+5's times and launch counts) is a JSON line of its own, ``{"edgelist":
+{...}}``, before the card's name.  The last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -286,6 +325,8 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from myldpccppapi_torch import (
     Coder,
@@ -307,13 +348,17 @@ from myldpccppapi_torch import (
     wimax,
 )
 from myldpccppapi_torch.codes import (
+    NRTransport,
     dvbs2_ira_qc,
+    dvbs2_oracle,
     encode_numpy,
     ira_encode_fn,
     ira_encode_numpy,
+    plan_tb,
     rate_match_bits,
     rate_match_llr,
     ru_precompute,
+    std_interleave,
     triangular_encode_fn,
     triangular_encode_numpy,
 )
@@ -518,6 +563,31 @@ E_DEPTH = 1000
 LEG1_CFG = DecoderConfig(algorithm="min-sum", schedule="layered", max_iters=4, crc="16")
 LEG2_CFG = DecoderConfig(schedule="layered", normalization=0.85, max_iters=2)
 LEG3_CFG = DecoderConfig(schedule="layered", normalization=0.8, max_iters=3, crc="16")
+#: the edge-list path (phase 3k), CUDA against the CPU: the DVB-S2 16200
+#: r1/2 oracle (auto) and wimax 576 r3/4B (explicit "edgelist"), batch 16,
+#: layered NMS alpha 0.75, EL_ITERS sweeps, at an SNR where nearly every
+#: frame converges and one where most run all the sweeps
+EL_CASES = (("oracle", (2.0, 0.8)), ("wimax", (5.0, 1.0)))
+EL_BATCH = 16
+EL_ITERS = 20
+#: phase 4n: BASELINE config 3's point (layered NMS alpha 0.85, 30
+#: iterations, batch 1024, 1.4 dB) on the standard-domain oracle
+ORACLE_CFG = DecoderConfig(normalization=0.85, max_iters=30)
+ORACLE_SNR = 1.4
+#: phase 4o: BASELINE config 4t (benchmarks/run_baseline.py:883-929): A =
+#: 20000, G = 40000, QPSK (C = 3, K' = 6699, Z = 320), 128 TBs, 3.0 dB, the
+#: transport's default decoder; and a small-Z block (Z = 48) on kernel B's
+#: route at the same point
+TB_ARGS = ((20000, 40000), dict(qm=2))
+TB_SMALL_ARGS = ((1000, 3000), dict(bg=1, qm=2))
+TB_BATCH = 128
+TB_SNR = 3.0
+TB_FIELDS = ("payload", "tb_ok", "tb_crc_ok", "cb_ok", "converged", "iterations")
+#: aten ops that launch no device kernel (views, host scalars)
+NO_LAUNCH_OPS = {"view", "_unsafe_view", "t", "transpose", "slice", "select",
+                 "unsqueeze", "squeeze", "expand", "alias", "detach",
+                 "as_strided", "permute", "lift_fresh", "scalar_tensor",
+                 "_local_scalar_dense"}
 #: the card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s, which
 #: bound() divides bytes by, and f32 operations/s outside the tensor cores
 #: (a fused multiply-add counted as two), which phase 6 logs beside its
@@ -880,9 +950,9 @@ def check_long(code, cfg, llr_gpu, llr_cpu=None, force_global=False):
     return k, worst
 
 
-def summary(res) -> str:
+def summary(res, cap: int = 30) -> str:
     return (f"conv={res.converged.float().mean().item():.4f} "
-            f"at_30_iters={(res.iterations == 30).float().mean().item():.4f} "
+            f"at_{cap}_iters={(res.iterations == cap).float().mean().item():.4f} "
             f"total_iters={int(res.total_iters)}")
 
 
@@ -1243,11 +1313,13 @@ def phase_main_path():
     return dec, llr, u, decoder_launches, coder_launches, (coder, src, post)
 
 
-def gates(dec, res, u) -> str:
+def gates(dec, res, u, syndrome=None) -> str:
     """bench.py's sanity gates on one decoded batch: convergence > 0.98,
     bit errors <= unconverged frames x k, and converged frames with a zero
-    syndrome.  Returns the batch's summary."""
+    syndrome (``syndrome``: [B, n] NumPy bits -> [B, m], the code's own by
+    default).  Returns the batch's summary."""
     code = dec.code
+    syndrome = syndrome or code.syndrome
     conv = res.converged.float().mean().item()
     unconv = int((~res.converged).sum())
     berr = int((dec.info_bits(res) != u).sum())
@@ -1256,7 +1328,7 @@ def gates(dec, res, u) -> str:
     if berr > unconv * code.k_info:
         raise AssertionError(f"{berr} bit errors > {unconv} unconverged x k")
     bits = res.bits.cpu().numpy()
-    if code.syndrome(bits[res.converged.cpu().numpy()]).any():
+    if syndrome(bits[res.converged.cpu().numpy()]).any():
         raise AssertionError("a converged frame has a nonzero syndrome")
     return (f"conv={conv:.4f} mean_iters={res.iterations.float().mean().item():.3f} "
             f"total_iters={int(res.total_iters)} bit_errors={berr}")
@@ -1924,6 +1996,233 @@ def phase_acceptance() -> dict:
             "config1c_retry_ms": t["retry"], "config1c_retry_share": t["share"]}
 
 
+def el_llr(code, batch: int, snr_db: float, seed: int) -> torch.Tensor:
+    """[batch, n] float32 LLRs on the CPU of random codewords (the code's
+    NumPy encoder: the oracle's own, else RU's) through BPSK/AWGN, noise
+    from NumPy."""
+    if not hasattr(code, "encode_numpy"):
+        return torch.from_numpy(numpy_llr(code, batch, snr_db, seed))
+    rng = np.random.default_rng(seed)
+    c = code.encode_numpy(rng.integers(0, 2, size=(batch, code.k), dtype=np.uint8))
+    sigma = np.float32(10 ** (-snr_db / 20))
+    y = 1 - 2 * c.astype(np.float32) + sigma * rng.standard_normal(c.shape).astype(np.float32)
+    return torch.from_numpy((y * np.float32(2 / sigma**2)).astype(np.float32))
+
+
+def phase_edgelist_vs_cpu() -> tuple[float, float]:
+    """Phase 3k: the edge-list path on CUDA against the same function on
+    the CPU.  Returns the largest difference of the held cases (0.0: any
+    other raises) and sum-product's posterior difference against the CPU."""
+    worst, n_cases = 0.0, 0
+    for name, snrs in EL_CASES:
+        code = dvbs2_oracle(16200, "1/2") if name == "oracle" else wimax(576, "3/4B")
+        impl = "auto" if name == "oracle" else "edgelist"
+        for si, snr in enumerate(snrs):
+            llr = el_llr(code, EL_BATCH, snr, SEED + 300 + 2 * len(name) + si)
+            for schedule in ("layered", "flooding"):
+                for early_exit in exits(si == 0):
+                    cfg = DecoderConfig(schedule=schedule, normalization=0.75,
+                                        max_iters=EL_ITERS, early_exit=early_exit,
+                                        soft_output=True, implementation=impl)
+                    dec = Decoder(code, cfg, device="cuda")
+                    if dec.implementation != "edgelist":
+                        raise AssertionError(f"{code.name} resolved to {dec.implementation}")
+                    res = dec(llr.cuda())
+                    worst = max(worst, max_abs_diff(res, Decoder(code, cfg, device="cpu")(llr)))
+                    n_cases += 1
+                    log(f"[phase3k] {code.name} {schedule} snr={snr} early_exit={early_exit} "
+                        f"{summary(res, EL_ITERS)}: cuda == cpu, posteriors included")
+    code = dvbs2_oracle(16200, "1/2")
+    llr = el_llr(code, EL_BATCH, EL_CASES[0][1][0], SEED + 320)
+    sp = DecoderConfig(algorithm="sum-product", max_iters=EL_ITERS, soft_output=True)
+    sp_post = sp_cpu_diff(Decoder(code, sp, device="cuda")(llr.cuda()),
+                          Decoder(code, sp, device="cpu")(llr))
+    log(f"[phase3k] {code.name} layered sum-product: cuda and cpu bits and converged "
+        f"equal, iterations within 1; posteriors' max |diff| {sp_post:.4g}")
+    bf16 = DecoderConfig(normalization=0.75, max_iters=EL_ITERS, soft_output=True,
+                         msg_dtype="bfloat16")
+    res = Decoder(code, bf16, device="cuda")(llr.cuda())
+    worst = max(worst, max_abs_diff(res, Decoder(code, bf16, device="cpu")(llr)))
+    if res.posteriors.dtype != torch.bfloat16:
+        raise AssertionError("bf16 edge-list posteriors are not bf16")
+    log(f"[phase3k] {code.name} layered bf16 {summary(res, EL_ITERS)}: cuda == cpu, posteriors "
+        f"included; {n_cases + 2} cases")
+    return worst, sp_post
+
+
+def oracle_syndrome(oracle, qc):
+    """[B, n] standard-order NumPy bits of ``oracle`` -> [B, m] syndrome,
+    through ``qc``, the QC form of the same code, whose H is the oracle's
+    under the row-residue and ``std_interleave`` permutations (the rows
+    come out in the QC order)."""
+    inv = np.argsort(std_interleave(oracle.n, oracle.k))
+    return lambda bits: qc.syndrome(bits[:, inv])
+
+
+def phase_oracle_main_path():
+    """Phase 4n: BASELINE config 3's point on the standard-domain oracle
+    through ``Decoder`` (auto: the edge list), with bench.py's gates; the
+    same noisy frames, in the QC order, through dvbs2(64800, "1/2") on the
+    global placement (csrc/bp_stream.cu): equal bits on every frame that
+    both converge."""
+    code = dvbs2_oracle(64800, "1/2")
+    dec = Decoder(code, ORACLE_CFG, device="cuda")
+    if dec.implementation != "edgelist":
+        raise AssertionError(f"the oracle resolved to {dec.implementation}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    u = torch.randint(0, 2, (DVB_BATCH, code.k), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    cw = code.encode_fn()(u)
+    qc = dvbs2(64800, "1/2")
+    syndrome = oracle_syndrome(code, qc)
+    if syndrome(cw[:64].cpu().numpy()).any():
+        raise AssertionError("the oracle's encode_fn made a non-codeword")
+    llr = transmit(gen, cw, ORACLE_SNR)[0].contiguous()
+    torch.cuda.synchronize()
+    res = dec(llr)
+    torch.cuda.synchronize()
+    log(f"[phase4n] Decoder impl={dec.implementation} {code.name} batch={DVB_BATCH} "
+        f"snr={ORACLE_SNR} layered NMS 0.85 {gates(dec, res, u, syndrome)}")
+    perm = torch.as_tensor(std_interleave(code.n, code.k), device="cuda")
+    qc_dec = Decoder(qc, DVB_CFG, device="cuda")
+    decode_qc_long.global_launches = 0
+    qres = qc_dec(llr[:, torch.argsort(perm)].contiguous())
+    torch.cuda.synchronize()
+    if qc_dec.implementation != "cuda_long" or decode_qc_long.global_launches != 1:
+        raise AssertionError("the QC form did not launch the global placement")
+    both = res.converged & qres.converged
+    if not torch.equal(res.bits[both], qres.bits[:, perm][both]):
+        raise AssertionError("the oracle and bp_stream.cu differ on a frame both converged")
+    counts = {"oracle_converged": int(res.converged.sum()),
+              "qc_converged": int(qres.converged.sum()), "both_converged": int(both.sum())}
+    log(f"[phase4n] the same frames through {qc.name} on bp_stream.cu (lazy): "
+        f"converged {counts['qc_converged']} of {DVB_BATCH}, the oracle {counts['oracle_converged']}; "
+        f"equal bits on the {counts['both_converged']} frames both converged")
+    return dec, llr, counts
+
+
+def tb_equal(a, b) -> None:
+    for f in TB_FIELDS:
+        if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()):
+            raise AssertionError(f"TBResult.{f} differs")
+
+
+def tb_case(args, kw, seed, counter):
+    """One transport format at TB_BATCH, TB_SNR: encode on the card, BPSK /
+    AWGN, receive through the default decoder (a kernel) with the kernel's
+    counter set to 0 just before, and through ``implementation="torch"``
+    on CUDA; the two receives equal in every field, no accepted TB with a
+    wrong payload.  Returns (transport, payload, llr, result, launches)."""
+    fmt = plan_tb(*args, **kw)
+    t = NRTransport(fmt, device="cuda")
+    plain = NRTransport(fmt, device="cuda", decoder_config=DecoderConfig(
+        normalization=0.75, implementation="torch"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    payload = torch.randint(0, 2, (TB_BATCH, fmt.a), generator=gen, device="cuda",
+                            dtype=torch.int8)
+    llr = transmit(gen, t.encode(payload), TB_SNR)[0].contiguous()
+    torch.cuda.synchronize()
+    counter.launches = 0
+    res = t.receive(llr)
+    torch.cuda.synchronize()
+    launches = counter.launches
+    if launches < 1:
+        raise AssertionError(f"{fmt.describe()}: the receive launched no kernel")
+    tb_equal(res, plain.receive(llr))
+    wrong = res.tb_ok & (res.payload != payload.to(torch.uint8)).any(dim=-1)
+    if wrong.any():
+        raise AssertionError(f"{int(wrong.sum())} TBs accepted with a wrong payload")
+    log(f"[phase4o] {fmt.describe()} impl={t.decoder.implementation} batch={TB_BATCH} "
+        f"snr={TB_SNR}: tb_ok {int(res.tb_ok.sum())}, cb_ok {int(res.cb_ok.sum())} of "
+        f"{res.cb_ok.numel()}, mean CB iterations {res.iterations.float().mean().item():.3f}, "
+        f"launches={launches}; == the receive with implementation=\"torch\" in every "
+        "field, no accepted TB with a wrong payload")
+    return t, payload, llr, res, launches
+
+
+def phase_transport():
+    """Phase 4o: BASELINE config 4t on kernel C under the acceptance
+    wrapper (CRC24B at span K'), and a small-Z block on kernel B's route."""
+    t, payload, llr, res, launches = tb_case(*TB_ARGS, SEED + 8, decode_qc_long)
+    if t.decoder.implementation != "cuda_long" or t.decoder.config.crc != "24B":
+        raise AssertionError("config 4t is not on kernel C with CRC24B acceptance")
+    small = tb_case(*TB_SMALL_ARGS, SEED + 9, decode_qc_cuda)[0]
+    if small.decoder.implementation != "cuda" or small.fmt.z >= 64:
+        raise AssertionError("the small-Z block is not on kernel B's route")
+    return t, payload, llr, int(res.tb_ok.sum()), launches
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the aten ops dispatched that launch a device kernel (views
+    and host scalars left out)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.__name__.split(".")[0] not in NO_LAUNCH_OPS:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def count_ops(fn) -> dict:
+    """One call of ``fn``: the aten ops it dispatches that launch a device
+    kernel (:class:`OpCount`) and, in another call, the CUDA kernels that
+    ``torch.profiler`` records and the sum of their device times (ms)."""
+    with OpCount() as ops:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"ops": ops.n, "kernels": len(kernels),
+            "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3}
+
+
+def phase_edgelist_times(dec, llr) -> dict:
+    """The 64800 oracle's ``Decoder`` call (phase 4n's inputs): its time,
+    the torch launches of one call per sweep, and the device's busy share
+    (the profiled kernels' device time over the call's median time)."""
+    res = dec(llr)
+    sweeps = int(res.total_iters)
+    ms = median_ms(lambda: dec(llr), 5)
+    counts = count_ops(lambda: dec(llr))
+    out = {"decoder_ms": ms, "sweeps": sweeps,
+           "mean_iterations": res.iterations.float().mean().item(),
+           "decoded_mbits": llr.shape[0] * dec.code.k_info / (ms * 1e-3) / 1e6,
+           "torch_ops_per_sweep": counts["ops"] / sweeps,
+           "cuda_kernels_per_sweep": counts["kernels"] / sweeps,
+           "ms_per_sweep": ms / sweeps,
+           "kernel_ms": counts["kernel_ms"], "busy_share": counts["kernel_ms"] / ms}
+    log(f"[phase5] {dec.code.name} edge-list Decoder: {ms:.4f} ms per batch of "
+        f"{llr.shape[0]} ({sweeps} sweeps, {out['ms_per_sweep']:.4f} ms a sweep) = "
+        f"{out['decoded_mbits']:.1f} Mbit/s decoded info; {out['torch_ops_per_sweep']:.1f} "
+        f"torch ops and {out['cuda_kernels_per_sweep']:.1f} CUDA kernels a sweep, their "
+        f"device time {out['kernel_ms']:.4f} ms (busy share {out['busy_share']:.3f})")
+    return out
+
+
+def phase_transport_times(t, payload, llr) -> dict:
+    """Config 4t: the receive alone, and encode + BPSK/AWGN + receive, as
+    payload Mbit/s."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+
+    def chain():
+        return t.receive(transmit(gen, t.encode(payload), TB_SNR)[0])
+
+    out = {"receive_ms": median_ms(lambda: t.receive(llr), 5),
+           "chain_ms": median_ms(chain, 5)}
+    bits = payload.shape[0] * t.fmt.a
+    for k in ("receive", "chain"):
+        out[f"{k}_mbits"] = bits / (out[f"{k}_ms"] * 1e-3) / 1e6
+    log(f"[phase5] config 4t ({t.fmt.describe()}, {payload.shape[0]} TBs): receive "
+        f"{out['receive_ms']:.4f} ms = {out['receive_mbits']:.1f} Mbit/s payload; encode + "
+        f"channel + receive {out['chain_ms']:.4f} ms = {out['chain_mbits']:.1f} Mbit/s")
+    return out
+
+
 def phase_legs() -> dict:
     """Phase 4j: the three legs of ``__graft_entry__.dryrun_multichip`` on one
     card through ``sim_step`` with the reference's configs (its 1-D mesh
@@ -2562,6 +2861,7 @@ def main() -> int:
     worst_long = phase(phase_long_kernel_vs_plain)
     worst_shared, worst_global = phase(phase_dvbs2_kernel_vs_plain)
     worst_c_modes, c_sp_cpu_post = phase(phase_long_modes_vs_plain)
+    worst_el, el_sp_cpu_post = phase(phase_edgelist_vs_cpu)
     dec, llr, u, launches, coder_launches, stream = phase(phase_main_path)
     flood_decs, flood_launches, mode_coder_launches = phase(
         phase_flooding_main_path, llr, u, stream)
@@ -2582,6 +2882,8 @@ def main() -> int:
     bf16_fers = phase(phase_bf16_waterfall)
     acceptance = phase(phase_acceptance)
     legs = phase(phase_legs)
+    oracle_dec, oracle_llr, oracle_counts = phase(phase_oracle_main_path)
+    tb, tb_payload, tb_llr, tb_ok, tb_launches = phase(phase_transport)
     times = phase_times(dec, llr, decode_qc_cuda, decode_qc_cuda_plain,
                         dataclasses.replace(BENCH_CFG, triage_iters=0))
     passes = triage_times(dec, llr)
@@ -2624,8 +2926,16 @@ def main() -> int:
     sweeps = {name: long_sweep_fields(nr, cfg, nr_llr) for name, cfg in (
         ("min-sum", NR_CFG), ("sum-product", NR_SP_CFG), ("soft", nr_soft_dec.config),
         ("bf16", BF16_NR_CFGS["min-sum"]))}
+    el_times = phase_edgelist_times(oracle_dec, oracle_llr)
+    tb_times = phase_transport_times(tb, tb_payload, tb_llr)
     log(f"[time] phase 5 done at {time.perf_counter() - t0:.1f} s")
 
+    # the edge-list path runs torch ops, no kernel of its own: its record
+    log(json.dumps({"edgelist": {
+        "source": "myldpccppapi_torch/ops/bp_edgelist.py",
+        "replaces": "myldpccppapi_tpu/ops/bp_edgelist.py:133 (XLA gathers and scatters)",
+        "cuda_vs_cpu_max_abs_err": worst_el, "sp_cpu_posterior_max_abs_err": el_sp_cpu_post,
+        **oracle_counts, **el_times}}))
     log(smi)
 
     def entry(name, source, replaces, launches, worst, t, **extra):
@@ -2679,7 +2989,13 @@ def main() -> int:
               max(worst_long, worst_shared), nr_times, **sweeps["min-sum"],
               m4_launches=m4[-1], m4_demap_ms=m4_times["demap"],
               m4_receive_ms=m4_times["receive"],
-              acceptance_leg_dvbs2_16200_bch=legs["dvbs2_16200_bch"]),
+              acceptance_leg_dvbs2_16200_bch=legs["dvbs2_16200_bch"],
+              # BASELINE config 4t (phase 4o): the transport's receive
+              config4t_launches=tb_launches, config4t_tb_ok=tb_ok,
+              config4t_tbs=TB_BATCH, config4t_ms=tb_times["receive_ms"],
+              config4t_payload_mbits=tb_times["receive_mbits"],
+              config4t_chain_ms=tb_times["chain_ms"],
+              config4t_chain_payload_mbits=tb_times["chain_mbits"]),
         # the global placement (kernel D's port) on the DVB-S2 64800 path
         entry("bp_stream", "bp_stream.cu", kernel_d, dvb_launches,
               worst_global, dvb_times, exact_ms=dvb_exact_times["kernel"],

@@ -1,5 +1,6 @@
-"""Code construction: base matrices, QC lifting, RS-LDPC, GF(2) algebra,
-encoders."""
+"""Code construction: base matrices, QC lifting, RS-LDPC, the DVB-S2
+standard-domain oracle, GF(2) algebra, encoders, and the TS 38.212
+transport-block chain."""
 from .qc import QCCode
 from .encoder import (
     Encoder,
@@ -10,10 +11,12 @@ from .encoder import (
 )
 from .dvbs2 import (
     BIT_INTERLEAVER_COLS,
+    DVBS2Code,
     bit_deinterleave,
     bit_interleave,
     dvbs2,
     dvbs2_ira_qc,
+    dvbs2_oracle,
     ira_encode_fn,
     ira_encode_numpy,
     std_interleave,
@@ -28,6 +31,15 @@ from .nr import (
     triangular_encode_fn,
     triangular_encode_numpy,
 )
+from .nr_transport import (
+    NRTransport,
+    TBFormat,
+    TBResult,
+    deinterleave_llr,
+    interleave_bits,
+    plan_tb,
+    select_base_graph,
+)
 from .regular import regular
 from .rs_ldpc import RSLDPCCode, rs_ldpc, rs_ldpc_from_n
 from .wifi import wifi
@@ -35,21 +47,27 @@ from .wimax import wimax
 
 __all__ = [
     "BIT_INTERLEAVER_COLS",
+    "DVBS2Code",
+    "NRTransport",
     "QCCode",
     "RSLDPCCode",
     "bit_deinterleave",
     "bit_interleave",
     "dvbs2",
     "dvbs2_ira_qc",
+    "dvbs2_oracle",
+    "deinterleave_llr",
     "Encoder",
     "EncoderMatrices",
     "encode_numpy",
     "generic_precompute",
     "harq_combine",
+    "interleave_bits",
     "ira_encode_fn",
     "ira_encode_numpy",
     "nr_base_graph",
     "nr_code",
+    "plan_tb",
     "rate_match_bits",
     "rate_match_llr",
     "regular",
@@ -57,7 +75,10 @@ __all__ = [
     "rs_ldpc",
     "rs_ldpc_from_n",
     "rv_start",
+    "select_base_graph",
     "std_interleave",
+    "TBFormat",
+    "TBResult",
     "triangular_encode_fn",
     "triangular_encode_numpy",
     "wifi",

@@ -29,13 +29,18 @@ The EN 302 307 §5.3.3 bit interleaver (:func:`bit_interleave`,
 :func:`bit_deinterleave`) works on torch tensors of bits or LLRs; it is
 BICM-ID's interleaver hook (ops/bicm_id.py).
 
-Not ported yet: the standard-domain edge-list oracle (``DVBS2Code``,
-``dvbs2_oracle``; ROADMAP Queue 1 item 9).
+:func:`dvbs2_oracle` builds the same code in the standard (un-permuted)
+domain as a :class:`DVBS2Code`, which the generic edge-list decoder
+(ops/bp_edgelist.py) serves, its layers the row residues mod q (360 rows
+a layer): the independent test oracle that pins the QC transformation,
+not a production path.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import warnings
+from functools import cached_property
 from typing import Tuple
 
 import numpy as np
@@ -43,10 +48,10 @@ import torch
 
 from .qc import QCCode
 
-__all__ = ["BIT_INTERLEAVER_COLS", "bit_deinterleave", "bit_interleave",
-           "dvbs2", "dvbs2_ira_qc", "ira_encode_fn", "ira_encode_numpy",
-           "parse_address_table", "std_interleave", "synthetic_address_table",
-           "table_4cycles"]
+__all__ = ["BIT_INTERLEAVER_COLS", "DVBS2Code", "bit_deinterleave",
+           "bit_interleave", "dvbs2", "dvbs2_ira_qc", "dvbs2_oracle",
+           "ira_encode_fn", "ira_encode_numpy", "parse_address_table",
+           "std_interleave", "synthetic_address_table", "table_4cycles"]
 
 _GROUP = 360
 
@@ -386,3 +391,147 @@ def ira_encode_fn(code: QCCode):
         return torch.cat([ub.reshape(*lead, code.k), p_int], dim=-1)
 
     return encode
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DVBS2Code:
+    """IRA code in the standard domain: H = [H_info | H_acc], accumulator
+    bidiagonal parity (a NumPy copy of the reference's ``DVBS2Code``)."""
+
+    name: str
+    n: int
+    k: int
+    #: per info-group address lists: addresses[g] = row indices of bit g*360
+    addresses: Tuple[Tuple[int, ...], ...]
+
+    @property
+    def m(self) -> int:
+        return self.n - self.k
+
+    @property
+    def q(self) -> int:
+        return self.m // _GROUP
+
+    @property
+    def rate(self) -> float:
+        return self.k / self.n
+
+    @property
+    def k_info(self) -> int:
+        return self.k
+
+    @property
+    def info_positions(self) -> np.ndarray:
+        return np.arange(self.k, dtype=np.int64)
+
+    @cached_property
+    def info_edges(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(rows, cols) of the information part of H."""
+        m, q = self.m, self.q
+        rows, cols = [], []
+        for g, addrs in enumerate(self.addresses):
+            j = np.arange(_GROUP, dtype=np.int64)
+            for a in addrs:
+                rows.append((a + j * q) % m)
+                cols.append(g * _GROUP + j)
+        return np.concatenate(rows), np.concatenate(cols)
+
+    def h_coo(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Full H edge list (info part + accumulator), row-major sorted."""
+        ir, ic = self.info_edges
+        m = self.m
+        acc_rows = np.concatenate([np.arange(m), np.arange(1, m)])
+        acc_cols = np.concatenate(
+            [self.k + np.arange(m), self.k + np.arange(m - 1)]
+        )
+        rows = np.concatenate([ir, acc_rows])
+        cols = np.concatenate([ic, acc_cols])
+        order = np.lexsort((cols, rows))
+        return rows[order], cols[order]
+
+    @cached_property
+    def edge_index(self):
+        """Padded edge tables with mod-q layered grouping (360 rows/layer)."""
+        from ..ops.bp_edgelist import build_edge_index
+
+        rows, cols = self.h_coo()
+        layer = (np.arange(self.m) % self.q).astype(np.int32)
+        return build_edge_index(rows, cols, self.n, self.m, layer)
+
+    # -- encoding ----------------------------------------------------------
+    def encode_numpy(self, u: np.ndarray) -> np.ndarray:
+        """[..., k] info bits -> [..., n]: scatter + prefix-XOR accumulator."""
+        u = np.asarray(u)
+        rows, cols = self.info_edges
+        flat_u = u.reshape(-1, self.k).astype(np.int64)
+        flat_lam = np.zeros((flat_u.shape[0], self.m), dtype=np.int64)
+        np.add.at(flat_lam.T, rows, flat_u.T[cols])
+        p = np.cumsum(flat_lam, axis=-1) & 1
+        out = np.concatenate([flat_u & 1, p], axis=-1).astype(u.dtype)
+        return out.reshape(*u.shape[:-1], self.n)
+
+    def encode_fn(self):
+        """Torch encoder: [B, k] 0/1 info bits (any integer dtype, any
+        device) -> [B, n] codeword bits, uint8, on the same device.  The
+        parity is the prefix XOR of the rows' information sums: one integer
+        cumulative sum over the information edges sorted by row, read at
+        each row's end, mod 2 (no scatter)."""
+        rows, cols = self.info_edges
+        order = np.argsort(rows, kind="stable")
+        ends = np.cumsum(np.bincount(rows, minlength=self.m))  # [m]
+        dev = {}
+
+        def encode(u: torch.Tensor) -> torch.Tensor:
+            if u.device not in dev:
+                dev[u.device] = (torch.as_tensor(cols[order], device=u.device),
+                                 torch.as_tensor(ends, device=u.device))
+            cols_t, ends_t = dev[u.device]
+            bits = (u & 1).to(torch.int32)
+            csum = torch.cumsum(bits[:, cols_t], dim=-1, dtype=torch.int32)
+            csum = torch.cat([csum.new_zeros((u.shape[0], 1)), csum], dim=-1)
+            p = csum[:, ends_t] & 1
+            return torch.cat([bits, p], dim=-1).to(torch.uint8)
+
+        return encode
+
+    def syndrome(self, cw: np.ndarray) -> np.ndarray:
+        """H @ c mod 2 via the edge list (numpy, for tests)."""
+        rows, cols = self.h_coo()
+        cw = np.asarray(cw)
+        flat = cw.reshape(-1, self.n).astype(np.int64)
+        syn = np.zeros((flat.shape[0], self.m), dtype=np.int64)
+        np.add.at(syn.T, rows, flat.T[cols])
+        return (syn & 1).reshape(*cw.shape[:-1], self.m)
+
+    def describe(self) -> str:
+        e = len(self.info_edges[0]) + 2 * self.m - 1
+        return (
+            f"DVBS2Code({self.name}: n={self.n}, k={self.k}, q={self.q}, "
+            f"rate={self.rate:.3f}, edges~{e})"
+        )
+
+
+def dvbs2_oracle(n: int = 64800, rate: str = "1/2") -> DVBS2Code:
+    """Standard-domain (un-permuted) DVB-S2 code on the generic edge-list
+    path -- the independent test oracle for :func:`dvbs2`'s QC
+    transformation (the same default address tables, designed or
+    synthetic), not a production decoder.  Use :func:`dvbs2` everywhere
+    else."""
+    num, den = map(int, rate.split("/"))
+    if n == 16200:
+        if rate not in _SHORT_K_LDPC:
+            raise ValueError(f"unknown short-frame rate {rate!r}")
+        k = _SHORT_K_LDPC[rate]
+    else:
+        k = n * num // den
+    if (n - k) % _GROUP or k % _GROUP:
+        raise ValueError(f"n={n} rate={rate}: k and m must be multiples of 360")
+    from .dvbs2_designed import DESIGNED_ADDRESSES
+
+    return DVBS2Code(
+        name=f"dvbs2_n{n}_r{num}{den}",
+        n=n,
+        k=k,
+        addresses=DESIGNED_ADDRESSES.get((n, rate))
+        or synthetic_address_table(n, rate),
+    )

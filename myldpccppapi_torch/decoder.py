@@ -7,9 +7,16 @@ arbitrary batches on the decoder's device.
 The device defaults to the card (``"cuda"``); without CUDA that raises,
 and ``device="cpu"`` is the only way onto the CPU.
 
-Dispatch, in the reference's order (``myldpccppapi_tpu/decoder.py``): on a
-CUDA device ``"auto"`` resolves to the short-code kernel (``"cuda"``,
-ops/cuda_bp.py) when it serves the code and the config, else to the
+Dispatch, in the reference's order (``myldpccppapi_tpu/decoder.py``): a
+code without block structure (any object exposing ``n``, ``m`` and
+``h_coo()``, such as the DVB-S2 standard-domain oracle ``dvbs2_oracle``)
+resolves ``"auto"`` to the generic edge-list path (``"edgelist"``,
+ops/bp_edgelist.py: tensor ops on the decoder's device, as the
+reference's are XLA ops) on every device; an explicit ``"edgelist"``
+serves the QC and RS-LDPC codes too, a layer per block row.  For the
+port's block codes, on a CUDA device ``"auto"`` resolves to the
+short-code kernel (``"cuda"``, ops/cuda_bp.py) when it serves the code
+and the config, else to the
 long-code kernel (``"cuda_long"``, ops/cuda_long.py), else it raises; it
 never goes to the torch path quietly.  The short-code kernel serves the
 layered and flooding schedules, min-sum, sum-product, SCMS and soft output
@@ -33,11 +40,13 @@ dispatch asks them for the config without its check, and the decode (with
 its triage) is wrapped in the acceptance wrapper (ops/crc_accept.py,
 ``myldpccppapi_tpu/decoder.py:204-213,282-305``), whose retry is the
 kernel's plain version with the check in its latch, exact syndrome, on
-the same device.  The torch path runs the check in its own latch.
+the same device.  The torch and edge-list paths run the check in their
+own latch.
 
 Refused at construction, as the reference refuses them: soft output with
-triage (the two-phase wrapper merges hard outputs only) and SCMS on the
-long-code kernel.  An RS-LDPC code whose state does not fit a thread
+triage (the two-phase wrapper merges hard outputs only), SCMS on the
+long-code kernel and on the edge list, and min-sum weights that are not
+scalars on the edge list.  An RS-LDPC code whose state does not fit a thread
 block (``rs_ldpc(s=8)``, n = 8192) raises on the card where the reference
 runs its jnp path: the long-code kernel aligns circulants only.
 """
@@ -46,15 +55,17 @@ from __future__ import annotations
 import dataclasses
 from functools import partial
 
+import numpy as np
 import torch
 
 from .codes.qc import QCCode
 from .codes.rs_ldpc import RSLDPCCode
 from .ops import cuda_bp, cuda_long
 from .ops.bp import DecodeResult, accept_fail_fn, decode_qc
+from .ops.bp_edgelist import build_edge_index, decode_edgelist
 from .ops.crc_accept import decode_with_crc_accept
 from .ops.triage import decode_two_phase
-from .utils.config import DecoderConfig
+from .utils.config import DecoderConfig, check_edgelist_config
 from .utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["Decoder", "DecodeResult", "resolve_device"]
@@ -73,6 +84,19 @@ def _syndrome_only(cfg: DecoderConfig) -> DecoderConfig:
 def _implementation(code, cfg: DecoderConfig, device: torch.device) -> str:
     impl = cfg.implementation
     cfg = _syndrome_only(cfg)
+    if not isinstance(code, (QCCode, RSLDPCCode)):
+        if hasattr(code, "blocks"):
+            raise TypeError(
+                f"{type(code).__name__} is not one of the port's block codes "
+                "(QCCode, RSLDPCCode); carry a reference code across with "
+                "interop.code_from_reference")
+        if impl not in ("auto", "edgelist"):
+            raise ValueError(
+                f"{code.name} has no block structure: only the edge-list path "
+                f"decodes it (implementation=\"auto\" or \"edgelist\", not {impl!r})")
+        return "edgelist"
+    if impl == "edgelist":
+        return impl
     if impl == "torch" or (impl == "auto" and device.type != "cuda"):
         return "torch"
     if device.type != "cuda":
@@ -99,8 +123,10 @@ def _implementation(code, cfg: DecoderConfig, device: torch.device) -> str:
 
 
 class Decoder:
-    """Batched LDPC decoder bound to one QC code, one configuration and one
-    device.
+    """Batched LDPC decoder bound to one code, one configuration and one
+    device: a :class:`QCCode` or :class:`RSLDPCCode` (block paths and the
+    kernels), or any object exposing ``n``, ``m`` and ``h_coo()`` (the
+    edge-list path).
 
     >>> dec = Decoder(wimax(576, "3/4B"), DecoderConfig())  # on the card
     >>> result = dec(llr)          # llr: [B, n] float, positive => bit 0
@@ -114,12 +140,6 @@ class Decoder:
         if overrides:
             config = dataclasses.replace(config, **overrides)
         device = resolve_device(device)
-        if not isinstance(code, (QCCode, RSLDPCCode)):
-            raise NotImplementedError(
-                "codes without QC or XOR block structure (edge lists) are "
-                "not ported to the PyTorch package yet (ROADMAP Queue 1 "
-                "item 9)"
-            )
         if config.soft_output and config.triage_iters > 0:
             raise ValueError(
                 "soft_output + triage is not supported: the two-phase "
@@ -136,15 +156,38 @@ class Decoder:
         self.config = config
         self.device = device
         impl = _implementation(code, config, device)
-        #: what actually runs: "cuda" or "cuda_long" (a kernel) or "torch"
+        if impl == "edgelist":
+            check_edgelist_config(config)
+        #: what actually runs: "cuda" or "cuda_long" (a kernel), "torch" or
+        #: "edgelist"
         self.implementation = impl
+        self._edge_idx = None
         self._fn = self._build_fn(config)
         if config.triage_iters > 0:
             self._fn = self._make_triage()
-        if (config.crc or config.outer) and impl != "torch":
+        if (config.crc or config.outer) and impl in _KERNELS:
             self._fn = self._make_crc_accept()
 
+    def _edge_index(self):
+        """The code's edge tables: its own ``edge_index`` where it has one
+        (the DVB-S2 oracle's mod-q layers), else built from ``h_coo()``
+        with a layer per block row (``arange(m) // z``) where the code has
+        a ``z``, one layer otherwise."""
+        if self._edge_idx is None:
+            idx = getattr(self.code, "edge_index", None)
+            if idx is None:
+                rows, cols = self.code.h_coo()
+                layer = (np.arange(self.code.m, dtype=np.int32) // self.code.z
+                         if hasattr(self.code, "z") else None)
+                idx = build_edge_index(rows, cols, self.code.n, self.code.m, layer)
+            self._edge_idx = idx
+        return self._edge_idx
+
     def _build_fn(self, cfg: DecoderConfig):
+        if self.implementation == "edgelist":
+            # the check runs in the edge list's own latch
+            return partial(decode_edgelist, self._edge_index(), cfg,
+                           crc_fail=accept_fail_fn(self.code, cfg))
         if self.implementation == "cuda":
             return partial(cuda_bp.decode_qc_cuda, self.code, _syndrome_only(cfg))
         if self.implementation == "cuda_long":

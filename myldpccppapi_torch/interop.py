@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .codes.dvbs2 import DVBS2Code
 from .codes.encoder import EncoderMatrices
 from .codes.qc import QCCode
 from .codes.rs_ldpc import RSLDPCCode
@@ -28,10 +29,16 @@ IMPLEMENTATION_NAMES = {
 }
 
 
-def code_from_reference(obj) -> "QCCode | RSLDPCCode":
+def code_from_reference(obj) -> "QCCode | RSLDPCCode | DVBS2Code":
     """A reference ``QCCode`` (name, base, z and the optional structure
     fields) -> the port's :class:`QCCode`; a reference ``RSLDPCCode`` (the
-    xor group: name, s, shifts) -> the port's :class:`RSLDPCCode`."""
+    xor group: name, s, shifts) -> the port's :class:`RSLDPCCode`; a
+    reference ``DVBS2Code`` (the standard-domain oracle: name, n, k,
+    addresses) -> the port's :class:`DVBS2Code`."""
+    if hasattr(obj, "addresses") and not hasattr(obj, "blocks"):
+        return DVBS2Code(name=obj.name, n=int(obj.n), k=int(obj.k),
+                         addresses=tuple(tuple(int(a) for a in g)
+                                         for g in obj.addresses))
     if getattr(obj, "group", "cyclic") == "xor":
         return RSLDPCCode(name=obj.name, s=int(obj.s),
                           shifts=np.array(obj.shifts, dtype=np.int64))

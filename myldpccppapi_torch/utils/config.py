@@ -3,26 +3,44 @@
 Counterpart of ``myldpccppapi_tpu/utils/config.py``: the same
 :class:`DecoderConfig` fields and validation.  Implementation names map
 ``"jnp"`` -> ``"torch"``, ``"pallas"`` -> ``"cuda"`` and
-``"pallas_zlane"`` -> ``"cuda_long"``.  Configurations
-the port does not serve yet raise :class:`NotImplementedError` naming the
-ROADMAP item that brings them, instead of being approximated.
+``"pallas_zlane"`` -> ``"cuda_long"``; ``"edgelist"`` keeps its name.
+Configurations the port does not serve yet raise
+:class:`NotImplementedError` naming the ROADMAP item that brings them,
+instead of being approximated.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["DecoderConfig"]
+__all__ = ["DecoderConfig", "check_edgelist_config"]
 
-#: implementation names the port knows: served now, or still to port
-_IMPLEMENTATIONS = ("auto", "torch", "cuda", "cuda_long")
-_IMPLEMENTATIONS_LATER = ("edgelist",)
+#: implementation names the port serves
+_IMPLEMENTATIONS = ("auto", "torch", "cuda", "cuda_long", "edgelist")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP {item})"
     )
+
+
+def check_edgelist_config(cfg: "DecoderConfig") -> None:
+    """The reference's refusals for the edge-list path: SCMS
+    (``myldpccppapi_tpu/decoder.py:159-167``) and min-sum weights that are
+    not scalars (``myldpccppapi_tpu/ops/bp_edgelist.py:149-154``)."""
+    if cfg.self_correction:
+        raise ValueError(
+            "self_correction (SCMS) is served by the torch QC path and the "
+            "short-code kernel's flooding mode (requested implementation="
+            '"edgelist"); use implementation="auto", "torch", or "cuda"'
+        )
+    if not isinstance(cfg.normalization, (int, float)) or not isinstance(
+        cfg.offset, (int, float)
+    ):
+        raise NotImplementedError(
+            "edge-list decoding supports scalar min-sum weights only"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,13 +56,16 @@ class DecoderConfig:
     offset:       beta for offset min-sum (0.0 = none); scalar or per layer
     early_exit:   stop when every codeword of the batch (on the CUDA
                   kernel: of the thread block) satisfies all parity checks
-    implementation: "auto" | "torch" | "cuda" | "cuda_long"
+    implementation: "auto" | "torch" | "cuda" | "cuda_long" | "edgelist"
                   (cuda = hand-written layered kernel for short QC codes,
                   csrc/bp_layered.cu; cuda_long = hand-written layered
                   kernel for long QC codes such as 5G NR, csrc/bp_long.cu;
-                  torch = plain tensor ops, any device; auto = on a CUDA
-                  device the first kernel that serves the code, cuda then
-                  cuda_long, else an error; torch on the CPU)
+                  torch = plain tensor ops, any device; edgelist = the
+                  generic edge-list path, ops/bp_edgelist.py, tensor ops on
+                  any device, for any H; auto = for a code without block
+                  structure the edge list, else on a CUDA device the first
+                  kernel that serves the code, cuda then cuda_long, else an
+                  error, and torch on the CPU)
     triage_iters: when > 0, decode the batch with this short budget first,
                   then re-decode only the unconverged frames at max_iters
                   (ops/triage.py; bit-identical to a single pass)
@@ -108,7 +129,7 @@ class DecoderConfig:
             raise ValueError(f"unknown algorithm {self.algorithm!r}")
         if self.schedule not in ("flooding", "layered"):
             raise ValueError(f"unknown schedule {self.schedule!r}")
-        if self.implementation not in _IMPLEMENTATIONS + _IMPLEMENTATIONS_LATER:
+        if self.implementation not in _IMPLEMENTATIONS:
             raise ValueError(f"unknown implementation {self.implementation!r}")
         if self.msg_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown msg_dtype {self.msg_dtype!r}")
@@ -149,13 +170,10 @@ class DecoderConfig:
         ):
             raise ValueError(f'outer must be ("bch", m, t), got {self.outer!r}')
         self._refuse_unported()
+        if self.implementation == "edgelist":
+            check_edgelist_config(self)
 
     def _refuse_unported(self):
-        if self.implementation in _IMPLEMENTATIONS_LATER:
-            raise _not_ported(
-                f"implementation={self.implementation!r}",
-                "Queue 1 item 9 (edge lists)",
-            )
         for f in ("normalization", "offset"):
             w = getattr(self, f)
             if not isinstance(w, (int, float)) and not all(

@@ -94,8 +94,11 @@ def test_interop_round_trips():
     assert interop.config_from_reference(
         ref.DecoderConfig(msg_dtype="bfloat16", crc="16")
     ) == DecoderConfig(msg_dtype="bfloat16", crc="16")
+    assert interop.config_from_reference(
+        ref.DecoderConfig(implementation="edgelist")
+    ) == DecoderConfig(implementation="edgelist")
     with pytest.raises(NotImplementedError):
-        interop.config_from_reference(ref.DecoderConfig(implementation="edgelist"))
+        interop.config_from_reference(ref.DecoderConfig(normalization=((0.7,), (0.8,))))
 
 
 def test_information_set_encoder_via_interop():

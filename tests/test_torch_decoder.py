@@ -76,7 +76,7 @@ def test_small_batch_skips_triage():
 PORTED = (dict(schedule="flooding"), dict(algorithm="sum-product"),
           dict(schedule="flooding", self_correction=True),
           dict(soft_output=True), dict(msg_dtype="bfloat16"), dict(crc="16"),
-          dict(outer=("bch", 16, 12)))
+          dict(outer=("bch", 16, 12)), dict(implementation="edgelist"))
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -96,14 +96,15 @@ def test_unported_configs_raise_not_implemented(kwargs):
     configurations, ported since, construct and decode on the CPU's torch
     path as the reference's jnp path does (bf16 too at this point, alpha 1:
     both round after every operation; the CRC and BCH latch, whose frames
-    here never pass the check, run to the cap alike)."""
+    here never pass the check, run to the cap alike); the edge-list path,
+    ported since, as the reference's edge-list path does."""
     if kwargs not in PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecoderConfig(**kwargs)
         return
     cfg = DecoderConfig(max_iters=10, **kwargs)
     dec = Decoder(CODE, cfg, device="cpu")
-    assert dec.implementation == "torch"
+    assert dec.implementation == kwargs.get("implementation", "torch")
     _, llr = _llr(4.0, 8, seed=5)
     got = dec(torch.from_numpy(llr))
     want = ref.Decoder(REF_CODE, ref.DecoderConfig(max_iters=10, **kwargs))(llr)
@@ -163,7 +164,7 @@ def test_decoder_refusals():
             np.zeros((1, CODE.n), np.float32))
     with pytest.raises(ValueError, match="shape"):
         Decoder(CODE, device="cpu")(np.zeros((2, CODE.n - 1), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="code_from_reference"):
         Decoder(REF_CODE, device="cpu")
     dense = type(CODE)(name="dense", base=np.zeros((12, 24), np.int32), z=24)
     assert Decoder(dense, device="cpu").implementation == "torch"  # auto on the CPU
