@@ -44,8 +44,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    dvbs2(16200, "8/9") (rows of 35 circulants) in shared memory,
    dvbs2(64800, "1/2") and dvbs2(64800, "3/4") in global memory, at an SNR
    where nearly every frame converges and one where most run 30
-   iterations, exact and lazy, alpha 0.85 and per layer, early exit on,
-   and off at the easy SNR; dvbs2(64800, "9/10") (rows of 40) once; a
+   iterations, exact and lazy, alpha 0.85 at the easy SNR and per layer
+   at the hard one, early exit on, and off at the easy SNR; dvbs2(64800, "9/10") (rows of 40) once; a
    plain staircase QC code whose posterior passes shared memory (kernel
    D's own domain), on all-zero-codeword LLRs from hopeless to easy; the
    global placement forced on nr_code(384, 1) and dvbs2(16200, "1/2"),
@@ -55,7 +55,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    their six columns (nearly every cell forwarded), a z of 101 (z x 4 and
    z x 2 bytes not multiples of 16: the padded layout) in f32 and bf16;
    and dvbs2(16200, "3/4") (rows of 22 circulants, shared) at batch 1 and
-   past two waves as in 3b: 52 cases (the 64800 codes run exact and lazy
+   past two waves as in 3b: 40 cases (the 64800 codes run exact and lazy
    at the easy SNR with early exit on, and lazy at the hard one: early
    exit off runs in the main path's batch case).
 3d. Kernel A's new modes vs plain: flooding min-sum (alpha 1.0, alpha 0.75,
@@ -65,7 +65,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    1/2, early exit on and off, and at 2 dB on r1/2, r3/4B and n=2304
    (170 cases): the kernel at
    batch 1000 (a ragged tail) against its plain version on CUDA, and at 5
-   dB at batch 16 against it on the CPU.  Bits, converged, iterations,
+   dB at batch 16 against it on the CPU on r1/2, r3/4B and n=2304.  Bits, converged, iterations,
    total_iters and the posteriors of every frame must be equal, with one
    tolerance: torch's CPU exp/log1p are not its CUDA ones (the phase
    counts the phi inputs where they differ), so sum-product is held
@@ -217,6 +217,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    tb_crc_ok, cb_ok, converged and iterations equal, and no TB with
    tb_ok carries a wrong payload.  Then a small-Z block, ``plan_tb(1000,
    3000, bg=1, qm=2)`` (Z = 48, kernel B's route), the same way.
+4p. (runs after 4o) Multi-process campaigns (myldpccppapi_torch/parallel/):
+   (a) ``make_sharded_campaign_step`` on a world-size-1 NCCL group on
+   cuda:0, BASELINE config 5's 8 points (0.5-4.0 dB, layered NMS alpha
+   0.8, 25 iterations) at the whole batch of 1024 on NR BG1 z=64
+   (triangular encode) and DVB-S2 16200 r1/2 (IRA encode), equal in every
+   field to ``sim_step`` on position 0's generators, kernel C launched;
+   then each family's campaign at world 1 as the CLI runs it, and the
+   step's collective timed alone; (b) ``dryrun_multichip(4)`` on
+   ``spawn``'s 4 ranks of the one card (snr 2 x data 2, gloo, tensors on
+   cuda:0): each rank's ``Decoder`` on the three legs must resolve to
+   kernel A, C and B's route and launch it, and every rank's [4] stats
+   must equal a recount in this process (``sim_step`` on the seed rule's
+   generator of every (position, point), summed over the data axis), every
+   field; (c) config 5 through the real entry point, ``python -m
+   torch.distributed.run --standalone --nproc-per-node 4 -m
+   myldpccppapi_torch -- waterfall ... --snr-shards 2 --dist-backend gloo
+   --batch 1024`` (512 frames a data rank, up to 100 frame errors or 8192
+   frames a point) for both families, then again from its checkpoint: no
+   new step.  A rank that fails, or a non-zero exit, fails the phase.
 6. (runs first, after the build) Kernel E, the op-rate calibration
    (csrc/op_rate.cu, tools/roofline.py): its five bodies (E's fma4, mix3
    and mix4; sfu, the decoders' phi; mufu, bare ex2/lg2) against their
@@ -274,7 +293,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernel (counted by a ``TorchDispatchMode``) and the CUDA kernels
    (``torch.profiler``) of one call per sweep, and the kernels' device
    time over the call's time (the busy share); config 4t's receive alone
-   and encode + channel + receive (median of 5), as payload Mbit/s.
+   and encode + channel + receive (median of 5), as payload Mbit/s;
+   phase 4p's config-5 campaign frames/s of each family at world 1 (NCCL,
+   the step already warm) and at 4 ranks on the card (the CLI's own wall
+   times), also over the points past the first group (whose steps carry
+   each rank's first launches and first collective), the step's
+   collective (NCCL at world 1; gloo at 4 ranks, per rank) and the spawn
+   and init seconds of the 4 ranks.
 
 The line before the last is the kernels' JSON record, one entry per kernel
 and mode: each ``launches`` counts its launches in its main path's
@@ -304,7 +329,11 @@ decode; the bound writes posteriors at 2 B); config 1/1c (``config1*``) and the 
 kernel the acceptance wraps; ``bp_long`` adds config 4t's (``config4t_*``:
 the launches of phase 4o's receive, its accepted TBs of ``config4t_tbs``,
 the receive's time and payload Mbit/s, and those of encode + channel +
-receive).  The edge-list path launches no kernel of its own, so its
+receive) and phase 4p's (``config5_*``: kernel C's launches in the
+world-1 campaigns, and the campaigns' frames/s); the entries of the
+kernels that the multi-rank dry run's legs run (``bp_layered`` leg 1,
+``bp_layered_route_b`` leg 3, ``bp_long`` leg 2) add each rank's launches
+(``multichip_4_ranks_launches``).  The edge-list path launches no kernel of its own, so its
 record (phase 3k's worst difference, 4n's convergence counts and phase
 5's times and launch counts) is a JSON line of its own, ``{"edgelist":
 {...}}``, before the card's name.  The last line is ``{"ok": true,
@@ -362,7 +391,7 @@ from myldpccppapi_torch.codes import (
     triangular_encode_fn,
     triangular_encode_numpy,
 )
-from myldpccppapi_torch.codes.bch import bch_attach_fn, bch_matrix, bch_params_dvbs2
+from myldpccppapi_torch.codes.bch import bch_attach_fn, bch_matrix
 from myldpccppapi_torch.codes.crc import CRC_POLYS, crc_attach_fn
 from myldpccppapi_torch.ops import _build, cuda_bp, cuda_stream
 from myldpccppapi_torch.ops.channel import sigma_from_snr_db, transmit
@@ -382,6 +411,19 @@ from myldpccppapi_torch.ops.cuda_long import (
 )
 from myldpccppapi_torch.ops.bp import accept_fail_fn, msg_dtype
 from myldpccppapi_torch.ops.packing import unpack_bits_np
+from myldpccppapi_torch.campaign import CampaignConfig, WaterfallCampaign
+from myldpccppapi_torch.parallel import (
+    dist as pdist,
+    make_mesh,
+    make_sharded_campaign_step,
+    point_generator,
+)
+from myldpccppapi_torch.parallel.dryrun import (
+    dryrun_multichip,
+    leg_snrs,
+    multichip_legs,
+    multichip_mesh,
+)
 from myldpccppapi_torch.sim import SimStats, sim_step
 from myldpccppapi_torch.tools.roofline import (
     BODIES,
@@ -427,6 +469,9 @@ DVB_CASES = ((16200, "1/2", SHARED, (1.5, 0.0)), (16200, "8/9", SHARED, (6.5, 5.
              (64800, "1/2", GLOBAL, (1.4, 1.0)), (64800, "3/4", GLOBAL, (4.2, 3.5)))
 #: kernel A's new modes (phase 3d): name -> (kernels-line group, config
 #: fields); "per-layer" gets one alpha per base row of each code
+#: phase 3d's codes (RATES_576 at n=576, then n=2304 r1/2) that also run
+#: at 2 dB and against the CPU at 5 dB: r1/2, r3/4B and n=2304
+CPU_CODES = (0, 4, 6)
 A_MODES = {
     "flooding alpha 1.0": ("flooding", dict(schedule="flooding")),
     "flooding alpha 0.75": ("flooding", dict(schedule="flooding", normalization=0.75)),
@@ -558,11 +603,10 @@ WIFI_SNR = 6.5
 #: and its entry's times (fma4) at E_DEPTH
 E_CHECK_DEPTH = 200
 E_DEPTH = 1000
-#: the three legs of __graft_entry__.dryrun_multichip on one device: name,
-#: code, config, SNR grid (its 1-D mesh case: two points), frames per point
-LEG1_CFG = DecoderConfig(algorithm="min-sum", schedule="layered", max_iters=4, crc="16")
-LEG2_CFG = DecoderConfig(schedule="layered", normalization=0.85, max_iters=2)
-LEG3_CFG = DecoderConfig(schedule="layered", normalization=0.8, max_iters=3, crc="16")
+#: the kernel each leg of __graft_entry__.dryrun_multichip (built by
+#: parallel/dryrun.py's multichip_legs) must resolve to on the card
+LEG_KERNELS = {"wimax576_crc16": "cuda", "dvbs2_16200_bch": "cuda_long",
+               "nr_bg1_z32_rm_crc16": "cuda"}
 #: the edge-list path (phase 3k), CUDA against the CPU: the DVB-S2 16200
 #: r1/2 oracle (auto) and wimax 576 r3/4B (explicit "edgelist"), batch 16,
 #: layered NMS alpha 0.75, EL_ITERS sweeps, at an SNR where nearly every
@@ -583,6 +627,24 @@ TB_SMALL_ARGS = ((1000, 3000), dict(bg=1, qm=2))
 TB_BATCH = 128
 TB_SNR = 3.0
 TB_FIELDS = ("payload", "tb_ok", "tb_crc_ok", "cb_ok", "converged", "iterations")
+#: phase 4p: BASELINE config 5 (benchmarks/run_baseline.py:1015-1066): 8
+#: SNR points, layered NMS alpha 0.8, 25 iterations, NR BG1 z=64
+#: (triangular encode) and DVB-S2 16200 r1/2 (IRA encode); through the CLI
+#: on MP_RANKS ranks of the one card (gloo), snr 2 x data 2, a batch of
+#: C5_BATCH (512 frames a data rank), up to C5_TARGET frame errors or
+#: C5_MAX_FRAMES frames a point; at world 1 (NCCL) the whole batch on one rank
+C5_CFG = DecoderConfig(schedule="layered", normalization=0.8, max_iters=25)
+C5_SNRS = [0.5 * i for i in range(1, 9)]
+C5_FAMILIES = {
+    "nr_bg1_z64": ["--family", "nr", "--z", "64", "--bg", "1"],
+    "dvbs2_short": ["--family", "dvbs2", "--n", "16200", "--rate", "1/2"],
+}
+C5_BATCH = 1024
+C5_TARGET = 100
+C5_MAX_FRAMES = 8192
+MP_RANKS = 4
+MP_SNR_SHARDS = 2
+MP_TIMEOUT_S = 600
 #: aten ops that launch no device kernel (views, host scalars)
 NO_LAUNCH_OPS = {"view", "_unsafe_view", "t", "transpose", "slice", "select",
                  "unsqueeze", "squeeze", "expand", "alias", "detach",
@@ -974,8 +1036,8 @@ def phase_dvbs2_kernel_vs_plain() -> tuple[float, float]:
             llr_cpu = dvbs2_llr(code, batch, snr, SEED + 300 + ci)
             llr_gpu = llr_cpu.cuda()
             cpu16 = llr_cpu[:16].contiguous() if n == 16200 else None
-            # 64800: alpha scalar at the easy SNR, per layer at the hard one
-            alphas = (0.85, per_layer) if n == 16200 else ((0.85, per_layer)[si],)
+            # alpha scalar at the easy SNR, per layer at the hard one
+            alphas = ((0.85, per_layer)[si],)
             before = decode_qc_long.global_launches
             # 64800: early exit off runs in the main path's batch case
             # below, and the hard SNR runs lazy only (its plain version on
@@ -989,7 +1051,7 @@ def phase_dvbs2_kernel_vs_plain() -> tuple[float, float]:
                         k, d = check_long(code, cfg, llr_gpu, cpu16)
                         worst[where] = max(worst[where], d)
                         n_cases += 1
-                        if alpha == 0.85 and early_exit:
+                        if early_exit:
                             log(f"[phase3c] {code.name} "
                                 f"{'shared' if where == SHARED else 'global'} "
                                 f"snr={snr} {mode} {summary(k)}: kernel == plain"
@@ -1147,7 +1209,7 @@ def phase_modes_vs_plain() -> tuple[dict, float]:
             np.linspace(0.65, 0.85, code.m_b), 3))
         # 2 dB on three of the codes: every mode there runs the same
         # instantiations as at 5 dB, with most blocks at 40 sweeps
-        for snr in (5.0, 2.0) if ci in (0, 4, 6) else (5.0,):
+        for snr in (5.0, 2.0) if ci in CPU_CODES else (5.0,):
             llr_cpu = torch.from_numpy(numpy_llr(code, 1000, snr, SEED + 400 + ci))
             llr_gpu = llr_cpu.cuda()
             cpu16 = llr_cpu[:16].contiguous()
@@ -1161,13 +1223,15 @@ def phase_modes_vs_plain() -> tuple[dict, float]:
                     worst[group] = max(
                         worst[group],
                         max_abs_diff(k, decode_qc_cuda_plain(code, cfg, llr_gpu)))
-                    # against the CPU at 5 dB only: at 2 dB the CPU plain
-                    # version would repeat the CUDA one checked above
-                    if snr == 5.0 and group != "sp":
+                    # against the CPU at 5 dB only, on the codes that also
+                    # run at 2 dB (r1/2, r3/4B, n=2304): at 2 dB and on the
+                    # other rates the CPU plain version would repeat the
+                    # CUDA one checked above
+                    if snr == 5.0 and ci in CPU_CODES and group != "sp":
                         worst[group] = max(worst[group], max_abs_diff(
                             decode_qc_cuda(code, cfg, cpu16.cuda()),
                             decode_qc_cuda_plain(code, cfg, cpu16)))
-                    elif snr == 5.0:
+                    elif snr == 5.0 and ci in CPU_CODES:
                         sp_cpu_post = max(sp_cpu_post, sp_cpu_diff(
                             decode_qc_cuda(code, cfg, cpu16.cuda()),
                             decode_qc_cuda_plain(code, cfg, cpu16)))
@@ -1185,7 +1249,7 @@ def phase_modes_vs_plain() -> tuple[dict, float]:
                            for n in ("flooding alpha 0.75", "scms", "sp flooding"))
                 + f" scms!=flooding on {diff} frames: "
                 f"{len(exits(snr == 5.0)) * len(A_MODES)} cases kernel == plain (cuda; cpu, "
-                + ("sum-product within its tolerance)" if snr == 5.0
+                + ("sum-product within its tolerance)" if snr == 5.0 and ci in CPU_CODES
                    else "not compared)"))
     if erased == 0:
         raise AssertionError("SCMS never ran otherwise than plain flooding")
@@ -2230,53 +2294,38 @@ def phase_legs() -> dict:
     16200 r1/2 with post-decode outer BCH on kernel C, NR BG1 z=32
     rate-matched rv0 with CRC-16 on kernel B's route; then leg 2's code
     with the BCH in the decoder: kernel C + the wrap equals the latch."""
-    code1 = wimax(576, "1/2")
-    code2 = dvbs2(16200, "1/2")
-    m_f, t_f, _ = bch_params_dvbs2(16200, "1/2")
-    code3 = nr_code(32, 1)
-    e3 = code3.n - code3.punctured_front
-    tri3 = triangular_encode_fn(code3)
-    dec1, dec2, dec3 = (Decoder(c, cfg, device="cuda") for c, cfg in
-                        ((code1, LEG1_CFG), (code2, LEG2_CFG), (code3, LEG3_CFG)))
-    # (name, code, config, encode, decode, its Decoder, outer code, frames
-    # per point, SNR points, the kernel it must resolve to)
-    legs = [
-        ("wimax576_crc16", code1, LEG1_CFG, Encoder(code1, device="cuda"), dec1, dec1,
-         None, 8, (1.0, 4.0), "cuda"),
-        ("dvbs2_16200_bch", code2, LEG2_CFG, ira_encode_fn(code2), dec2, dec2,
-         ("bch", m_f, t_f), 2, (1.0, 2.5), "cuda_long"),
-        ("nr_bg1_z32_rm_crc16", code3, LEG3_CFG,
-         lambda u: rate_match_bits(code3, tri3(u), e3),
-         lambda llr_e: dec3(rate_match_llr(code3, llr_e, e3).contiguous()), dec3,
-         None, 4, (2.0, 6.0), "cuda"),
-    ]
+    legs = multichip_legs("cuda")
     out = {}
-    for li, (name, code, cfg, enc_fn, dec_fn, dec, outer, bpd, snrs,
-             impl) in enumerate(legs):
+    for li, leg in enumerate(legs):
+        name, impl = leg["name"], LEG_KERNELS[leg["name"]]
         kernel = decode_qc_long if impl == "cuda_long" else decode_qc_cuda
-        if dec.implementation != impl:
-            raise AssertionError(f"leg {name} resolved to {dec.implementation}")
+        if leg["decoder"].implementation != impl:
+            raise AssertionError(f"leg {name} resolved to {leg['decoder'].implementation}")
         kernel.launches = 0
-        stats = [sim_step(code, cfg, torch.Generator(device="cuda").manual_seed(
-            SEED + 600 + 10 * li + i), snr, bpd, encode_fn=enc_fn, decode_fn=dec_fn,
-            outer=outer) for i, snr in enumerate(snrs)]
+        snrs = leg["snr"]
+        stats = [sim_step(leg["code"], leg["cfg"], torch.Generator(device="cuda").manual_seed(
+            SEED + 600 + 10 * li + i), snr, leg["batch_per_device"],
+            encode_fn=leg["encode_fn"], decode_fn=leg["decode_fn"], outer=leg["outer"])
+            for i, snr in enumerate(snrs)]
         torch.cuda.synchronize()
         tot = {f: sum(int(getattr(st, f)) for st in stats) for f in SimStats._fields}
         tot["launches"] = kernel.launches
-        if tot["frames"] != len(snrs) * bpd or tot["launches"] < len(snrs):
+        if tot["frames"] != len(snrs) * leg["batch_per_device"] or tot["launches"] < len(snrs):
             raise AssertionError(f"leg {name}: {tot}")
         out[name] = tot
         log(f"[phase4j] leg[{name}] OK on one card: impl={impl} snr={list(snrs)} "
             + ", ".join(f"{k}={v}" for k, v in tot.items()))
+    code2, outer2 = legs[1]["code"], legs[1]["outer"]
+    _, m_f, t_f = outer2
     # leg 2 with the BCH in the decoder's acceptance: kernel C + wrap == latch,
     # on noisy true frames and forged ones (valid LDPC codewords whose BCH
     # field is broken), fewer and more than the wrap's cap of 8
-    cfg2 = dataclasses.replace(LEG2_CFG, outer=("bch", m_f, t_f))
+    cfg2 = dataclasses.replace(legs[1]["cfg"], outer=outer2)
     wrap = Decoder(code2, cfg2, device="cuda")
     latch = Decoder(code2, cfg2, device="cuda", implementation="torch")
     k_msg = code2.k_info - bch_matrix(1, m_f, t_f).shape[1]
     attach = bch_attach_fn(k_msg, m_f, t_f)
-    enc2 = ira_encode_fn(code2)
+    enc2 = legs[1]["encode_fn"]
     for n_forged in (6, 12):
         _, good = acc_frames(enc2, SEED + 700 + n_forged, 2.5, 24, k_msg, attach)
         u, _ = acc_frames(enc2, SEED + 710 + n_forged, 2.5, n_forged, k_msg, attach)
@@ -2292,6 +2341,200 @@ def phase_legs() -> dict:
         log(f"[phase4j] leg dvbs2_16200_bch, BCH in the decoder: kernel C + wrap == "
             f"Decoder(torch)'s latch on 24 frames at 2.5 dB and {n_forged} forged ones "
             f"(accepted {int(res.accepted.sum())}, converged {int(res.converged.sum())})")
+    return out
+
+
+def c5_code(family: str):
+    """Config 5's code of ``family`` and its encoder (the CLI's)."""
+    if family == "nr_bg1_z64":
+        code = nr_code(64, 1)
+        return code, triangular_encode_fn(code)
+    code = dvbs2(16200, "1/2")
+    return code, ira_encode_fn(code)
+
+
+def past_first_group(points) -> float:
+    """Frames/s over a config-5 campaign's points after its first group
+    (the first MP_SNR_SHARDS points, whose steps also carry each rank's
+    first launches and first collective): ``points`` are (frames, wall_s)
+    pairs."""
+    later = points[MP_SNR_SHARDS:]
+    return sum(f for f, _ in later) / sum(w for _, w in later)
+
+
+def stats_fields(stats) -> dict:
+    return {f: [int(x) for x in torch.as_tensor(getattr(stats, f)).reshape(-1).tolist()]
+            for f in SimStats._fields}
+
+
+def phase_nccl_world1() -> dict:
+    """Phase 4p (a): ``make_sharded_campaign_step`` on a world-size-1 NCCL
+    group on cuda:0, config 5's 8 points at the whole batch of 1024 on each
+    family, equal to ``sim_step`` on position 0's generators in every
+    field; then each family's campaign at world 1 as the CLI runs it
+    (groups of 1 point, C5_BATCH frames a step, C5_TARGET / C5_MAX_FRAMES),
+    its frames/s from the campaign's own wall times, and the step's
+    collective (an all_reduce of [fields, 1] int64) timed alone."""
+    world = pdist.init_process(0, 1, 0, 1, f"tcp://127.0.0.1:{pdist.free_port()}",
+                               "nccl", "cuda")
+    out = {"backend": world.backend}
+    try:
+        mesh = make_mesh()
+        for family in C5_FAMILIES:
+            code, enc = c5_code(family)
+            dec = Decoder(code, C5_CFG, device="cuda")
+            step = make_sharded_campaign_step(code, C5_CFG, mesh, C5_BATCH, len(C5_SNRS),
+                                              encode_fn=enc, decode_fn=dec,
+                                              device=world.device)
+            decode_qc_long.launches = 0
+            got = stats_fields(step(SEED, C5_SNRS))
+            launches = decode_qc_long.launches
+            want = {f: [] for f in SimStats._fields}
+            for i, snr in enumerate(C5_SNRS):
+                st = sim_step(code, C5_CFG, point_generator(SEED, 0, i, "cuda"), snr,
+                              C5_BATCH, enc, dec)
+                for f in SimStats._fields:
+                    want[f].append(int(getattr(st, f)))
+            if got != want or dec.implementation != "cuda_long" or launches < len(C5_SNRS):
+                raise AssertionError(f"4p (a) {family}: step {got} != sim_step {want} "
+                                     f"({dec.implementation}, {launches} launches)")
+            log(f"[phase4p] (a) {family} NCCL world 1: step == sim_step on position 0's "
+                f"generators, every field, {len(C5_SNRS)} points x {C5_BATCH} frames "
+                f"(frame_errors {got['frame_errors']}, {launches} kernel C launches)")
+            one = make_sharded_campaign_step(code, C5_CFG, mesh, C5_BATCH, 1,
+                                             encode_fn=enc, decode_fn=dec,
+                                             device=world.device)
+            camp = WaterfallCampaign(
+                CampaignConfig(snr_db=C5_SNRS, batch_per_step=C5_BATCH,
+                               min_frame_errors=C5_TARGET, max_frames=C5_MAX_FRAMES,
+                               seed=SEED),
+                lambda seed, snr: SimStats(*(x.cpu().numpy() for x in one(seed, [snr]))),
+                C5_BATCH)
+            decode_qc_long.launches = 0
+            camp.run()
+            frames = sum(p.frames for p in camp.points)
+            wall = sum(p.wall_s for p in camp.points)
+            steady = past_first_group([(p.frames, p.wall_s) for p in camp.points])
+            out[family] = {"frames": frames, "wall_s": wall, "frames_per_s": frames / wall,
+                           "steady_frames_per_s": steady,
+                           "launches": decode_qc_long.launches,
+                           "fer": [p.fer for p in camp.points]}
+            log(f"[phase4p] (a) {family} campaign at world 1 (nccl): {frames} frames in "
+                f"{wall:.3f} s = {frames / wall:.1f} frames/s ({steady:.1f} over the "
+                f"points past the first group), {decode_qc_long.launches} kernel C launches")
+        buf = torch.zeros((len(SimStats._fields), 1), dtype=torch.int64, device="cuda")
+        out["collective_ms"] = median_ms(lambda: torch.distributed.all_reduce(buf), 20)
+    finally:
+        pdist.shutdown(world)
+    return out
+
+
+def phase_multichip_ranks(backend: str = "gloo") -> dict:
+    """Phase 4p (b): ``dryrun_multichip(4)`` on ``spawn``'s 4 ranks of the one
+    card (snr 2 x data 2, gloo, tensors on cuda:0): each rank's three legs
+    on the kernel its ``Decoder`` resolves to (A, B's route, C), launched,
+    and every rank's [4] stats equal to a recount in this process:
+    ``sim_step`` on the seed rule's generator of every (position, point),
+    summed over the data axis, every field."""
+    t0 = time.time()
+    reports = dryrun_multichip(MP_RANKS, backend=backend, device="cuda")
+    spawn_s = time.time() - t0
+    ready_s = max(r["ready_at"] for r in reports) - t0
+    shape, axes, snr_axis, num_snr = multichip_mesh(MP_RANKS)
+    sizes = dict(zip(axes, shape))
+    out = {"spawn_s": spawn_s, "ready_s": ready_s,
+           "collective_ms": [r["collective_ms"] for r in reports]}
+    for li, leg in enumerate(multichip_legs("cuda")):
+        snrs = leg_snrs(leg["snr"], num_snr)
+        n_local = num_snr // sizes["snr"]
+        want = {f: [0] * num_snr for f in SimStats._fields}
+        for s in range(sizes["snr"]):
+            for d in range(sizes["data"]):
+                for i in range(n_local):
+                    st = sim_step(leg["code"], leg["cfg"],
+                                  point_generator(0, d * sizes["snr"] + s, i, "cuda"),
+                                  snrs[s * n_local + i], leg["batch_per_device"],
+                                  leg["encode_fn"], leg["decode_fn"], outer=leg["outer"])
+                    for f in SimStats._fields:
+                        want[f][s * n_local + i] += int(getattr(st, f))
+        ranks = [r["legs"][li] for r in reports]
+        for rank, got in enumerate(ranks):
+            if got["name"] != leg["name"] or got["stats"] != want:
+                raise AssertionError(f"4p (b) rank {rank} leg {leg['name']}: "
+                                     f"{got['stats']} != recount {want}")
+            if got["implementation"] != LEG_KERNELS[leg["name"]] or got["launches"] < 1:
+                raise AssertionError(f"4p (b) rank {rank} leg {leg['name']} ran on "
+                                     f"{got['implementation']}, {got['launches']} launches")
+        out[leg["name"]] = {"launches": [g["launches"] for g in ranks],
+                            "step_s": [g["step_s"] for g in ranks], "stats": want}
+        log(f"[phase4p] (b) leg {leg['name']} on {MP_RANKS} {reports[0]['backend']} ranks "
+            f"({ranks[0]['implementation']}, launches per rank "
+            f"{[g['launches'] for g in ranks]}): every rank == the recount, every field "
+            f"(frames {want['frames']}, frame_errors {want['frame_errors']})")
+    return out
+
+
+def torchrun_waterfall(family: str, tmp: str, backend: str = "gloo") -> dict:
+    """Phase 4p (c): config 5's campaign of ``family`` through ``python -m
+    torch.distributed.run --standalone --nproc-per-node 4 -m
+    myldpccppapi_torch -- waterfall ... --snr-shards 2 --dist-backend
+    gloo`` (the ``--`` keeps the launcher's parser off the command's
+    options: it takes ``--n`` for an abbreviation of its own), then again
+    from its checkpoint, which must do no new step (the same checkpoint
+    and the same lines).  A rank that fails fails the run."""
+    ck, report = os.path.join(tmp, f"{family}.ck.json"), os.path.join(tmp, f"{family}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(MP_RANKS), "-m", "myldpccppapi_torch", "--", "waterfall",
+           *C5_FAMILIES[family], "--snr", ",".join(map(str, C5_SNRS)),
+           "--batch", str(C5_BATCH), "--normalization", str(C5_CFG.normalization),
+           "--max-iters", str(C5_CFG.max_iters), "--target-errors", str(C5_TARGET),
+           "--max-frames", str(C5_MAX_FRAMES), "--snr-shards", str(MP_SNR_SHARDS),
+           "--dist-backend", backend, "--seed", str(SEED), "--checkpoint", ck,
+           "--out", report]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                              timeout=MP_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"4p (c) {family}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        with open(ck) as f:
+            state = json.load(f)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("snr=")]
+        runs.append((lines, state, seconds))
+    (lines, state, seconds), (lines2, state2, seconds2) = runs
+    if len(lines) != len(C5_SNRS):
+        raise AssertionError(f"4p (c) {family}: rank 0 printed {len(lines)} points")
+    if lines2 != lines or state2 != state:
+        raise AssertionError(f"4p (c) {family}: the resume ran new steps "
+                             f"({state['steps_done']} -> {state2['steps_done']})")
+    with open(report) as f:
+        points = json.load(f)["points"]
+    frames = sum(p["frames"] for p in points)
+    wall = sum(p["wall_s"] for p in points)
+    steady = past_first_group([(p["frames"], p["wall_s"]) for p in points])
+    for line in lines:
+        log(f"[phase4p] (c) {family} waterfall {line}")
+    log(f"[phase4p] (c) {family}: {MP_RANKS} ranks (snr {MP_SNR_SHARDS} x data "
+        f"{MP_RANKS // MP_SNR_SHARDS}, {backend}), {sum(state['steps_done'])} point-steps, "
+        f"{frames} frames in {wall:.3f} s of steps = {frames / wall:.1f} frames/s "
+        f"({steady:.1f} past the first group); the command {seconds:.1f} s; its "
+        f"resume {seconds2:.1f} s, 0 new steps, same lines")
+    return {"frames": frames, "wall_s": wall, "frames_per_s": frames / wall,
+            "steady_frames_per_s": steady, "command_s": seconds, "resume_s": seconds2,
+            "lines": lines, "fer": [p["fer"] for p in points]}
+
+
+def phase_multiprocess() -> dict:
+    """Phase 4p: (a) NCCL at world 1, (b) the dry run's legs on 4 gloo ranks
+    of the one card, (c) config 5 through the CLI under torch.distributed.run."""
+    out = {"world1": phase_nccl_world1(), "ranks": phase_multichip_ranks()}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli"] = {family: torchrun_waterfall(family, tmp) for family in C5_FAMILIES}
     return out
 
 
@@ -2884,6 +3127,7 @@ def main() -> int:
     legs = phase(phase_legs)
     oracle_dec, oracle_llr, oracle_counts = phase(phase_oracle_main_path)
     tb, tb_payload, tb_llr, tb_ok, tb_launches = phase(phase_transport)
+    mp = phase(phase_multiprocess)
     times = phase_times(dec, llr, decode_qc_cuda, decode_qc_cuda_plain,
                         dataclasses.replace(BENCH_CFG, triage_iters=0))
     passes = triage_times(dec, llr)
@@ -2928,6 +3172,17 @@ def main() -> int:
         ("bf16", BF16_NR_CFGS["min-sum"]))}
     el_times = phase_edgelist_times(oracle_dec, oracle_llr)
     tb_times = phase_transport_times(tb, tb_payload, tb_llr)
+    for family in C5_FAMILIES:
+        w1, cli4 = mp["world1"][family], mp["cli"][family]
+        log(f"[phase5] config 5 {family} campaign: {w1['frames_per_s']:.1f} frames/s at "
+            f"world 1 (nccl, its step warm), {cli4['frames_per_s']:.1f} at {MP_RANKS} "
+            f"ranks on the card (gloo, the CLI); over the points past the first "
+            f"group {w1['steady_frames_per_s']:.1f} and {cli4['steady_frames_per_s']:.1f}")
+    log(f"[phase5] the step's collective: {mp['world1']['collective_ms']:.4f} ms at world 1 "
+        f"(nccl); at {MP_RANKS} gloo ranks on the card "
+        f"{[round(x, 4) for x in mp['ranks']['collective_ms']]} ms per rank")
+    log(f"[phase5] spawn + init of {MP_RANKS} ranks: {mp['ranks']['ready_s']:.2f} s to the "
+        f"last rank's legs, {mp['ranks']['spawn_s']:.2f} s for the whole dry run")
     log(f"[time] phase 5 done at {time.perf_counter() - t0:.1f} s")
 
     # the edge-list path runs torch ops, no kernel of its own: its record
@@ -2960,7 +3215,9 @@ def main() -> int:
               config2_launches=wifi_launches, config2_ms=wifi_times["kernel"],
               config2_plain_ms=wifi_times["plain"],
               config2_decoder_ms=wifi_times["decoder"],
-              config2_bound_ms=wifi_times["bound"]),
+              config2_bound_ms=wifi_times["bound"],
+              # phase 4p (b): leg 1 on each of the 4 gloo ranks of the card
+              multichip_4_ranks_launches=mp["ranks"]["wimax576_crc16"]["launches"]),
         # kernel A's xor group (RS-LDPC, phase 4k) and multi-edge cells (3j)
         entry("bp_layered_xor", "bp_layered.cu", kernel_a, rs_launches, worst_xor,
               rs_times, coder_launches=rs_coder_launches,
@@ -2984,7 +3241,8 @@ def main() -> int:
         # kernel B's table-driven route through the same kernel
         entry("bp_layered_route_b", "bp_layered.cu",
               "myldpccppapi_tpu/ops/pallas_bp.py:410", b_launches, worst_b,
-              b_times, acceptance_leg_nr_bg1_z32_rm_crc16=legs["nr_bg1_z32_rm_crc16"]),
+              b_times, acceptance_leg_nr_bg1_z32_rm_crc16=legs["nr_bg1_z32_rm_crc16"],
+              multichip_4_ranks_launches=mp["ranks"]["nr_bg1_z32_rm_crc16"]["launches"]),
         entry("bp_long", "bp_long.cu", kernel_c, nr_launches,
               max(worst_long, worst_shared), nr_times, **sweeps["min-sum"],
               m4_launches=m4[-1], m4_demap_ms=m4_times["demap"],
@@ -2995,7 +3253,22 @@ def main() -> int:
               config4t_tbs=TB_BATCH, config4t_ms=tb_times["receive_ms"],
               config4t_payload_mbits=tb_times["receive_mbits"],
               config4t_chain_ms=tb_times["chain_ms"],
-              config4t_chain_payload_mbits=tb_times["chain_mbits"]),
+              config4t_chain_payload_mbits=tb_times["chain_mbits"],
+              # phase 4p: leg 2 on each of the 4 gloo ranks (b); BASELINE
+              # config 5's campaigns at world 1 (nccl, a) and through the
+              # CLI on 4 ranks of the card (c)
+              multichip_4_ranks_launches=mp["ranks"]["dvbs2_16200_bch"]["launches"],
+              config5_world1_launches={f: mp["world1"][f]["launches"] for f in C5_FAMILIES},
+              config5_world1_frames_per_s={f: mp["world1"][f]["frames_per_s"]
+                                           for f in C5_FAMILIES},
+              config5_world1_steady_frames_per_s={f: mp["world1"][f]["steady_frames_per_s"]
+                                                  for f in C5_FAMILIES},
+              config5_4_ranks_frames_per_s={f: mp["cli"][f]["frames_per_s"]
+                                            for f in C5_FAMILIES},
+              config5_4_ranks_steady_frames_per_s={f: mp["cli"][f]["steady_frames_per_s"]
+                                                   for f in C5_FAMILIES},
+              collective_ms_world1_nccl=mp["world1"]["collective_ms"],
+              collective_ms_4_ranks_gloo=mp["ranks"]["collective_ms"]),
         # the global placement (kernel D's port) on the DVB-S2 64800 path
         entry("bp_stream", "bp_stream.cu", kernel_d, dvb_launches,
               worst_global, dvb_times, exact_ms=dvb_exact_times["kernel"],

@@ -13,7 +13,8 @@ propagation
 (normalized/offset min-sum, sum-product, self-corrected min-sum, soft
 output; f32 or bf16 messages) with per-codeword syndrome early termination
 (exact or lazy), CRC / outer-BCH-aided acceptance and two-phase straggler
-triage, and resumable BER/FER waterfall campaigns.
+triage, and resumable BER/FER waterfall campaigns, one process per rank
+over ``torch.distributed`` (``parallel/``).
 The decode runs in hand-written CUDA kernels on a CUDA device
 (``csrc/bp_layered.cu`` for short codes, RS-LDPC and small-z 5G NR,
 ``csrc/bp_long.cu`` for long ones) and as plain torch ops on the CPU.  Entry points run on the card unless given ``device="cpu"``.
@@ -39,7 +40,7 @@ from .codes import (
     wimax,
 )
 from .decoder import DecodeResult, Decoder
-from .utils.config import DecoderConfig
+from .utils.config import DecoderConfig, RunConfig
 from .coder import Coder, make_codec
 from .ops.modulation import (
     MODULATIONS,
@@ -62,6 +63,7 @@ __all__ = [
     "Modulation",
     "QCCode",
     "RSLDPCCode",
+    "RunConfig",
     "bicm_id_receive",
     "bit_deinterleave",
     "bit_interleave",

@@ -1,8 +1,12 @@
 """BER/FER waterfall campaigns with checkpoint/resume.
 
 NumPy copy of ``myldpccppapi_tpu/campaign/waterfall.py``: the same stopping
-rules, per-(point, step) seeds, checkpoint JSON and CSV/JSON reports, so a
-campaign behaves the same in both packages for the same step function.
+rules, per-(point, step) seeds, grouped stepping, checkpoint JSON and
+CSV/JSON reports, so a campaign behaves the same in both packages for the
+same step function.  One addition for multi-process campaigns: every rank
+runs the campaign in lockstep on the same summed statistics, so its stop
+decisions agree on every rank, and only rank 0 writes the checkpoint
+(every rank loads it).
 
 The reference's only "campaign" machinery is a single CLI roundtrip with a
 printed error count (``Test.cpp:105-112``).  This module provides what
@@ -101,9 +105,11 @@ class WaterfallCampaign:
 
     ``step_fn(key_seed: int, snr_db: float) -> SimStats-like`` is any callable
     returning per-batch integer stats that ``np.asarray`` reads (host
-    values) — e.g. ``sim_step`` on a generator seeded with ``key_seed``
-    (sim.py), its counts moved to the host.  The campaign owns only the
-    host-side accumulation, stopping, checkpointing, and reporting.
+    values) — e.g. the sharded campaign step (parallel/sim.py), its counts
+    moved to the host.  The campaign owns only the host-side
+    accumulation, stopping, checkpointing, and reporting.  ``rank`` is
+    this process's rank in a multi-process campaign: only rank 0 writes
+    the checkpoint.
     """
 
     def __init__(
@@ -113,6 +119,8 @@ class WaterfallCampaign:
         frames_per_step: int,
         fingerprint: str = "",
         checkpoint_path: Optional[str] = None,
+        snr_group_size: int = 1,
+        rank: int = 0,
     ):
         self.config = config
         self.step_fn = step_fn
@@ -122,6 +130,13 @@ class WaterfallCampaign:
         self.frames_per_step = frames_per_step
         self.fingerprint = fingerprint
         self.checkpoint_path = checkpoint_path
+        #: >1 = SNR points are simulated in fixed groups of this size per
+        #: step (one per snr-mesh shard, the BASELINE config-5 layout);
+        #: ``step_fn(seed, [snr...])`` must then return stats with a
+        #: leading [group] axis.  A finished point keeps simulating as
+        #: filler until its whole group stops (its results are discarded).
+        self.snr_group_size = max(1, int(snr_group_size))
+        self.rank = rank
         self.points: List[PointStats] = [PointStats(float(s)) for s in config.snr_db]
         self.steps_done: List[int] = [0] * len(self.points)
         if checkpoint_path and os.path.exists(checkpoint_path):
@@ -130,7 +145,7 @@ class WaterfallCampaign:
     # -- persistence -------------------------------------------------------
     def save(self, path: Optional[str] = None) -> None:
         path = path or self.checkpoint_path
-        if not path:
+        if not path or self.rank != 0:
             return
         state = {
             "fingerprint": self.fingerprint,
@@ -163,19 +178,23 @@ class WaterfallCampaign:
     def finished(self) -> bool:
         return all(self.point_finished(i) for i in range(len(self.points)))
 
-    def _accumulate(self, i: int, stats, wall_s: float) -> None:
-        """Add one step's stats into point i."""
+    def _accumulate(self, i: int, stats, wall_s: float, take=None) -> None:
+        """Add one step's stats into point i.  ``take`` selects the point's
+        slice of a grouped [S]-leading stats tuple (None = whole thing)."""
         p = self.points[i]
 
         def tot(x):
-            return int(np.sum(np.asarray(x)))
+            a = np.asarray(x)
+            if take is None or a.ndim == 0:  # scalar defaults have no axis
+                return int(np.sum(a))
+            return int(np.sum(a[take]))
 
         frames = tot(stats.frames)
         if self.frames_per_step and frames != self.frames_per_step:
             raise ValueError(
                 f"step_fn simulated {frames} frames for point {i} but the "
                 f"campaign was constructed with frames_per_step="
-                f"{self.frames_per_step}: the caller's batch "
+                f"{self.frames_per_step}: the caller's batch/mesh "
                 "arithmetic disagrees with the step function"
             )
         p.wall_s += wall_s
@@ -192,6 +211,8 @@ class WaterfallCampaign:
 
     def run(self, checkpoint_every: int = 10, progress=None) -> List[PointStats]:
         """Round-robin the unfinished SNR points until all stop criteria hit."""
+        if self.snr_group_size > 1:
+            return self._run_grouped(checkpoint_every, progress)
         steps_since_ckpt = 0
         while not self.finished:
             for i, p in enumerate(self.points):
@@ -207,6 +228,47 @@ class WaterfallCampaign:
                 steps_since_ckpt += 1
                 if progress:
                     progress(i, p)
+                if steps_since_ckpt >= checkpoint_every:
+                    self.save()
+                    steps_since_ckpt = 0
+        self.save()
+        return self.points
+
+    def _run_grouped(self, checkpoint_every: int, progress) -> List[PointStats]:
+        """Grouped stepping: every step simulates ``snr_group_size`` SNR
+        points at once (one per snr-mesh shard); a group keeps stepping
+        until ALL its points hit their stop criteria (finished members run
+        as filler, their extra stats discarded so resume points stay
+        deterministic)."""
+        gs = self.snr_group_size
+        groups = [list(range(g, min(g + gs, len(self.points))))
+                  for g in range(0, len(self.points), gs)]
+        steps_since_ckpt = 0
+        while not self.finished:
+            for gi, grp in enumerate(groups):
+                if all(self.point_finished(i) for i in grp):
+                    continue
+                seed = (
+                    self.config.seed * 1_000_003 + gi * 7919
+                    + self.steps_done[grp[0]]
+                )
+                # pad short tail groups by repeating the last point
+                snrs = [self.points[i].snr_db for i in grp]
+                snrs += [snrs[-1]] * (gs - len(grp))
+                t0 = time.perf_counter()
+                stats = self.step_fn(seed, snrs)
+                wall = time.perf_counter() - t0
+                # charge wall time to the points still doing useful work
+                # (finished members run as discarded filler)
+                active = [i for i in grp if not self.point_finished(i)]
+                for pos, i in enumerate(grp):
+                    if i not in active:
+                        self.steps_done[i] += 1  # keep group seeds aligned
+                        continue
+                    self._accumulate(i, stats, wall / len(active), take=pos)
+                    if progress:
+                        progress(i, self.points[i])
+                steps_since_ckpt += 1
                 if steps_since_ckpt >= checkpoint_every:
                     self.save()
                     steps_since_ckpt = 0

@@ -7,11 +7,18 @@ Counterpart of the ``test`` and ``waterfall`` subcommands of
                 (``Test.cpp:15-118``): same positional semantics
                 (srcLength, batchSize, snr, algo), same printed metrics
                 (decode wall time, ErrNum, ThroughPut).
-``waterfall`` — BER/FER campaign over an SNR grid on one device, with
-                checkpoint/resume and CSV/JSON output; the same per-point
-                lines as the reference.
+``waterfall`` — BER/FER campaign over an SNR grid, with checkpoint/resume
+                and CSV/JSON output; the same per-point lines as the
+                reference.  It always goes through the sharded campaign
+                step (parallel/sim.py), as the reference's does: one rank
+                when run alone, N ranks under ``python -m
+                torch.distributed.run --nproc-per-node N``, where rank 0
+                alone prints and writes ``--out`` and the checkpoint.
 
 Both run on the card; ``--device cpu`` is the only way onto the CPU.
+Under ``torch.distributed.run`` the backend is ``--dist-backend``, or by
+default nccl on CUDA ranks that have a card each and gloo on the CPU;
+ranks that share a card need ``--dist-backend gloo`` (parallel/dist.py).
 
 Examples::
 
@@ -36,11 +43,20 @@ Examples::
         --snr 6,6.5 --normalization 0.75 --max-iters 20
     python -m myldpccppapi_torch waterfall --family wifi --n 1944 \
         --rate 5/6 --snr 6.5 --normalization 0.75
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m myldpccppapi_torch -- waterfall --family dvbs2 --n 16200 \
+        --rate 1/2 --snr 0.5:4:0.5 --batch 1024 --normalization 0.8 \
+        --max-iters 25 --snr-shards 2 --dist-backend gloo
+
+(The ``--`` after the module keeps the launcher's own parser off the
+command's options: it would take ``--n`` for an abbreviation of one of
+its own.)
 """
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import sys
 import time
 
@@ -130,16 +146,34 @@ def _make_code(args):
 
 
 def cmd_waterfall(args) -> int:
-    """BER/FER waterfall over an SNR grid on one device."""
+    """BER/FER waterfall over an SNR grid through the sharded campaign
+    step, on this process's rank of the group (one rank when run alone)."""
+    from .parallel import dist as pdist
+
+    logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
+                        stream=sys.stderr)
+    world = pdist.init_from_env(args.dist_backend, args.device)
+    try:
+        return _waterfall(args, world)
+    finally:
+        pdist.shutdown(world)
+
+
+def _waterfall(args, world) -> int:
     from .campaign import CampaignConfig, WaterfallCampaign
     from .codes.dvbs2 import ira_encode_fn
     from .codes.nr import triangular_encode_fn
-    from .sim import make_decode_fn, matmul_encode_fn, sim_step
+    from .parallel import make_mesh, make_sharded_campaign_step
+    from .sim import SimStats, matmul_encode_fn
     from .utils.config import DecoderConfig
-    from .utils.device import resolve_device
 
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 encode matmul
-    device = resolve_device(args.device)
+    device = world.device
+    n_ranks = world.world_size
+    snr_shards = max(1, args.snr_shards)
+    if n_ranks % snr_shards:
+        raise SystemExit(
+            f"--snr-shards {snr_shards} must divide the rank count {n_ranks}")
     code = _make_code(args)
     mod = None
     if args.mod != "bpsk":
@@ -169,6 +203,14 @@ def cmd_waterfall(args) -> int:
                         normalization=args.normalization,
                         msg_dtype=args.msg_dtype, crc=args.crc,
                         self_correction=args.self_correction)
+    if snr_shards > 1:
+        # the BASELINE config-5 layout: SNR points across one mesh axis,
+        # codeword batch across the other
+        mesh = make_mesh((snr_shards, n_ranks // snr_shards), ("snr", "data"))
+    else:
+        mesh = make_mesh((n_ranks,), ("data",))
+    data_ranks = n_ranks // snr_shards
+    batch_per_rank = max(1, args.batch // data_ranks)
     # the decoder comes from the standard implementation dispatch; only
     # the encoder is family-specific
     if args.family == "nr":
@@ -177,14 +219,15 @@ def cmd_waterfall(args) -> int:
         encode_fn = ira_encode_fn(code)  # O(n) accumulator encode
     else:
         encode_fn = matmul_encode_fn(code, device=device)
-    decode_fn = make_decode_fn(code, cfg, device=device)
+    step = make_sharded_campaign_step(
+        code, cfg, mesh, batch_per_device=batch_per_rank, num_snr=snr_shards,
+        encode_fn=encode_fn, snr_axis="snr" if snr_shards > 1 else None,
+        outer=outer, mod=mod, demap=args.demap, id_outer=args.id_outer,
+        device=device)
 
     def step_fn(seed, snr_db):
-        gen = torch.Generator(device=device).manual_seed(seed)
-        stats = sim_step(code, cfg, gen, snr_db, args.batch, encode_fn,
-                         decode_fn, mod=mod, demap=args.demap,
-                         id_outer=args.id_outer, outer=outer)
-        return type(stats)(*(int(x) for x in stats))
+        snrs = snr_db if isinstance(snr_db, (list, tuple)) else [snr_db]
+        return SimStats(*torch.stack(tuple(step(seed, snrs))).cpu().numpy())
 
     ccfg = CampaignConfig(
         snr_db=_parse_snr_grid(args.snr),
@@ -197,14 +240,17 @@ def cmd_waterfall(args) -> int:
     # resumes only on the same kind of device
     fp = ccfg.fingerprint(
         code.name, repr(cfg) + f"/device={device.type}"
+        + f"/snr_shards={snr_shards}/outer={outer}"
         + (f"/mod={args.mod}/demap={args.demap}/id_outer={args.id_outer}"
-           if mod is not None else "")
-        + (f"/outer={outer}" if outer is not None else ""))
-    camp = WaterfallCampaign(ccfg, step_fn, frames_per_step=args.batch,
-                             fingerprint=fp, checkpoint_path=args.checkpoint)
+           if mod is not None else ""))
+    camp = WaterfallCampaign(ccfg, step_fn,
+                             frames_per_step=batch_per_rank * data_ranks,
+                             fingerprint=fp, checkpoint_path=args.checkpoint,
+                             snr_group_size=snr_shards, rank=world.rank)
+    lead = world.rank == 0
 
     def progress(i, p):
-        if args.verbose:
+        if args.verbose and lead:
             print(
                 f"snr={p.snr_db:+.2f} frames={p.frames} fer={p.fer:.3e} "
                 f"ber={p.ber:.3e} iters={p.avg_iters:.1f}",
@@ -212,6 +258,8 @@ def cmd_waterfall(args) -> int:
             )
 
     camp.run(progress=progress)
+    if not lead:
+        return 0
     if args.out:
         if args.out.endswith(".json"):
             with open(args.out, "w") as f:
@@ -304,9 +352,20 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--id-outer", type=int, default=0, dest="id_outer",
                    help="BICM-ID: demapper<->decoder extrinsic exchanges "
                         "after the first pass (needs --mod != bpsk)")
+    w.add_argument("--snr-shards", type=int, default=1, dest="snr_shards",
+                   help="shard the SNR grid over this many mesh shards "
+                        "(must divide the rank count): groups of N SNR "
+                        "points run simultaneously on an (snr x data) mesh "
+                        "of ranks — the BASELINE config-5 layout")
+    w.add_argument("--dist-backend", default=None, dest="dist_backend",
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend under torch.distributed."
+                        "run (default: nccl on CUDA ranks with a card each, "
+                        "gloo on the CPU; ranks sharing a card need gloo)")
     w.add_argument("-v", "--verbose", action="store_true")
     w.add_argument("--device", default=DEFAULT_DEVICE,
-                   help="torch device (default: cuda; cpu for the CPU)")
+                   help="torch device (default: cuda; cpu for the CPU); "
+                        "each rank takes cuda:LOCAL_RANK %% device count")
     w.set_defaults(fn=cmd_waterfall)
     return p
 

@@ -12,10 +12,9 @@ the step draws message bits and attaches the check before encoding, and
 counts frames the check rejected apart from the undetected errors.
 Randomness comes from a ``torch.Generator`` on the simulation's device, so
 a step is reproducible from its seed (but draws other numbers than the
-reference's threefry keys).
-
-Not ported yet: the multi-device campaign step
-``make_sharded_campaign_step`` (ROADMAP Queue 1 item 10).
+reference's threefry keys).  The multi-process campaign step,
+``make_sharded_campaign_step``, is in ``parallel/sim.py``: it runs this
+step on every rank, one generator per (mesh position, SNR point).
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["DecoderConfig", "check_edgelist_config"]
+__all__ = ["DecoderConfig", "RunConfig", "check_edgelist_config"]
 
 #: implementation names the port serves
 _IMPLEMENTATIONS = ("auto", "torch", "cuda", "cuda_long", "edgelist")
@@ -181,3 +181,16 @@ class DecoderConfig:
             ):
                 raise _not_ported(f"per-iteration {f} weights",
                                   "Queue 1 item 3")
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """A benchmark / campaign run specification (the reference's fields
+    and defaults); ``mesh_shape`` and ``mesh_axes`` lay a mesh over the
+    ranks of the process group (``parallel.make_mesh``)."""
+
+    batch_size: int = 1024
+    snr_db: Tuple[float, ...] = (2.0,)
+    seed: int = 0
+    mesh_shape: Optional[Tuple[int, ...]] = None  # None = single rank
+    mesh_axes: Tuple[str, ...] = ("data",)

@@ -73,6 +73,67 @@ def test_campaign_matches_reference(tmp_path, fake_clock, seed):
     assert mine.report() == theirs.report()
 
 
+def _group_step(stats_type):
+    """The fake step over a group of SNR points: [group]-leading stats, a
+    point's seed offset by its place in the group."""
+    one = _step(stats_type)
+
+    def step(seed, snrs):
+        rows = [one(seed + 13 * pos, snr) for pos, snr in enumerate(snrs)]
+        return stats_type(*(np.asarray([r[k] for r in rows])
+                            for k in range(len(stats_type._fields))))
+    return step
+
+
+@pytest.mark.parametrize("group", [2, 3])
+def test_grouped_campaign_matches_reference(tmp_path, fake_clock, group):
+    """snr_group_size: groups of points per step (a short tail group padded
+    with its last point), finished members stepping on as discarded filler
+    with their steps_done kept aligned; then a resume from the checkpoint
+    runs no step."""
+    kw = dict(snr_db=SNRS, batch_per_step=100, min_frame_errors=50,
+              max_frames=800, seed=3)
+    a, b = str(tmp_path / "a.json"), str(tmp_path / "b.json")
+    mine = WaterfallCampaign(CampaignConfig(**kw), _group_step(SimStats), 100,
+                             fingerprint="fp", checkpoint_path=a,
+                             snr_group_size=group)
+    theirs = RefCampaign(RefCampaignConfig(**kw), _group_step(RefSimStats), 100,
+                         fingerprint="fp", checkpoint_path=b, snr_group_size=group)
+    mine.run(checkpoint_every=2)
+    theirs.run(checkpoint_every=2)
+    assert [p.as_dict() for p in mine.points] == [p.as_dict() for p in theirs.points]
+    assert mine.steps_done == theirs.steps_done
+    # a group steps together: its members' seeds stay aligned
+    assert len(set(mine.steps_done[:group])) == 1
+    assert mine.points[0].frames < mine.points[2].frames == 800
+    assert json.loads((tmp_path / "a.json").read_text()) == json.loads(
+        (tmp_path / "b.json").read_text())
+
+    def no_step(seed, snrs):
+        raise AssertionError("a resumed, finished campaign ran a step")
+
+    resumed = WaterfallCampaign(CampaignConfig(**kw), no_step, 100, fingerprint="fp",
+                                checkpoint_path=a, snr_group_size=group)
+    assert resumed.run() == mine.points
+
+
+def test_only_rank_0_writes_the_checkpoint(tmp_path):
+    """Every rank of a multi-process campaign loads the checkpoint; only
+    rank 0 writes it."""
+    kw = dict(snr_db=SNRS, batch_per_step=100, min_frame_errors=50, max_frames=600)
+    path = tmp_path / "ck.json"
+    other = WaterfallCampaign(CampaignConfig(**kw), _step(SimStats), 100,
+                              fingerprint="fp", checkpoint_path=str(path), rank=1)
+    other.run()
+    assert not path.exists()
+    lead = WaterfallCampaign(CampaignConfig(**kw), _step(SimStats), 100,
+                             fingerprint="fp", checkpoint_path=str(path), rank=0)
+    lead.run()
+    loaded = WaterfallCampaign(CampaignConfig(**kw), _step(SimStats), 100,
+                               fingerprint="fp", checkpoint_path=str(path), rank=1)
+    assert loaded.finished and loaded.steps_done == lead.steps_done == other.steps_done
+
+
 def test_resume_runs_no_new_steps(tmp_path):
     kw = dict(snr_db=SNRS, batch_per_step=100, min_frame_errors=50,
               max_frames=600)

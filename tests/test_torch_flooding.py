@@ -268,7 +268,8 @@ def test_cli_test_new_decode_types(algo, capsys):
 
 def test_cli_waterfall_flooding_flags(tmp_path, capsys):
     """``waterfall --algorithm/--schedule/--self-correction`` reach the
-    DecoderConfig (its repr is in the checkpoint's fingerprint)."""
+    DecoderConfig (its repr is in the checkpoint's fingerprint, beside the
+    device, the snr shards and the outer code, as in the reference)."""
     ck = tmp_path / "ck.json"
     argv = ["waterfall", "--family", "wimax", "--n", "576", "--rate", "1/2",
             "--snr", "3", "--batch", "16", "--max-frames", "16",
@@ -278,7 +279,7 @@ def test_cli_waterfall_flooding_flags(tmp_path, capsys):
     assert "frames=16" in capsys.readouterr().out
     cfg = DecoderConfig(schedule="flooding", self_correction=True, max_iters=5)
     want = CampaignConfig(snr_db=[3.0], batch_per_step=16).fingerprint(
-        "wimax_n576_r12", repr(cfg) + "/device=cpu")
+        "wimax_n576_r12", repr(cfg) + "/device=cpu/snr_shards=1/outer=None")
     assert json.loads(ck.read_text())["fingerprint"] == want
 
 

@@ -42,6 +42,20 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_parallel_import_leaves_jax_out():
+    """The multi-process campaign (its launchers, mesh, step and dry run)
+    imports torch and torch.distributed, never JAX."""
+    proc = _run(
+        "import sys, myldpccppapi_torch.parallel, "
+        "myldpccppapi_torch.parallel.dryrun\n"
+        "assert 'torch.distributed' in sys.modules\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'myldpccppapi_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_no_file_imports_the_reference():
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|myldpccppapi_tpu)\b", re.M)
