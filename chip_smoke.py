@@ -15,14 +15,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the library sizes it, against the record codec
    (:func:`check_long_scratch_layout`).
 3. Short-code kernel vs plain: the kernel on CUDA against its plain
-   version (``decode_qc_cuda_plain``) on the CPU and on CUDA, at batch 1000
-   for all six 802.16e rates at n=576 plus n=2304 rate 1/2, 5 and 2 dB, a
+   version (``decode_qc_cuda_plain``) on CUDA at batch 1000 and on the CPU
+   on the batch's first 64 frames, for all six 802.16e rates at n=576
+   plus n=2304 rate 1/2 at 5 dB and for r1/2, r3/4B and n=2304 at 2 dB, a
    per-layer alpha tuple, early exit on, and off at 5 dB (:func:`exits`;
    alpha 0.75 is phase 3d's "soft layered" case); then bench.py's single
    pass at the launch shapes the main path meets: batch 1 (one block),
    batch 70 (fewer codewords than SMs) and the triage's straggler pass
    (1024 frames of a batch of 8192 at 5 dB, those that failed the
-   5-iteration fast pass first): 24 cases.  Bits, converged, iterations
+   5-iteration fast pass first): 20 cases.  Bits, converged, iterations
    and total_iters must be equal.  Every kernel-A log line names the tile
    (codewords per block, which the wrapper picks from the batch) and L
    (lanes per check row).
@@ -62,8 +63,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    per-layer alpha, beta 0.25), SCMS, sum-product (flooding and layered)
    and soft output (min-sum layered and flooding, sum-product layered and
    flooding), at 5 dB on all six 802.16e rates at n=576 plus n=2304 rate
-   1/2, early exit on and off, and at 2 dB on r1/2, r3/4B and n=2304
-   (170 cases): the kernel at
+   1/2, early exit on, and off on r1/2, r3/4B and n=2304, and at 2 dB on
+   r1/2 and n=2304 (120 cases): the kernel at
    batch 1000 (a ragged tail) against its plain version on CUDA, and at 5
    dB at batch 16 against it on the CPU on r1/2, r3/4B and n=2304.  Bits, converged, iterations,
    total_iters and the posteriors of every frame must be equal, with one
@@ -236,6 +237,40 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    --batch 1024`` (512 frames a data rank, up to 100 frame errors or 8192
    frames a point) for both families, then again from its checkpoint: no
    new step.  A rank that fails, or a non-zero exit, fails the phase.
+4q. (runs after 4o, like 4r and 4s) Learned min-sum weights: (a)
+   ``train_nms`` on the card at benchmarks/learned_nms.py:98-99's point
+   (wimax 576 r3/4B, 8 unrolled sweeps, batch 512, per-frame SNR over
+   4-5.5 dB, lr 0.02, one tied row), cut from 300 to 40 steps: the losses
+   finite and falling (the trained row's loss on a fixed held-out batch
+   of 2048 frames below alpha 0.75's; the per-step losses of fresh batches
+   are logged, first and last ten), the weights inside their clip range;
+   (b) one unrolled forward and gradient on the card equal to the CPU's
+   on the same LLRs (posteriors bit-exact, the loss to rtol 1e-5, the
+   gradient to the tests' rtol 1e-4 + atol 1e-5 of its largest); (c) the
+   trained and the stored ``learned_weights_wimax576_r34B_tied.json``
+   tied schedules through ``Decoder`` on kernel A at phase 4's bench point
+   (8192 frames, 5 dB, triage 5), each equal to ``Decoder(implementation=
+   "torch")`` in every field, with bench.py's gates; (d) the stored
+   ``learned_weights_nr_bg2_z384_tied.json`` on nr_code(384, 2), 8
+   sweeps, the whole codeword through BPSK/AWGN at -3 dB (the schedule's
+   own channel), batch 1024, on kernel C, equal to its plain version;
+   (e) the stored per-iteration ``learned_weights_wimax576_r12_T10.json``
+   (12 sweeps, soft output) with ``implementation="torch"`` on the card
+   equal to the CPU in every field, and refused by ``"auto"`` on the card.
+4r. GDBF (ops/bitflip.py, torch ops): at phase 4's LLRs without the
+   perturbation the card equals the CPU in every field; the default
+   (noise 0.6) through ``Decoder`` at 6 and 7 dB (8192 frames encoded on
+   the card; converged frames hold a zero syndrome; FER and mean
+   iterations logged); rs_ldpc() at phase 4k's 6.5 dB batch and at 9 dB;
+   the ``Coder`` BF byte stream (1024 codewords, sigma 0.21) on the card,
+   decoded bytes equal to the source.
+4s. CLI ``probe`` at its defaults on the card (wimax 576 r1/2, amplitude
+   8, up to 2048 pairs: kernel A, launches counted), its ``ImpulseReport``
+   equal to the CPU's in every field; ``impulse_probe(nr_code(384, 1),
+   max_pair_patterns=256)`` on kernel C equal to the same probe on the
+   torch path of the card; one ``Decoder`` call inside
+   ``utils.profiling.trace``, whose Chrome trace names
+   ``bp_layered_kernel``.
 6. (runs first, after the build) Kernel E, the op-rate calibration
    (csrc/op_rate.cu, tools/roofline.py): its five bodies (E's fma4, mix3
    and mix4; sfu, the decoders' phi; mufu, bare ex2/lg2) against their
@@ -299,7 +334,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    times), also over the points past the first group (whose steps carry
    each rank's first launches and first collective), the step's
    collective (NCCL at world 1; gloo at 4 ranks, per rank) and the spawn
-   and init seconds of the 4 ranks.
+   and init seconds of the 4 ranks; phase 4q's training step (ms), the
+   bench point's ``Decoder`` with the trained and stored tied schedules
+   against alpha 0.75's (ms, mean iterations); GDBF's ``Decoder`` on phase
+   4's LLRs (ms per batch and per iteration, torch ops and CUDA kernels
+   an iteration, busy share); the probes' seconds.
 
 The line before the last is the kernels' JSON record, one entry per kernel
 and mode: each ``launches`` counts its launches in its main path's
@@ -336,8 +375,13 @@ kernels that the multi-rank dry run's legs run (``bp_layered`` leg 1,
 (``multichip_4_ranks_launches``).  The edge-list path launches no kernel of its own, so its
 record (phase 3k's worst difference, 4n's convergence counts and phase
 5's times and launch counts) is a JSON line of its own, ``{"edgelist":
-{...}}``, before the card's name.  The last line is ``{"ok": true,
-"device": {...}}``.
+{...}}``, before the card's name; so are GDBF's (``{"gdbf": {...}}``)
+and the trainer's (``{"train_nms": {...}}``).  ``bp_layered`` adds the
+tied schedules' launches and ``Decoder`` times (``learned_tied_*``) and
+the CLI probe's (``probe_launches``, ``probe_s``); ``bp_long`` the NR BG2
+schedule's (``learned_nr_bg2_launches``) and the NR probe's
+(``probe_nr_launches``).  The last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -346,6 +390,7 @@ import dataclasses
 import io
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -409,7 +454,15 @@ from myldpccppapi_torch.ops.cuda_long import (
     placement,
     scratch_bytes,
 )
+from myldpccppapi_torch.ops.bitflip import GDBFConfig, decode_gdbf
 from myldpccppapi_torch.ops.bp import accept_fail_fn, msg_dtype
+from myldpccppapi_torch.ops.impulse import impulse_probe
+from myldpccppapi_torch.ops.learned import (
+    LearnedWeights,
+    make_unrolled,
+    soft_ber_loss,
+    train_nms,
+)
 from myldpccppapi_torch.ops.packing import unpack_bits_np
 from myldpccppapi_torch.campaign import CampaignConfig, WaterfallCampaign
 from myldpccppapi_torch.parallel import (
@@ -425,6 +478,7 @@ from myldpccppapi_torch.parallel.dryrun import (
     multichip_mesh,
 )
 from myldpccppapi_torch.sim import SimStats, sim_step
+from myldpccppapi_torch.utils.profiling import trace
 from myldpccppapi_torch.tools.roofline import (
     BODIES,
     MUFU_ATOL,
@@ -472,6 +526,12 @@ DVB_CASES = ((16200, "1/2", SHARED, (1.5, 0.0)), (16200, "8/9", SHARED, (6.5, 5.
 #: phase 3d's codes (RATES_576 at n=576, then n=2304 r1/2) that also run
 #: at 2 dB and against the CPU at 5 dB: r1/2, r3/4B and n=2304
 CPU_CODES = (0, 4, 6)
+#: phase 3d's codes that also run at 2 dB: r1/2 and n=2304 (r3/4B
+#: converges no frame there)
+MODE_2DB_CODES = (0, 6)
+#: phase 3's CPU comparison: the plain version on the CPU on this many
+#: frames of each case's batch
+CPU_CASE_FRAMES = 64
 A_MODES = {
     "flooding alpha 1.0": ("flooding", dict(schedule="flooding")),
     "flooding alpha 0.75": ("flooding", dict(schedule="flooding", normalization=0.75)),
@@ -646,6 +706,32 @@ MP_RANKS = 4
 MP_SNR_SHARDS = 2
 MP_TIMEOUT_S = 600
 #: aten ops that launch no device kernel (views, host scalars)
+#: phase 4q: benchmarks/learned_nms.py:98-99's training point (wimax 576
+#: r3/4B, 8 unrolled sweeps, batch 512, per-frame SNR over 4-5.5 dB, lr
+#: 0.02, one tied row of per-layer weights), cut from 300 steps to
+#: LEARN_STEPS (depth, not width); the held-out batch of the "falling" gate
+LEARN_KW = dict(n_iters=8, batch=512, snr_db=(4.0, 5.5), lr=0.02, tie_iters=True)
+LEARN_STEPS = 40
+LEARN_HELD_OUT = 2048
+#: the stored schedules the reference trained (read, never written)
+WEIGHTS_DIR = pathlib.Path(__file__).resolve().parent / "benchmarks"
+#: (d): the stored NR schedule's point, nr_code(384, 2), 8 sweeps, -3 dB
+LEARN_NR_ITERS = 8
+LEARN_NR_SNR = -3.0
+LEARN_NR_BATCH = 1024
+#: (e): the stored per-iteration schedule on wimax 576 r1/2, 10 sweeps
+LEARN_ITER_BATCH = 1024
+LEARN_ITER_SNR = 2.0
+#: phase 4r: GDBF at the bench code's batch; its noisy runs' SNRs, and
+#: an RS-LDPC point where bit flipping converges (it converges no frame of
+#: the (2048, 1723) code at phase 4k's 6.5 dB)
+GDBF_SNRS = (6.0, 7.0)
+GDBF_RS_SNR = 9.0
+#: the Coder BF stream: codewords and channel sigma (the reference test's)
+BF_CODEWORDS = 1024
+BF_SIGMA = 0.21
+#: phase 4s: the NR probe's pairs
+PROBE_NR_PAIRS = 256
 NO_LAUNCH_OPS = {"view", "_unsafe_view", "t", "transpose", "slice", "select",
                  "unsqueeze", "squeeze", "expand", "alias", "detach",
                  "as_strided", "permute", "lift_fresh", "scalar_tensor",
@@ -1146,22 +1232,28 @@ def phase_kernel_vs_plain() -> float:
     for ci, code in enumerate(codes):
         per_layer = tuple(float(x) for x in np.round(
             np.linspace(0.65, 0.85, code.m_b), 3))
-        for snr in (5.0, 2.0):
+        # 2 dB on the three codes phase 3d also runs there
+        for snr in (5.0, 2.0) if ci in CPU_CODES else (5.0,):
             llr = numpy_llr(code, 1000, snr, SEED + ci)
-            llr_cpu = torch.from_numpy(llr)
-            llr_gpu = llr_cpu.cuda()
+            llr_gpu = torch.from_numpy(llr).cuda()
+            # the CPU plain version on the first CPU_CASE_FRAMES frames (a
+            # frame decodes alike in any batch; the CPU takes seconds a
+            # thousand)
+            llr_cpu = torch.from_numpy(llr[:CPU_CASE_FRAMES])
             for early_exit in exits(snr == 5.0):
                 cfg = DecoderConfig(normalization=per_layer, max_iters=40,
                                     early_exit=early_exit)
                 k = decode_qc_cuda(code, cfg, llr_gpu)
+                k_few = decode_qc_cuda(code, cfg, llr_cpu.cuda())
                 torch.cuda.synchronize()
                 worst = max(worst,
                             max_abs_diff(k, decode_qc_cuda_plain(code, cfg, llr_gpu)),
-                            max_abs_diff(k, decode_qc_cuda_plain(code, cfg, llr_cpu)))
+                            max_abs_diff(k_few, decode_qc_cuda_plain(code, cfg, llr_cpu)))
                 n_cases += 1
             log(f"[phase3] {code.name} {shape(code, 1000)} snr={snr} "
                 f"conv={k.converged.float().mean().item():.4f} "
-                f"total_iters={int(k.total_iters)}: kernel == plain (cpu, cuda)")
+                f"total_iters={int(k.total_iters)}: kernel == plain (cuda; cpu on "
+                f"{CPU_CASE_FRAMES} frames)")
     code = wimax(576, "3/4B")
     single = dataclasses.replace(BENCH_CFG, triage_iters=0)
     fast = dataclasses.replace(single, max_iters=BENCH_CFG.triage_iters)
@@ -1207,9 +1299,9 @@ def phase_modes_vs_plain() -> tuple[dict, float]:
     for ci, code in enumerate(codes):
         per_layer = tuple(float(x) for x in np.round(
             np.linspace(0.65, 0.85, code.m_b), 3))
-        # 2 dB on three of the codes: every mode there runs the same
+        # 2 dB on two of the codes: every mode there runs the same
         # instantiations as at 5 dB, with most blocks at 40 sweeps
-        for snr in (5.0, 2.0) if ci in CPU_CODES else (5.0,):
+        for snr in (5.0, 2.0) if ci in MODE_2DB_CODES else (5.0,):
             llr_cpu = torch.from_numpy(numpy_llr(code, 1000, snr, SEED + 400 + ci))
             llr_gpu = llr_cpu.cuda()
             cpu16 = llr_cpu[:16].contiguous()
@@ -1217,7 +1309,8 @@ def phase_modes_vs_plain() -> tuple[dict, float]:
             for name, (group, kw) in A_MODES.items():
                 if kw.get("normalization", 1.0) is None:
                     kw = dict(kw, normalization=per_layer)
-                for early_exit in exits(snr == 5.0):
+                # early exit off on the CPU codes only
+                for early_exit in exits(snr == 5.0 and ci in CPU_CODES):
                     cfg = DecoderConfig(max_iters=40, early_exit=early_exit, **kw)
                     k = decode_qc_cuda(code, cfg, llr_gpu)
                     worst[group] = max(
@@ -1248,7 +1341,8 @@ def phase_modes_vs_plain() -> tuple[dict, float]:
                 + " ".join(f"{n.split()[0]}={shown[n].converged.float().mean().item():.3f}"
                            for n in ("flooding alpha 0.75", "scms", "sp flooding"))
                 + f" scms!=flooding on {diff} frames: "
-                f"{len(exits(snr == 5.0)) * len(A_MODES)} cases kernel == plain (cuda; cpu, "
+                f"{len(exits(snr == 5.0 and ci in CPU_CODES)) * len(A_MODES)} cases kernel "
+                "== plain (cuda; cpu, "
                 + ("sum-product within its tolerance)" if snr == 5.0 and ci in CPU_CODES
                    else "not compared)"))
     if erased == 0:
@@ -3031,6 +3125,317 @@ def phase_bf16_times(decs, llr, nr_llr, dvb_llr) -> dict:
     return out
 
 
+def stored_weights(name: str) -> LearnedWeights:
+    """A schedule the reference trained, from benchmarks/learned_weights_*.json."""
+    with open(WEIGHTS_DIR / f"learned_weights_{name}.json") as f:
+        d = json.load(f)
+    return LearnedWeights(alpha=np.asarray(d["alpha"], np.float32),
+                          beta=np.asarray(d["beta"], np.float32),
+                          losses=(d["final_loss"],))
+
+
+def all_zero_llr_spread(code, batch: int, lo: float, hi: float, seed: int) -> np.ndarray:
+    """All-zero-codeword LLRs (2y/sigma^2), per-frame SNR uniform over [lo,
+    hi] dB, noise from numpy: the trainer's batch distribution."""
+    rng = np.random.default_rng(seed)
+    snr = rng.uniform(lo, hi, size=(batch, 1))
+    sigma = 10.0 ** (-snr / 20.0)
+    y = 1.0 + sigma * rng.standard_normal((batch, code.n))
+    return (2.0 * y / sigma**2).astype(np.float32)
+
+
+def unrolled_pass(run, alpha, llr, device) -> tuple:
+    """One forward and gradient of the unrolled decoder on ``device``:
+    (posteriors, loss, d loss / d alpha) on the CPU."""
+    a = torch.tensor(alpha, device=device, requires_grad=True)
+    x = torch.from_numpy(llr).to(device)
+    posts = run({"alpha": a, "beta": torch.zeros_like(a)}, x)
+    loss = soft_ber_loss(posts, torch.zeros_like(x))
+    loss.backward()
+    return posts.detach().cpu(), float(loss.detach()), a.grad.cpu()
+
+
+def phase_learned(llr, u):
+    """Phase 4q: (a) ``train_nms`` on the card at the reference's training
+    point, cut to LEARN_STEPS steps; (b) one unrolled forward and gradient
+    on the card against the CPU; (c) the trained and the stored tied
+    schedules through ``Decoder`` on kernel A at the bench point (phase 4's
+    LLRs, triage 5), each equal to ``Decoder(implementation="torch")``;
+    (d) the stored NR BG2 schedule on kernel C, equal to its plain version;
+    (e) the stored per-iteration schedule on the torch path of the card,
+    equal to the CPU, and refused by ``"auto"`` on the card.  Returns the
+    numbers of the kernels line and phase 5."""
+    code = wimax(576, "3/4B")
+    run = make_unrolled(code, LEARN_KW["n_iters"])
+    held = all_zero_llr_spread(code, LEARN_HELD_OUT, *LEARN_KW["snr_db"], SEED + 900)
+    init_alpha = np.full((1, code.m_b), 0.75, np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lw = train_nms(code, steps=LEARN_STEPS, seed=SEED, device="cuda", **LEARN_KW)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / LEARN_STEPS
+    losses = np.asarray(lw.losses)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train_nms: a loss is not finite: {losses}")
+    if not ((lw.alpha >= 0.05).all() and (lw.alpha <= 1.0).all()
+            and (lw.beta == 0.0).all()):
+        raise AssertionError(f"train_nms: weights outside their clip range "
+                             f"{lw.alpha} {lw.beta}")
+    # (b) the trained weights' forward and gradient, card against CPU, on
+    # the held-out batch's first 256 frames; the loss falls on all of it
+    few = held[:256]
+    post_g, loss_g, grad_g = unrolled_pass(run, lw.alpha, few, "cuda")
+    post_c, loss_c, grad_c = unrolled_pass(run, lw.alpha, few, "cpu")
+    if not torch.equal(post_g, post_c):
+        raise AssertionError("unrolled posteriors: the card differs from the CPU")
+    if abs(loss_g - loss_c) > 1e-5 * abs(loss_c):
+        raise AssertionError(f"unrolled loss: {loss_g} on the card, {loss_c} on the CPU")
+    # the tests' tolerance: rtol 1e-4 plus atol 1e-5 of the largest gradient
+    grad_err = float((grad_g - grad_c).abs().max())
+    if not ((grad_g - grad_c).abs()
+            <= 1e-5 * grad_c.abs().max() + 1e-4 * grad_c.abs()).all():
+        raise AssertionError(f"unrolled gradient: max |card - cpu| {grad_err}")
+    held_losses = [unrolled_pass(run, a, held, "cuda")[1] for a in (init_alpha, lw.alpha)]
+    if not held_losses[1] < held_losses[0]:
+        raise AssertionError(f"train_nms: the held-out loss did not fall {held_losses}")
+    log(f"[phase4q] train_nms {code.name} {LEARN_STEPS} steps of batch "
+        f"{LEARN_KW['batch']} on the card: {step_ms:.1f} ms a step; step losses "
+        f"first ten {losses[:10].mean():.5f}, last ten {losses[-10:].mean():.5f}; "
+        f"held-out loss ({LEARN_HELD_OUT} frames) {held_losses[0]:.5f} at alpha 0.75 -> "
+        f"{held_losses[1]:.5f}; alpha {np.round(lw.alpha[0], 4).tolist()}")
+    log(f"[phase4q] unrolled forward + gradient, card == CPU: posteriors equal, loss "
+        f"{loss_g:.7f} vs {loss_c:.7f}, gradient max |diff| {grad_err:.3e} "
+        f"(of max {float(grad_c.abs().max()):.3e})")
+    # (c) tied schedules on kernel A at the bench point
+    tied = {}
+    for name, w in (("trained", lw), ("stored", stored_weights("wimax576_r34B_tied"))):
+        cfg = w.decoder_config(BENCH_CFG, per_layer=True)
+        dec = Decoder(code, cfg, device="cuda")
+        if dec.implementation != "cuda":
+            raise AssertionError(f"the {name} tied schedule resolved to {dec.implementation}")
+        decode_qc_cuda.launches = 0
+        res = dec(llr)
+        torch.cuda.synchronize()
+        launches = decode_qc_cuda.launches
+        if launches < 1:
+            raise AssertionError(f"the {name} tied schedule launched no kernel")
+        max_abs_diff(res, Decoder(code, cfg, device="cuda", implementation="torch")(llr))
+        tied[name] = {"dec": dec, "launches": launches,
+                      "mean_iterations": res.iterations.float().mean().item()}
+        log(f"[phase4q] Decoder {name} tied schedule impl={dec.implementation} "
+            f"batch={BATCH} snr={SNR_DB} {gates(dec, res, u)} launches={launches}; "
+            "== Decoder(torch)")
+    # (d) the stored NR BG2 schedule on kernel C
+    nr = nr_code(384, 2)
+    cfg_nr = stored_weights("nr_bg2_z384_tied").decoder_config(
+        DecoderConfig(max_iters=LEARN_NR_ITERS), per_layer=True)
+    dec_nr = Decoder(nr, cfg_nr, device="cuda")
+    if dec_nr.implementation != "cuda_long":
+        raise AssertionError(f"the NR schedule resolved to {dec_nr.implementation}")
+    # the schedule's own channel (benchmarks/learned_nms.py:159-200): the
+    # whole codeword through BPSK/AWGN, no puncturing or rate matching
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 910)
+    u_nr = torch.randint(0, 2, (LEARN_NR_BATCH, nr.k), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    x, _ = transmit(gen, triangular_encode_fn(nr)(u_nr), LEARN_NR_SNR)
+    x = x.contiguous()
+    decode_qc_long.launches = 0
+    res = dec_nr(x)
+    torch.cuda.synchronize()
+    nr_launches = decode_qc_long.launches
+    if nr_launches < 1:
+        raise AssertionError("the NR schedule launched no kernel")
+    max_abs_diff(res, decode_qc_long_plain(nr, cfg_nr, x))
+    scalar = Decoder(nr, DecoderConfig(normalization=0.75, max_iters=LEARN_NR_ITERS),
+                     device="cuda")(x)
+    log(f"[phase4q] Decoder {nr.name} stored tied schedule impl={dec_nr.implementation} "
+        f"batch={LEARN_NR_BATCH} snr={LEARN_NR_SNR} {summary(res, LEARN_NR_ITERS)} "
+        f"launches={nr_launches}; == the plain version (cuda); alpha 0.75: "
+        f"{summary(scalar, LEARN_NR_ITERS)}")
+    # (e) the stored per-iteration schedule: the torch path on the card
+    r12 = wimax(576, "1/2")
+    cfg_iter = stored_weights("wimax576_r12_T10").decoder_config(
+        DecoderConfig(max_iters=12, soft_output=True))
+    x = torch.from_numpy(numpy_llr(r12, LEARN_ITER_BATCH, LEARN_ITER_SNR, SEED + 920))
+    torch_cfg = dataclasses.replace(cfg_iter, implementation="torch")
+    got = Decoder(r12, torch_cfg, device="cuda")(x)
+    max_abs_diff(got, Decoder(r12, torch_cfg, device="cpu")(x))
+    try:
+        Decoder(r12, cfg_iter, device="cuda")
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("auto on the card took a per-iteration schedule")
+    log(f"[phase4q] {r12.name} stored per-iteration schedule (10 rows, 12 sweeps) on the "
+        f"torch path of the card: {summary(got, 12)} == the CPU (posteriors too); auto on "
+        f"the card raises: {refusal[:90]}...")
+    return {"step_ms": step_ms, "losses_first10": float(losses[:10].mean()),
+            "losses_last10": float(losses[-10:].mean()), "held_out": held_losses,
+            "grad_err": grad_err, "tied": tied, "nr_launches": nr_launches}
+
+
+def phase_gdbf(llr, u, rs_dec, rs_llr):
+    """Phase 4r: GDBF at phase 4's LLRs without the perturbation, card ==
+    CPU in every field; the default noisy GDBF through ``Decoder`` at two
+    SNRs (converged frames hold a zero syndrome); one RS-LDPC batch (phase
+    4k's LLRs); the ``Coder`` BF byte stream on the card.  Returns the
+    bench-code ``Decoder``, the noisy runs' FERs and the noiseless
+    comparison's largest difference (0.0: any other raises)."""
+    code = wimax(576, "3/4B")
+    cfg0 = GDBFConfig(noise_scale=0.0)
+    got = decode_gdbf(code, cfg0, llr)
+    worst = max_abs_diff(got, decode_gdbf(code, cfg0, llr.cpu()))
+    log(f"[phase4r] GDBF {code.name} noise_scale=0 batch={BATCH} snr={SNR_DB}: "
+        f"{summary(got, 100)}; card == CPU")
+    dec = Decoder(code, GDBFConfig(), device="cuda")
+    if dec.implementation != "gdbf":
+        raise AssertionError(f"GDBFConfig resolved to {dec.implementation}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 950)
+    enc = Encoder(code, device="cuda")
+    fers = {}
+    for snr in GDBF_SNRS:
+        u2 = torch.randint(0, 2, (BATCH, code.k), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+        x, _ = transmit(gen, enc(u2), snr)
+        res = dec(x)
+        conv = res.converged.cpu().numpy()
+        if code.syndrome(res.bits.cpu().numpy()[conv]).any():
+            raise AssertionError("GDBF: a converged frame has a nonzero syndrome")
+        fers[snr] = {"fer": (dec.info_bits(res) != u2).any(dim=1).float().mean().item(),
+                     "mean_iterations": res.iterations.float().mean().item(),
+                     "converged": float(conv.mean())}
+        log(f"[phase4r] Decoder GDBF (noise 0.6) {code.name} batch={BATCH} snr={snr}: "
+            f"FER={fers[snr]['fer']:.4e} conv={fers[snr]['converged']:.4f} "
+            f"mean_iters={fers[snr]['mean_iterations']:.3f}")
+    # RS-LDPC: phase 4k's batch at 6.5 dB, and one at GDBF_RS_SNR where
+    # bit flipping converges
+    rs = rs_dec.code
+    rs_dec_bf = Decoder(rs, GDBFConfig(), device="cuda")
+    u_rs = torch.randint(0, 2, (rs_llr.shape[0], rs.k_info), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    high, _ = transmit(gen, Encoder(rs, device="cuda")(u_rs), GDBF_RS_SNR)
+    for snr, x in ((RS_SNR, rs_llr), (GDBF_RS_SNR, high.contiguous())):
+        res = rs_dec_bf(x)
+        conv = res.converged.cpu().numpy()
+        if rs.syndrome(res.bits.cpu().numpy()[conv]).any():
+            raise AssertionError("GDBF RS-LDPC: a converged frame has a nonzero syndrome")
+        log(f"[phase4r] Decoder GDBF {rs.name} (n={rs.n}) batch={x.shape[0]} "
+            f"snr={snr}: {summary(res, 100)}")
+    coder = Coder(288, 576, "1/2", device="cuda")
+    coder.for_encoder()
+    coder.for_decoder(BATCH)
+    src = bytes((ord("a") + i % 26) for i in range(BF_CODEWORDS * coder._kb))
+    post = coder.test(coder.encode(src), BF_SIGMA, seed=SEED)
+    out, stats = coder.decode(post, len(src), "BF", return_stats=True)
+    if bytes(out) != src:
+        raise AssertionError("the Coder BF stream: the decoded bytes differ")
+    log(f"[phase4r] Coder BF round trip on the card: {len(src)} bytes, "
+        f"{BF_CODEWORDS} codewords at sigma {BF_SIGMA}, mean_iters="
+        f"{stats['mean_iters']:.3f}: the decoded bytes equal the source")
+    return dec, fers, worst
+
+
+def reports_equal(a, b, what: str) -> None:
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        same = (np.array_equal(x, y) if isinstance(x, np.ndarray) or isinstance(y, np.ndarray)
+                else x == y)
+        if not same:
+            raise AssertionError(f"{what}: ImpulseReport.{f.name} differs")
+
+
+def phase_probe(dec, llr) -> dict:
+    """Phase 4s: CLI ``probe`` at its defaults on the card (kernel A), its
+    report equal to the CPU's; ``impulse_probe`` at nr_code(384, 1) on
+    kernel C equal to the same probe on the torch path of the card; one
+    ``Decoder`` call inside ``profiling.trace``, whose trace names the
+    kernel."""
+    buf = io.StringIO()
+    decode_qc_cuda.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["probe"])
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    launches = decode_qc_cuda.launches
+    if rc != 0 or launches < 1:
+        raise AssertionError(f"CLI probe: rc={rc}, {launches} launches")
+    code = wimax(576, "1/2")
+    card = impulse_probe(code, max_pair_patterns=2048, device="cuda")
+    reports_equal(card, impulse_probe(code, max_pair_patterns=2048, device="cpu"),
+                  "probe, card vs CPU")
+    if f"probes={card.probes} " not in buf.getvalue():
+        raise AssertionError(f"CLI probe printed {buf.getvalue()!r}")
+    for line in buf.getvalue().splitlines():
+        log(f"[phase4s] CLI probe: {line}")
+    log(f"[phase4s] CLI probe on the card: {probe_s:.2f} s, {launches} kernel A launches; "
+        "its report == the CPU's in every field")
+    nr = nr_code(384, 1)
+    decode_qc_long.launches = 0
+    t0 = time.perf_counter()
+    got = impulse_probe(nr, max_pair_patterns=PROBE_NR_PAIRS, device="cuda")
+    torch.cuda.synchronize()
+    nr_s = time.perf_counter() - t0
+    nr_launches = decode_qc_long.launches
+    if nr_launches < 1:
+        raise AssertionError("the NR probe launched no kernel C")
+    plain = DecoderConfig(schedule="layered", normalization=0.9, max_iters=60,
+                          implementation="torch")
+    reports_equal(got, impulse_probe(nr, plain, max_pair_patterns=PROBE_NR_PAIRS,
+                                     device="cuda"), "NR probe, kernel C vs torch")
+    log(f"[phase4s] impulse_probe {nr.name}: {got.probes} probes, min_weight="
+        f"{got.min_weight}, breaches={got.breaches}, trapped={len(got.trapped)}, "
+        f"{nr_s:.2f} s, {nr_launches} kernel C launches; == the torch path on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            dec(llr)
+            torch.cuda.synchronize()
+        names = os.listdir(tmp)
+        text = "".join(open(os.path.join(tmp, n)).read() for n in names)
+    if len(names) != 1 or "bp_layered_kernel" not in text:
+        raise AssertionError(f"profiling.trace wrote {names}, kernel named: "
+                             f"{'bp_layered_kernel' in text}")
+    log(f"[phase4s] profiling.trace around one Decoder call wrote {names[0]} "
+        f"({len(text)} bytes), naming bp_layered_kernel")
+    return {"probe_s": probe_s, "launches": launches, "nr_probe_s": nr_s,
+            "nr_launches": nr_launches}
+
+
+def learned_times(dec_scalar, tied, llr) -> dict:
+    """Phase 5: the bench point's ``Decoder`` with the trained and stored
+    tied schedules against the 0.75 scalar's (phase 4's), ms and mean
+    iterations."""
+    out = {"scalar": {"ms": median_ms(lambda: dec_scalar(llr)),
+                      "mean_iterations": dec_scalar(llr).iterations.float().mean().item()}}
+    for name, t in tied.items():
+        out[name] = {"ms": median_ms(lambda: t["dec"](llr)),
+                     "mean_iterations": t["mean_iterations"]}
+    for name, t in out.items():
+        log(f"[phase5] learned {name} Decoder (bench point, triage 5): {t['ms']:.4f} ms, "
+            f"mean iterations {t['mean_iterations']:.4f}")
+    return out
+
+
+def gdbf_times(dec, llr) -> dict:
+    """Phase 5: GDBF's ``Decoder`` on phase 4's LLRs (noise 0.6): ms per
+    batch and per iteration, torch ops and CUDA kernels per iteration."""
+    res = dec(llr)
+    iters = int(res.total_iters)
+    ms = median_ms(lambda: dec(llr), 5)
+    counts = count_ops(lambda: dec(llr))
+    out = {"ms": ms, "iterations": iters, "ms_per_iteration": ms / iters,
+           "torch_ops_per_iteration": counts["ops"] / iters,
+           "cuda_kernels_per_iteration": counts["kernels"] / iters,
+           "kernel_ms": counts["kernel_ms"], "busy_share": counts["kernel_ms"] / ms,
+           "converged": res.converged.float().mean().item()}
+    log(f"[phase5] GDBF Decoder {dec.code.name} batch {llr.shape[0]} at {SNR_DB} dB: "
+        f"{ms:.4f} ms ({iters} iterations, {out['ms_per_iteration']:.4f} ms each); "
+        f"{out['torch_ops_per_iteration']:.1f} torch ops and "
+        f"{out['cuda_kernels_per_iteration']:.1f} CUDA kernels an iteration, their device "
+        f"time {out['kernel_ms']:.4f} ms (busy share {out['busy_share']:.3f})")
+    return out
+
+
 def check_long_scratch_layout() -> None:
     """Hold the shared placement's scratch, as the library sizes it
     (``ldpc_bp_long_scratch_bytes``), against the record codec that kernels
@@ -3127,6 +3532,9 @@ def main() -> int:
     legs = phase(phase_legs)
     oracle_dec, oracle_llr, oracle_counts = phase(phase_oracle_main_path)
     tb, tb_payload, tb_llr, tb_ok, tb_launches = phase(phase_transport)
+    learned = phase(phase_learned, llr, u)
+    gdbf_dec, gdbf_fers, gdbf_worst = phase(phase_gdbf, llr, u, rs_dec, rs_llr)
+    probe = phase(phase_probe, dec, llr)
     mp = phase(phase_multiprocess)
     times = phase_times(dec, llr, decode_qc_cuda, decode_qc_cuda_plain,
                         dataclasses.replace(BENCH_CFG, triage_iters=0))
@@ -3172,6 +3580,12 @@ def main() -> int:
         ("bf16", BF16_NR_CFGS["min-sum"]))}
     el_times = phase_edgelist_times(oracle_dec, oracle_llr)
     tb_times = phase_transport_times(tb, tb_payload, tb_llr)
+    log(f"[phase5] train_nms step (wimax 576 r3/4B, {LEARN_KW['n_iters']} sweeps, batch "
+        f"{LEARN_KW['batch']}): {learned['step_ms']:.2f} ms")
+    learn_times = learned_times(dec, learned["tied"], llr)
+    gdbf_t = gdbf_times(gdbf_dec, llr)
+    log(f"[phase5] CLI probe (wimax 576 r1/2, {probe['launches']} launches): "
+        f"{probe['probe_s']:.3f} s; NR BG1 Z=384 probe {probe['nr_probe_s']:.3f} s")
     for family in C5_FAMILIES:
         w1, cli4 = mp["world1"][family], mp["cli"][family]
         log(f"[phase5] config 5 {family} campaign: {w1['frames_per_s']:.1f} frames/s at "
@@ -3191,6 +3605,23 @@ def main() -> int:
         "replaces": "myldpccppapi_tpu/ops/bp_edgelist.py:133 (XLA gathers and scatters)",
         "cuda_vs_cpu_max_abs_err": worst_el, "sp_cpu_posterior_max_abs_err": el_sp_cpu_post,
         **oracle_counts, **el_times}}))
+    # GDBF and the trainer run torch ops, no kernel of their own: their records
+    log(json.dumps({"gdbf": {
+        "source": "myldpccppapi_torch/ops/bitflip.py",
+        "replaces": "myldpccppapi_tpu/ops/bitflip.py:57 (XLA ops)",
+        "noiseless_cuda_vs_cpu_max_abs_err": gdbf_worst,
+        "fer": {str(k): v for k, v in gdbf_fers.items()}, **gdbf_t}}))
+    log(json.dumps({"train_nms": {
+        "source": "myldpccppapi_torch/ops/learned.py",
+        "replaces": "myldpccppapi_tpu/ops/learned.py:169 (jax.grad + optax)",
+        "steps": LEARN_STEPS, "step_ms": learned["step_ms"],
+        "losses_first10": learned["losses_first10"],
+        "losses_last10": learned["losses_last10"],
+        "held_out_loss_init_trained": learned["held_out"],
+        "grad_cuda_vs_cpu_max_abs_err": learned["grad_err"],
+        "decoder_ms": {k: v["ms"] for k, v in learn_times.items()},
+        "decoder_mean_iterations": {k: v["mean_iterations"]
+                                    for k, v in learn_times.items()}}}))
     log(smi)
 
     def entry(name, source, replaces, launches, worst, t, **extra):
@@ -3217,7 +3648,12 @@ def main() -> int:
               config2_decoder_ms=wifi_times["decoder"],
               config2_bound_ms=wifi_times["bound"],
               # phase 4p (b): leg 1 on each of the 4 gloo ranks of the card
-              multichip_4_ranks_launches=mp["ranks"]["wimax576_crc16"]["launches"]),
+              multichip_4_ranks_launches=mp["ranks"]["wimax576_crc16"]["launches"],
+              # phase 4q (c): the tied learned schedules at the bench point;
+              # phase 4s: the CLI probe
+              learned_tied_launches={k: v["launches"] for k, v in learned["tied"].items()},
+              learned_tied_decoder_ms={k: v["ms"] for k, v in learn_times.items()},
+              probe_launches=probe["launches"], probe_s=probe["probe_s"]),
         # kernel A's xor group (RS-LDPC, phase 4k) and multi-edge cells (3j)
         entry("bp_layered_xor", "bp_layered.cu", kernel_a, rs_launches, worst_xor,
               rs_times, coder_launches=rs_coder_launches,
@@ -3268,7 +3704,11 @@ def main() -> int:
               config5_4_ranks_steady_frames_per_s={f: mp["cli"][f]["steady_frames_per_s"]
                                                    for f in C5_FAMILIES},
               collective_ms_world1_nccl=mp["world1"]["collective_ms"],
-              collective_ms_4_ranks_gloo=mp["ranks"]["collective_ms"]),
+              collective_ms_4_ranks_gloo=mp["ranks"]["collective_ms"],
+              # phase 4q (d): the stored NR BG2 Z=384 tied schedule; phase
+              # 4s: the NR probe
+              learned_nr_bg2_launches=learned["nr_launches"],
+              probe_nr_launches=probe["nr_launches"]),
         # the global placement (kernel D's port) on the DVB-S2 64800 path
         entry("bp_stream", "bp_stream.cu", kernel_d, dvb_launches,
               worst_global, dvb_times, exact_ms=dvb_exact_times["kernel"],

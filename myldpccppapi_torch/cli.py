@@ -1,7 +1,6 @@
 """Command-line harness.
 
-Counterpart of the ``test`` and ``waterfall`` subcommands of
-``myldpccppapi_tpu/cli.py``:
+Counterpart of ``myldpccppapi_tpu/cli.py``:
 
 ``test``      — the reference CLI's encode -> AWGN -> decode roundtrip
                 (``Test.cpp:15-118``): same positional semantics
@@ -14,8 +13,15 @@ Counterpart of the ``test`` and ``waterfall`` subcommands of
                 when run alone, N ranks under ``python -m
                 torch.distributed.run --nproc-per-node N``, where rank 0
                 alone prints and writes ``--out`` and the checkpoint.
+``threshold`` — PEXIT decoding threshold of a code (host-side NumPy).
+``design``    — PEXIT-guided search over an NR base-graph support or a
+                DVB-S2 IRA profile (host-side NumPy).
+``probe``     — error-impulse floor probe through ``Decoder`` on the
+                device (the production kernels on the card).
 
-Both run on the card; ``--device cpu`` is the only way onto the CPU.
+``test``, ``waterfall`` and ``probe`` run on the card; ``--device cpu`` is
+the only way onto the CPU.  ``bench`` is refused: the port's benchmark is
+ROADMAP Queue 1 item 1.
 Under ``torch.distributed.run`` the backend is ``--dist-backend``, or by
 default nccl on CUDA ranks that have a card each and gloo on the CPU;
 ranks that share a card need ``--dist-backend gloo`` (parallel/dist.py).
@@ -43,6 +49,9 @@ Examples::
         --snr 6,6.5 --normalization 0.75 --max-iters 20
     python -m myldpccppapi_torch waterfall --family wifi --n 1944 \
         --rate 5/6 --snr 6.5 --normalization 0.75
+    python -m myldpccppapi_torch threshold --family nr --z 384 --bg 2
+    python -m myldpccppapi_torch design --family nr --bg 2 --steps 300
+    python -m myldpccppapi_torch probe --family wimax --n 576 --rate 1/2
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m myldpccppapi_torch -- waterfall --family dvbs2 --n 16200 \
         --rate 1/2 --snr 0.5:4:0.5 --batch 1024 --normalization 0.8 \
@@ -278,6 +287,95 @@ def _waterfall(args, world) -> int:
     return 0
 
 
+def cmd_threshold(args) -> int:
+    """PEXIT decoding threshold of a code family (host-side analysis)."""
+    import math
+
+    from .codes.pexit import protograph, threshold_ebn0
+
+    code = _make_code(args)
+    thr = threshold_ebn0(code)
+    pf = getattr(code, "punctured_front", 0)
+    rate = code.k_info / (code.n - pf)
+    print(f"code={code.name} rate_tx={rate:.4f} "
+          f"edges={int(protograph(code).sum())}")
+    print(f"threshold_ebn0_db={thr:.3f}")
+    # sigma* in closed form from the threshold (no second bisection)
+    sigma = (0.0 if not math.isfinite(thr)
+             else 1.0 / math.sqrt(2.0 * rate * 10.0 ** (thr / 10.0)))
+    print(f"threshold_sigma={sigma:.4f}")
+    return 0
+
+
+def cmd_design(args) -> int:
+    """PEXIT-guided base-graph / profile design (host-side search)."""
+    if args.family == "nr":
+        from .codes.design import _threshold as nr_threshold
+        from .codes.design import nr_support_default, optimize_nr_support
+
+        start = nr_support_default(args.bg)
+        t0 = nr_threshold(start.astype(int), args.bg, -3.0, 10.0, 0.02)
+        b, thr = optimize_nr_support(bg=args.bg, steps=args.steps,
+                                     seed=args.seed,
+                                     log_every=args.steps // 10 or 1)
+        print(f"legacy threshold:   {t0:.3f} dB")
+        print(f"designed threshold: {thr:.3f} dB  ({b.sum()} edges)")
+        if args.out:
+            np.save(args.out, b)
+            print(f"support saved to {args.out} — lift with "
+                  f"nr_code(bg={args.bg}, table=nr_base_graph({args.bg}, "
+                  f"support=np.load(...)))")
+        return 0
+    from .codes.design import optimize_dvbs2_profile, realize_dvbs2_addresses
+
+    bi, thr = optimize_dvbs2_profile(
+        args.n, args.rate, steps=args.steps, seed=args.seed,
+        log_every=args.steps // 10 or 1)
+    print(f"designed threshold: {thr:.3f} dB  ({bi.sum()} edges)")
+    addrs = realize_dvbs2_addresses(bi, args.n, args.rate)
+    if args.out:
+        with open(args.out, "w") as f:
+            for a in addrs:
+                f.write(" ".join(str(x) for x in a) + "\n")
+        print(f"address table saved to {args.out} — load with "
+              f"dvbs2(n, rate, addresses=parse_address_table(open(...)"
+              f".read()))")
+    return 0
+
+
+def cmd_probe(args) -> int:
+    """Error-impulse floor probe: d_min bound + trapped-set fingerprint,
+    decoded through ``Decoder`` on ``--device``."""
+    from .ops.impulse import impulse_probe
+
+    code = _make_code(args)
+    r = impulse_probe(code, amplitude=args.amplitude,
+                      max_pair_patterns=args.max_pairs, device=args.device)
+    print(f"code={code.name} probes={r.probes} amplitude={args.amplitude}")
+    if r.min_weight is not None:
+        print(f"min_weight={r.min_weight} "
+              f"support_cols={r.support_cols.tolist()}")
+    else:
+        print("min_weight=none (no impulse broke through to a codeword)")
+    print(f"breaches={r.breaches} trapped={len(r.trapped)}")
+    return 0
+
+
+def cmd_bench(args) -> int:
+    raise SystemExit(
+        "bench is not ported to the PyTorch package yet (ROADMAP Queue 1 "
+        "item 1: the port's benchmark against its own native baseline)")
+
+
+def _code_args(p, families) -> None:
+    p.add_argument("--family", default="wimax", choices=families)
+    p.add_argument("--n", type=int, default=576)
+    p.add_argument("--rate", default="1/2")
+    p.add_argument("--z", type=int, default=384, help="NR lifting size")
+    p.add_argument("--bg", type=int, default=1, choices=[1, 2],
+                   help="NR base graph")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="myldpccppapi_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -367,6 +465,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default: cuda; cpu for the CPU); "
                         "each rank takes cuda:LOCAL_RANK %% device count")
     w.set_defaults(fn=cmd_waterfall)
+
+    b = sub.add_parser("bench", help="headline throughput benchmark (not "
+                                     "ported yet: ROADMAP Queue 1 item 1)")
+    b.set_defaults(fn=cmd_bench)
+
+    families = ["wimax", "wifi", "regular", "nr", "dvbs2", "rs_ldpc"]
+    th = sub.add_parser(
+        "threshold",
+        help="PEXIT decoding threshold (density evolution on the protograph)")
+    _code_args(th, families)
+    th.set_defaults(fn=cmd_threshold)
+
+    d = sub.add_parser(
+        "design",
+        help="PEXIT-guided threshold descent on a base graph / IRA profile")
+    d.add_argument("--family", default="nr", choices=["nr", "dvbs2"])
+    d.add_argument("--bg", type=int, default=2, choices=[1, 2],
+                   help="NR base graph")
+    d.add_argument("--n", type=int, default=16200)
+    d.add_argument("--rate", default="1/2")
+    d.add_argument("--steps", type=int, default=300)
+    d.add_argument("--seed", type=int, default=0)
+    d.add_argument("--out", default=None,
+                   help=".npy (nr support) / text table (dvbs2 addresses)")
+    d.set_defaults(fn=cmd_design)
+
+    pr = sub.add_parser(
+        "probe",
+        help="error-impulse floor probe (d_min bound, trapped-set "
+             "fingerprint) on the production decode path")
+    _code_args(pr, families)
+    pr.add_argument("--amplitude", type=float, default=8.0)
+    pr.add_argument("--max-pairs", type=int, default=2048, dest="max_pairs")
+    pr.add_argument("--device", default=DEFAULT_DEVICE,
+                    help="torch device (default: cuda; cpu for the CPU)")
+    pr.set_defaults(fn=cmd_probe)
     return p
 
 

@@ -24,10 +24,9 @@ DecodeMSCL   flooding min-sum, 120 iterations, the short-code CUDA
 DecodeTDMPCL layered min-sum, a CUDA kernel on a CUDA device
 SCMS         self-corrected flooding min-sum, the CUDA kernel on a
              CUDA device
+BF           noisy GDBF bit flipping (ops/bitflip.py), its own budget
+             of 100 flips, torch ops on the coder's device; no CRC
 ==========  =====================================================
-
-The reference's ``BF`` (GDBF) raises :class:`NotImplementedError` until its
-ROADMAP item is ported.
 """
 from __future__ import annotations
 
@@ -41,6 +40,7 @@ from .codes.encoder import Encoder, encode_numpy
 from .codes.wimax import wimax
 from .decoder import Decoder
 from .ops import cuda_bp, cuda_long, golden
+from .ops.bitflip import GDBFConfig
 from .ops.channel import awgn, bpsk_modulate
 from .ops.packing import pack_bits_np, unpack_bits_np
 from .utils.config import DecoderConfig
@@ -128,11 +128,9 @@ DECODE_TYPES = {
                             implementation="auto"),
     "SCMS": DecoderConfig(algorithm="min-sum", schedule="flooding",
                           self_correction=True, implementation="auto"),
-}
-
-#: the reference's decode types still to port, with their ROADMAP items
-_NOT_PORTED = {
-    "BF": "Queue 1 item 12 (GDBF)",
+    # the bit-flipping tier keeps its own 100-flip budget, as MSCL keeps
+    # its 120-iteration cap
+    "BF": GDBFConfig(max_iters=100),
 }
 #: the reference's channel scale for sum-product, 2/sigma^2 at sigma^2 =
 #: 0.25 (decodeCL.c:9): min-sum is scale-invariant, sum-product is not
@@ -151,7 +149,8 @@ class Coder:
     precompute, the generic one or RU's.  Encoding, the channel noise of
     :meth:`test` and the decoders run on ``device``, the card unless
     ``device="cpu"``; ``msg_dtype`` ("float32" or "bfloat16") is the
-    message type of every decode type but the golden ``CPU`` one.
+    message type of every decode type but the golden ``CPU`` one and the
+    message-free ``BF``.
 
     Streaming contract: the byte stream is chunked into ``k_info // 8``
     bytes per codeword (trailing info bits of a non-byte-aligned k, e.g.
@@ -210,15 +209,19 @@ class Coder:
         self.batch_size = int(batch_size)
 
     def add_decode_type(self, de_type: str) -> None:
-        if de_type in _NOT_PORTED:
-            raise NotImplementedError(
-                f"decode type {de_type!r} is not ported to the PyTorch "
-                f"package yet (ROADMAP {_NOT_PORTED[de_type]})"
-            )
         if de_type not in DECODE_TYPES:
             raise ValueError(f"unknown decode type {de_type!r}; choose from "
                              f"{sorted(DECODE_TYPES)}")
         if de_type == "CPU":
+            return
+        if de_type == "BF":
+            if self.crc is not None:
+                raise ValueError(
+                    "CRC-aided acceptance is a BP-path feature; GDBF (BF) "
+                    "has no in-loop integrity latch"
+                )
+            self._decoders[de_type] = Decoder(self.code, DECODE_TYPES[de_type],
+                                              device=self.device)
             return
         cfg = dataclasses.replace(DECODE_TYPES[de_type], msg_dtype=self.msg_dtype)
         if de_type != "MSCL":  # MSCL keeps its own iteration cap

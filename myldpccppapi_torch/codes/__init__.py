@@ -1,6 +1,7 @@
 """Code construction: base matrices, QC lifting, RS-LDPC, the DVB-S2
-standard-domain oracle, GF(2) algebra, encoders, and the TS 38.212
-transport-block chain."""
+standard-domain oracle, GF(2) algebra, encoders, the TS 38.212
+transport-block chain, and the PEXIT threshold analysis (design tools in
+:mod:`.design`)."""
 from .qc import QCCode
 from .encoder import (
     Encoder,
@@ -31,6 +32,7 @@ from .nr import (
     triangular_encode_fn,
     triangular_encode_numpy,
 )
+from .pexit import pexit_run, protograph, threshold_ebn0, threshold_sigma
 from .nr_transport import (
     NRTransport,
     TBFormat,
@@ -67,7 +69,9 @@ __all__ = [
     "ira_encode_numpy",
     "nr_base_graph",
     "nr_code",
+    "pexit_run",
     "plan_tb",
+    "protograph",
     "rate_match_bits",
     "rate_match_llr",
     "regular",
@@ -79,6 +83,8 @@ __all__ = [
     "std_interleave",
     "TBFormat",
     "TBResult",
+    "threshold_ebn0",
+    "threshold_sigma",
     "triangular_encode_fn",
     "triangular_encode_numpy",
     "wifi",

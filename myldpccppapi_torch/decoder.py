@@ -61,6 +61,7 @@ import torch
 from .codes.qc import QCCode
 from .codes.rs_ldpc import RSLDPCCode
 from .ops import cuda_bp, cuda_long
+from .ops.bitflip import GDBFConfig, decode_gdbf
 from .ops.bp import DecodeResult, accept_fail_fn, decode_qc
 from .ops.bp_edgelist import build_edge_index, decode_edgelist
 from .ops.crc_accept import decode_with_crc_accept
@@ -128,18 +129,39 @@ class Decoder:
     kernels), or any object exposing ``n``, ``m`` and ``h_coo()`` (the
     edge-list path).
 
+    A :class:`~.ops.bitflip.GDBFConfig` in place of the DecoderConfig
+    takes the bit-flipping tier (``implementation == "gdbf"``,
+    ops/bitflip.py: torch ops on the decoder's device, block codes only),
+    with the fixed perturbation seed of the reference's facade; call
+    ``ops.bitflip.decode_gdbf`` with a generator for fresh noise per batch.
+
     >>> dec = Decoder(wimax(576, "3/4B"), DecoderConfig())  # on the card
     >>> result = dec(llr)          # llr: [B, n] float, positive => bit 0
     >>> info = dec.info_bits(result)
     """
 
-    def __init__(self, code, config: DecoderConfig | None = None, *,
+    def __init__(self, code, config: "DecoderConfig | GDBFConfig | None" = None, *,
                  device=DEFAULT_DEVICE, **overrides):
         if config is None:
             config = DecoderConfig()
         if overrides:
             config = dataclasses.replace(config, **overrides)
         device = resolve_device(device)
+        if isinstance(config, GDBFConfig):
+            if not hasattr(code, "blocks"):
+                raise ValueError(
+                    "GDBF runs on block-structured (QC / XOR-group) codes; "
+                    "use a BP DecoderConfig for edge-list codes"
+                )
+            if not isinstance(code, (QCCode, RSLDPCCode)):
+                raise TypeError(
+                    f"{type(code).__name__} is not one of the port's block codes "
+                    "(QCCode, RSLDPCCode); carry a reference code across with "
+                    "interop.code_from_reference")
+            self.code, self.config, self.device = code, config, device
+            self.implementation = "gdbf"
+            self._fn = partial(decode_gdbf, code, config)
+            return
         if config.soft_output and config.triage_iters > 0:
             raise ValueError(
                 "soft_output + triage is not supported: the two-phase "

@@ -13,11 +13,14 @@ from .codes.dvbs2 import DVBS2Code
 from .codes.encoder import EncoderMatrices
 from .codes.qc import QCCode
 from .codes.rs_ldpc import RSLDPCCode
+from .ops.bitflip import GDBFConfig
+from .ops.learned import LearnedWeights
 from .ops.modulation import Modulation
 from .utils.config import DecoderConfig
 
 __all__ = ["code_from_reference", "config_from_reference",
-           "encoder_from_reference", "modulation_from_reference"]
+           "encoder_from_reference", "learned_from_reference",
+           "modulation_from_reference"]
 
 #: reference implementation names -> the port's
 IMPLEMENTATION_NAMES = {
@@ -54,12 +57,15 @@ def code_from_reference(obj) -> "QCCode | RSLDPCCode | DVBS2Code":
     )
 
 
-def config_from_reference(cfg) -> DecoderConfig:
+def config_from_reference(cfg) -> "DecoderConfig | GDBFConfig":
     """A reference ``DecoderConfig`` -> the port's, field by field (the
     schedule, algorithm, weights, SCMS and soft-output fields included),
     with the implementation name mapped (jnp -> torch, pallas -> cuda,
-    pallas_zlane -> cuda_long).  Fields the port does not serve yet raise
-    as the port's DecoderConfig does."""
+    pallas_zlane -> cuda_long); a reference ``GDBFConfig`` -> the port's,
+    field by field."""
+    if not hasattr(cfg, "implementation"):  # the bit-flipping tier
+        return GDBFConfig(**{f: getattr(cfg, f)
+                             for f in GDBFConfig.__dataclass_fields__})
     fields = {f.name: getattr(cfg, f.name)
               for f in DecoderConfig.__dataclass_fields__.values()}
     impl = fields["implementation"]
@@ -78,6 +84,14 @@ def encoder_from_reference(mats) -> EncoderMatrices:
         gap=int(mats.gap),
         perm=None if perm is None else np.array(perm, dtype=np.int64),
     )
+
+
+def learned_from_reference(lw) -> LearnedWeights:
+    """A reference ``LearnedWeights`` (alpha, beta, losses) -> the port's,
+    the arrays copied in their own dtype, so a schedule trained by either
+    package decodes through both to the same configs."""
+    return LearnedWeights(alpha=np.array(lw.alpha), beta=np.array(lw.beta),
+                          losses=tuple(float(x) for x in lw.losses))
 
 
 def modulation_from_reference(mod) -> Modulation:

@@ -66,9 +66,9 @@ import torch
 from ..codes.qc import QCCode
 from ..utils.config import DecoderConfig
 
-__all__ = ["DecodeResult", "accept_fail_fn", "crc_fail_fn", "decode_flooding",
-           "decode_layered", "decode_qc", "layer_weights", "msg_dtype",
-           "outer_fail_fn"]
+__all__ = ["DecodeResult", "accept_fail_fn", "canon_weights", "crc_fail_fn",
+           "decode_flooding", "decode_layered", "decode_qc", "layer_weights",
+           "msg_dtype", "outer_fail_fn", "weights_mode"]
 
 _Q_INF = 1e30  # masked-row q magnitude: the min-sum / phi identity
 _PHI_MIN = 1e-7   # clamp for the sum-product phi transform
@@ -195,29 +195,94 @@ def _check_update_sumproduct(qs: torch.Tensor) -> torch.Tensor:
     return torch.where(sign_excl == 1, -mag, mag)
 
 
-def _check_update_fn(cfg: DecoderConfig, n_layers: int):
-    """``fn(qs, layer_index)``: the config's check update, min-sum with its
-    scalar or per-layer weights, or sum-product."""
-    if cfg.algorithm == "sum-product":
-        return lambda qs, li: _check_update_sumproduct(qs)
-    alphas, betas = layer_weights(cfg.normalization, cfg.offset, n_layers)
-    return lambda qs, li: _check_update_minsum(qs, alphas[li], betas[li])
-
-
-def layer_weights(normalization, offset, n_layers: int):
-    """Per-layer (alphas, betas) float tuples of a DecoderConfig weight
-    schedule: a scalar applies to every layer, a flat tuple gives one value
-    per base row.  Per-iteration schedules are refused by DecoderConfig."""
-
-    def per_layer(w):
-        if isinstance(w, (int, float)):
-            return (float(w),) * n_layers
+def canon_weights(w, n_layers: int):
+    """Canonical form of a DecoderConfig normalization/offset value
+    (``myldpccppapi_tpu/ops/bp.py::canon_weights``): ``("scalar", x)``,
+    ``("layer", (x_0..x_{L-1}))`` for a flat tuple (one weight per base
+    row), or ``("iter", ((x_00..), ..))`` for a nested tuple (outer =
+    iteration, inner = per layer; an inner scalar or length-1 row
+    broadcasts over the layers)."""
+    if isinstance(w, (int, float)):
+        return ("scalar", float(w))
+    if all(isinstance(x, (int, float)) for x in w):
         if len(w) != n_layers:
             raise ValueError(
                 f"per-layer weights need one value per base row "
                 f"({n_layers}), got {len(w)}"
             )
-        return tuple(float(x) for x in w)
+        return ("layer", tuple(float(x) for x in w))
+    rows = []
+    for row in w:
+        if isinstance(row, (int, float)):
+            rows.append((float(row),) * n_layers)
+        elif len(row) == 1:
+            rows.append((float(row[0]),) * n_layers)
+        elif len(row) == n_layers:
+            rows.append(tuple(float(x) for x in row))
+        else:
+            raise ValueError(
+                f"per-iteration weight rows must have 1 or {n_layers} "
+                f"entries, got {len(row)}"
+            )
+    return ("iter", tuple(rows))
+
+
+def weights_mode(cfg: DecoderConfig, n_layers: int) -> str:
+    """Granularity of the config's min-sum weight schedule: "scalar",
+    "layer" (one weight per base row) or "iter" (per iteration and layer).
+    The kernels serve scalar and layer schedules; the torch path serves
+    all three."""
+    order = {"scalar": 0, "layer": 1, "iter": 2}
+    am, _ = canon_weights(cfg.normalization, n_layers)
+    bm, _ = canon_weights(cfg.offset, n_layers)
+    return am if order[am] >= order[bm] else bm
+
+
+def _check_update_fn(cfg: DecoderConfig, n_layers: int):
+    """``fn(qs, layer_index, t)``: the config's check update at sweep
+    ``t``, min-sum with its scalar, per-layer or per-iteration weights, or
+    sum-product.  Sweeps past the end of a per-iteration schedule reuse its
+    last row; its weights are f32 values, as the reference's weight
+    matrices are."""
+    if cfg.algorithm == "sum-product":
+        return lambda qs, li, t: _check_update_sumproduct(qs)
+    am, av = canon_weights(cfg.normalization, n_layers)
+    bm, bv = canon_weights(cfg.offset, n_layers)
+    if am != "iter" and bm != "iter":
+        alphas, betas = layer_weights(cfg.normalization, cfg.offset, n_layers)
+        return lambda qs, li, t: _check_update_minsum(qs, alphas[li], betas[li])
+
+    def rows(mode, v):
+        if mode == "scalar":
+            v = ((v,) * n_layers,)
+        elif mode == "layer":
+            v = (v,)
+        return np.asarray(v, np.float32).tolist()
+
+    a_rows, b_rows = rows(am, av), rows(bm, bv)
+
+    def fn(qs, li, t):
+        alpha = a_rows[min(t, len(a_rows) - 1)][li]
+        beta = b_rows[min(t, len(b_rows) - 1)][li]
+        # the reference's traced form: max(mag - beta, 0) * alpha, the same
+        # f32 values as the static form's skipped steps
+        return _check_update_minsum(qs, alpha, beta)
+
+    return fn
+
+
+def layer_weights(normalization, offset, n_layers: int):
+    """Per-layer (alphas, betas) float tuples of a DecoderConfig weight
+    schedule: a scalar applies to every layer, a flat tuple gives one value
+    per base row.  A per-iteration schedule raises: only the torch path
+    serves it (the kernels' tables hold one weight per layer)."""
+
+    def per_layer(w):
+        mode, v = canon_weights(w, n_layers)
+        if mode == "iter":
+            raise ValueError("per-iteration weights are served by the torch "
+                             "path only (implementation=\"torch\")")
+        return (v,) * n_layers if mode == "scalar" else v
 
     return per_layer(normalization), per_layer(offset)
 
@@ -438,7 +503,7 @@ def _decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
                         bit = torch.where(masks_t[e], bit, 0)
                     par = bit if par is None else par + bit
             qs = _mask_q(torch.stack(qs), entries, masks_t)
-            r_new = check_update(qs, li).to(dt)
+            r_new = check_update(qs, li, t).to(dt)
             # delta-accumulate writeback, in row-major block order, a
             # column's circulants added in wt and stored once
             for (j, group) in groups[li]:
@@ -526,7 +591,7 @@ def decode_flooding(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Deco
         # the check update in f32, masked rows at an f32 1e30
         r = torch.cat([
             check_update(_mask_q(q[p0:p0 + len(entries)].float(), entries,
-                                 masks_t), li).to(dt)
+                                 masks_t), li, t).to(dt)
             for li, (p0, entries) in enumerate(layers)])
         post = chan.clone()
         for (_, entries) in layers:

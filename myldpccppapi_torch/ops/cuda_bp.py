@@ -48,7 +48,7 @@ from ..codes.rs_ldpc import RSLDPCCode
 from ..utils.config import DecoderConfig
 from ..utils.device import cuda_index
 from . import _build
-from .bp import DecodeResult, decode_qc, layer_weights, msg_dtype
+from .bp import DecodeResult, decode_qc, layer_weights, msg_dtype, weights_mode
 from .cuda_long import MIN_Z as _LONG_MIN_Z
 
 __all__ = ["REQUIREMENTS", "choose_tile", "decode_qc_cuda", "decode_qc_cuda_plain",
@@ -85,8 +85,9 @@ REQUIREMENTS = (
     f"{_MAX_XOR_BLOCKS} xor blocks under any schedule and algorithm, with "
     "soft output or not, or more circulants, none multi-edge, with z < "
     f"{_LONG_MIN_Z} under layered min-sum with scalar alpha/beta and no "
-    "soft output (kernel B's domain); CRC or outer-code acceptance wraps "
-    "it (Decoder)"
+    "soft output (kernel B's domain); scalar or per-layer min-sum weights, "
+    "not a per-iteration schedule (the torch path serves that); CRC or "
+    "outer-code acceptance wraps it (Decoder)"
 )
 
 
@@ -227,7 +228,7 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
     output (kernel A), with more only kernel B's layered min-sum on a
     cyclic code without multi-edge cells with z < 64.  A config with CRC
     or outer-code acceptance is refused (the kernel is syndrome-only;
-    ``Decoder`` wraps it).  When a CUDA ``device`` is given, the
+    ``Decoder`` wraps it), and so is a per-iteration weight schedule.  When a CUDA ``device`` is given, the
     per-codeword state of the config's mode must also fit a thread block's
     shared memory there (:func:`tile_size`)."""
     if isinstance(code, RSLDPCCode):  # z = 2^s: r ^ s stays in [0, z)
@@ -241,6 +242,8 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
         return False
     if cfg is not None and not (cfg.crc is None and cfg.outer is None):
         return False
+    if cfg is not None and weights_mode(cfg, code.m_b) == "iter":
+        return False  # the weight tables hold one row (pallas_bp.py:145-158)
     mode_bits = 0 if cfg is None else mode(cfg)
     return device is None or len(_blocks_per_sm(
         code, cuda_index(device), mode_bits, msg_dtype(cfg).itemsize)) >= 1

@@ -56,7 +56,7 @@ from ..codes.qc import QCCode
 from ..utils.config import DecoderConfig
 from ..utils.device import cuda_index
 from . import _build
-from .bp import DecodeResult, _decode_layered, layer_weights, msg_dtype
+from .bp import DecodeResult, _decode_layered, layer_weights, msg_dtype, weights_mode
 from . import cuda_stream
 from .cuda_stream import MULTI_EDGE, group_slots, layer_flags, live_words, n_masks
 
@@ -77,7 +77,9 @@ REQUIREMENTS = (
     "accepts (z threads per block and the widest row within the kernel's "
     "bounds, its tables within a thread block's shared memory), the "
     "layered schedule (min-sum or sum-product, soft output or not, f32 or "
-    "bf16 messages); CRC or outer-code acceptance wraps it (Decoder)"
+    "bf16 messages), scalar or per-layer min-sum weights, not a "
+    "per-iteration schedule (the torch path serves that); CRC or "
+    "outer-code acceptance wraps it (Decoder)"
 )
 
 
@@ -126,7 +128,10 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
     its placements (:func:`placement`).
 
     Refused: a config with CRC or outer-code acceptance (the kernel is
-    syndrome-only; ``Decoder`` wraps it, ops/crc_accept.py).  The flooding
+    syndrome-only; ``Decoder`` wraps it, ops/crc_accept.py), and a
+    per-iteration weight schedule in either placement (the tables hold one
+    weight per layer, as ``pallas_zlane``'s and ``pallas_stream.py:77-83``
+    do).  The flooding
     schedule, and SCMS with it, is the TPU short-code kernel's, as here
     (ops/cuda_bp.py).  So is the xor group: the kernel aligns circulants
     only, as the TPU's z-lane kernel does, so an xor-group code is refused
@@ -136,7 +141,8 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
     if not isinstance(code, QCCode) or code.z < MIN_Z:
         return False
     if cfg is not None and not (
-            cfg.schedule == "layered" and cfg.crc is None and cfg.outer is None):
+            cfg.schedule == "layered" and cfg.crc is None and cfg.outer is None
+            and weights_mode(cfg, code.m_b) != "iter"):
         return False
     return (device is None
             or placement(code, cuda_index(device), msg_dtype(cfg).itemsize) > 0)

@@ -1,4 +1,12 @@
-"""Configuration objects."""
-from .config import DecoderConfig
+"""Configs, profiling/metrics, and small host utilities."""
+from .config import DecoderConfig, RunConfig
+from .profiling import PhaseTimer, emit_metrics, iterations_histogram, trace
 
-__all__ = ["DecoderConfig"]
+__all__ = [
+    "DecoderConfig",
+    "PhaseTimer",
+    "RunConfig",
+    "emit_metrics",
+    "iterations_histogram",
+    "trace",
+]

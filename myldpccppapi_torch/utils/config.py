@@ -4,9 +4,9 @@ Counterpart of ``myldpccppapi_tpu/utils/config.py``: the same
 :class:`DecoderConfig` fields and validation.  Implementation names map
 ``"jnp"`` -> ``"torch"``, ``"pallas"`` -> ``"cuda"`` and
 ``"pallas_zlane"`` -> ``"cuda_long"``; ``"edgelist"`` keeps its name.
-Configurations the port does not serve yet raise
-:class:`NotImplementedError` naming the ROADMAP item that brings them,
-instead of being approximated.
+A per-iteration weight schedule (a nested ``normalization`` or
+``offset``) is served by the torch path only: the kernels refuse it, so
+``implementation="auto"`` raises on the card (decoder.py).
 """
 from __future__ import annotations
 
@@ -17,12 +17,6 @@ __all__ = ["DecoderConfig", "RunConfig", "check_edgelist_config"]
 
 #: implementation names the port serves
 _IMPLEMENTATIONS = ("auto", "torch", "cuda", "cuda_long", "edgelist")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})"
-    )
 
 
 def check_edgelist_config(cfg: "DecoderConfig") -> None:
@@ -52,8 +46,12 @@ class DecoderConfig:
     schedule:     "layered" (TDMP) | "flooding"
     max_iters:    iteration cap (the reference C++ library uses 40)
     normalization: alpha for normalized min-sum (1.0 = plain min-sum);
-                  a scalar or one value per base row (layer)
-    offset:       beta for offset min-sum (0.0 = none); scalar or per layer
+                  a scalar, one value per base row (layer), or a nested
+                  tuple (outer = iteration, inner = per layer; sweeps past
+                  the schedule reuse its last row; the torch path only:
+                  ops/learned.py trains them)
+    offset:       beta for offset min-sum (0.0 = none); scalar, per layer
+                  or per iteration
     early_exit:   stop when every codeword of the batch (on the CUDA
                   kernel: of the thread block) satisfies all parity checks
     implementation: "auto" | "torch" | "cuda" | "cuda_long" | "edgelist"
@@ -169,18 +167,8 @@ class DecoderConfig:
             or not all(isinstance(x, int) for x in self.outer[1:])
         ):
             raise ValueError(f'outer must be ("bch", m, t), got {self.outer!r}')
-        self._refuse_unported()
         if self.implementation == "edgelist":
             check_edgelist_config(self)
-
-    def _refuse_unported(self):
-        for f in ("normalization", "offset"):
-            w = getattr(self, f)
-            if not isinstance(w, (int, float)) and not all(
-                isinstance(x, (int, float)) for x in w
-            ):
-                raise _not_ported(f"per-iteration {f} weights",
-                                  "Queue 1 item 3")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,103 @@
+"""Tracing, phase timing, and metric emission.
+
+Counterpart of ``myldpccppapi_tpu/utils/profiling.py``: named wall-clock
+phase timers, an iterations-to-convergence histogram and one-line JSON
+metrics (NumPy copies of the reference's), and :func:`trace`, which
+records a ``torch.profiler`` trace (host and, on a CUDA device, kernel
+activity) around a block and writes it into a directory as a Chrome
+trace, where the reference captures a ``jax.profiler`` trace.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+from collections import defaultdict
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+__all__ = ["PhaseTimer", "trace", "iterations_histogram", "emit_metrics"]
+
+
+class PhaseTimer:
+    """Accumulating named wall-clock phase timers.
+
+    >>> t = PhaseTimer()
+    >>> with t.phase("h2d"): ...
+    >>> with t.phase("decode"): ...
+    >>> t.report()   # {'h2d': {'total_s': ..., 'calls': ...}, ...}
+    """
+
+    def __init__(self):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.calls: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.calls[name] += 1
+
+    def report(self) -> Dict[str, Dict[str, float]]:
+        return {
+            k: {
+                "total_s": self.totals[k],
+                "calls": self.calls[k],
+                "mean_s": self.totals[k] / max(self.calls[k], 1),
+            }
+            for k in sorted(self.totals)
+        }
+
+    def reset(self) -> None:
+        self.totals.clear()
+        self.calls.clear()
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]) -> Iterator[None]:
+    """Record a ``torch.profiler`` trace of the block (CPU activity, and
+    CUDA kernels where CUDA is available) and export it into ``log_dir`` as
+    ``trace_<pid>_<ns>.json`` (Chrome trace format, viewable in Perfetto or
+    chrome://tracing); a no-op when ``log_dir`` is falsy."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def iterations_histogram(iterations, max_iters: int) -> Dict[str, object]:
+    """Iterations-to-convergence distribution as a first-class metric."""
+    it = np.asarray(iterations).reshape(-1)
+    counts = np.bincount(it, minlength=max_iters + 1)
+    return {
+        "mean": float(it.mean()) if it.size else float("nan"),
+        "p50": float(np.percentile(it, 50)) if it.size else float("nan"),
+        "p99": float(np.percentile(it, 99)) if it.size else float("nan"),
+        "max": int(it.max()) if it.size else 0,
+        "at_cap": int(counts[max_iters]) if max_iters < len(counts) else 0,
+        "counts": counts.tolist(),
+    }
+
+
+def emit_metrics(path: Optional[str], **metrics) -> str:
+    """Serialize metrics to one JSON object (written to ``path`` if given)."""
+    s = json.dumps(metrics, sort_keys=True, default=float)
+    if path:
+        with open(path, "w") as f:
+            f.write(s + "\n")
+    return s

@@ -97,8 +97,10 @@ def test_interop_round_trips():
     assert interop.config_from_reference(
         ref.DecoderConfig(implementation="edgelist")
     ) == DecoderConfig(implementation="edgelist")
-    with pytest.raises(NotImplementedError):
-        interop.config_from_reference(ref.DecoderConfig(normalization=((0.7,), (0.8,))))
+    # a per-iteration schedule carries across, served by the torch path
+    assert interop.config_from_reference(
+        ref.DecoderConfig(normalization=((0.7,), (0.8,)))
+    ) == DecoderConfig(normalization=((0.7,), (0.8,)))
 
 
 def test_information_set_encoder_via_interop():

@@ -76,7 +76,8 @@ def test_small_batch_skips_triage():
 PORTED = (dict(schedule="flooding"), dict(algorithm="sum-product"),
           dict(schedule="flooding", self_correction=True),
           dict(soft_output=True), dict(msg_dtype="bfloat16"), dict(crc="16"),
-          dict(outer=("bch", 16, 12)), dict(implementation="edgelist"))
+          dict(outer=("bch", 16, 12)), dict(implementation="edgelist"),
+          dict(normalization=((0.7,), (0.8,))))
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -97,7 +98,8 @@ def test_unported_configs_raise_not_implemented(kwargs):
     path as the reference's jnp path does (bf16 too at this point, alpha 1:
     both round after every operation; the CRC and BCH latch, whose frames
     here never pass the check, run to the cap alike); the edge-list path,
-    ported since, as the reference's edge-list path does."""
+    ported since, as the reference's edge-list path does; a per-iteration
+    weight schedule, ported since, on the torch path as on the jnp path."""
     if kwargs not in PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DecoderConfig(**kwargs)

@@ -34,7 +34,10 @@ def test_import_leaves_jax_out():
         "myldpccppapi_torch.codes.dvbs2, myldpccppapi_torch.codes.dvbs2_designed, "
         "myldpccppapi_torch.utils.device, myldpccppapi_torch.ops.modulation, "
         "myldpccppapi_torch.ops.bicm_id, myldpccppapi_torch.ops.bp_edgelist, "
-        "myldpccppapi_torch.codes.nr_transport\n"
+        "myldpccppapi_torch.codes.nr_transport, myldpccppapi_torch.ops.learned, "
+        "myldpccppapi_torch.ops.bitflip, myldpccppapi_torch.ops.impulse, "
+        "myldpccppapi_torch.codes.pexit, myldpccppapi_torch.codes.design, "
+        "myldpccppapi_torch.utils.profiling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'myldpccppapi_tpu')]\n"
         "assert not bad, bad\n"
