@@ -13,7 +13,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    reports of the decode kernels (bp_layered.cu, bp_long.cu, bp_stream.cu:
    registers, shared memory, spills); hold bp_long.cu's scratch layout, as
    the library sizes it, against the record codec
-   (:func:`check_long_scratch_layout`).
+   (:func:`check_long_scratch_layout`); then build the native host library
+   (``myldpccppapi_torch/native``) with g++ and print its seconds.
 3. Short-code kernel vs plain: the kernel on CUDA against its plain
    version (``decode_qc_cuda_plain``) on CUDA at batch 1000 and on the CPU
    on the batch's first 64 frames, for all six 802.16e rates at n=576
@@ -271,6 +272,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    torch path of the card; one ``Decoder`` call inside
    ``utils.profiling.trace``, whose Chrome trace names
    ``bp_layered_kernel``.
+4t. (not BASELINE config 4t, which is phase 4o) The native host library
+   (``myldpccppapi_torch/native``: the C++ goldens and packed GF(2)
+   kernels, built with g++ in phase 2 on the card's host, its seconds
+   logged): the ``Coder`` decode type ``CPU`` (its C++ flooding golden)
+   round trips phase 4's stream (every converged codeword's bytes equal
+   the source) and equals the NumPy golden (ops/golden.py) on its first
+   128 codewords (converged, iterations, bits of converged frames);
+   kernel A without triage at the bench point's first 256 frames equals
+   ``native.decode_golden_layered_native`` in bits, converged and
+   iterations; then CLI ``bench``'s ``bench.measure()`` at full size
+   (wimax 576 r3/4B, 8192 frames, 5 dB, triage 5, 7 timed calls), its
+   gates held and its JSON record logged as a ``{"bench": ...}`` line;
+   kernel A's launches there go into its kernels-line entry
+   (``bench_launches``).
 6. (runs first, after the build) Kernel E, the op-rate calibration
    (csrc/op_rate.cu, tools/roofline.py): its five bodies (E's fma4, mix3
    and mix4; sfu, the decoders' phi; mufu, bare ex2/lg2) against their
@@ -378,7 +393,10 @@ record (phase 3k's worst difference, 4n's convergence counts and phase
 {...}}``, before the card's name; so are GDBF's (``{"gdbf": {...}}``)
 and the trainer's (``{"train_nms": {...}}``).  ``bp_layered`` adds the
 tied schedules' launches and ``Decoder`` times (``learned_tied_*``) and
-the CLI probe's (``probe_launches``, ``probe_s``); ``bp_long`` the NR BG2
+the CLI probe's (``probe_launches``, ``probe_s``) and phase 4t's bench
+(``bench_launches``: its warm-up and timed calls; ``bench_mbits``,
+``bench_batch_ms``, ``bench_vs_native_golden``; the whole record is the
+``{"bench": ...}`` line of phase 4t); ``bp_long`` the NR BG2
 schedule's (``learned_nr_bg2_launches``) and the NR probe's
 (``probe_nr_launches``).  The last line is ``{"ok": true, "device":
 {...}}``.
@@ -438,7 +456,8 @@ from myldpccppapi_torch.codes import (
 )
 from myldpccppapi_torch.codes.bch import bch_attach_fn, bch_matrix
 from myldpccppapi_torch.codes.crc import CRC_POLYS, crc_attach_fn
-from myldpccppapi_torch.ops import _build, cuda_bp, cuda_stream
+from myldpccppapi_torch import bench, native
+from myldpccppapi_torch.ops import _build, cuda_bp, cuda_stream, golden
 from myldpccppapi_torch.ops.channel import sigma_from_snr_db, transmit
 from myldpccppapi_torch.ops.cuda_bp import (
     decode_qc_cuda,
@@ -732,6 +751,12 @@ BF_CODEWORDS = 1024
 BF_SIGMA = 0.21
 #: phase 4s: the NR probe's pairs
 PROBE_NR_PAIRS = 256
+#: phase 4t: the codewords of phase 4's stream on which Coder("CPU") (the
+#: C++ golden) is held against the NumPy golden, and the bench point's
+#: frames on which kernel A is held against the C++ layered golden
+#: (bench.py's baseline frames)
+NATIVE_NUMPY_FRAMES = 128
+NATIVE_LAYERED_FRAMES = 256
 NO_LAUNCH_OPS = {"view", "_unsafe_view", "t", "transpose", "slice", "select",
                  "unsqueeze", "squeeze", "expand", "alias", "detach",
                  "as_strided", "permute", "lift_fresh", "scalar_tensor",
@@ -3401,6 +3426,89 @@ def phase_probe(dec, llr) -> dict:
             "nr_launches": nr_launches}
 
 
+def phase_native_bench(stream, native_s) -> dict:
+    """Phase 4t (not BASELINE config 4t, which is phase 4o): the port's
+    native host library (built in phase 2, in ``native_s`` g++ seconds) on
+    the card's host: ``Coder`` decode type ``CPU`` (its C++ golden) round
+    trips phase 4's stream and equals the NumPy golden on its first
+    codewords; kernel A without triage equals the C++ layered golden at the
+    bench point's first 256 frames; then CLI ``bench``'s ``measure()`` at
+    full size, its record logged, its gates held.  Returns the record and
+    kernel A's launches in the bench's run."""
+    coder, src, post = stream
+    code = coder.code
+    t0 = time.perf_counter()
+    out, stats = coder.decode(post, len(src), "CPU", return_stats=True)
+    cpu_s = time.perf_counter() - t0
+    conv = stats["converged"]
+    kb = code.k // 8
+    words = np.frombuffer(src, np.uint8).reshape(-1, kb)
+    if not np.array_equal(out.reshape(-1, kb)[conv], words[conv]) or conv.mean() < 0.9:
+        raise AssertionError(f"Coder CPU round trip: {conv.mean():.4f} converged, "
+                             "or a converged codeword decoded wrong")
+    err = int(np.sum(np.frombuffer(src, np.uint8) != out))
+    built = f"g++ {native_s:.2f} s in phase 2" if native_s is not None else "prebuilt"
+    log(f"[phase4t] native library {native.build()[0].name} ({built}); Coder CPU "
+        f"round trip: {len(src)} bytes, {len(conv)} codewords in "
+        f"{cpu_s:.3f} s, converged {conv.mean():.4f}, mean_iters "
+        f"{stats['mean_iters']:.3f}, ErrNum={err}; every converged codeword's bytes "
+        "equal the source")
+    head = post.reshape(-1, code.n)[:NATIVE_NUMPY_FRAMES]
+    nb, nc, ni = native.decode_golden_native(code, head, max_iters=coder.max_iters)
+    if not (np.array_equal(nc, conv[:NATIVE_NUMPY_FRAMES])
+            and np.array_equal(ni, stats["iterations"][:NATIVE_NUMPY_FRAMES])):
+        raise AssertionError("Coder CPU differs from the native golden it runs")
+    # in f32 the NumPy golden adds in the C++ golden's order: equal in every
+    # field of every frame; in f64 (its default) a frame at the cap may
+    # converge on one side only, so there the bits of the frames both
+    # converge must agree and the others are counted
+    f32 = golden.decode_golden(code, head, max_iters=coder.max_iters, dtype=np.float32)
+    for name, got, want in zip(("bits", "converged", "iterations"), (nb, nc, ni), f32):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"Coder CPU != the f32 NumPy golden: {name}")
+    gb, gc, gi = golden.decode_golden(code, head, max_iters=coder.max_iters)
+    both = nc & gc
+    if not np.array_equal(nb[both], gb[both]):
+        raise AssertionError("Coder CPU != the f64 NumPy golden on converged frames")
+    apart = int(np.sum((nc != gc) | (ni != gi)))
+    log(f"[phase4t] Coder CPU == the f32 NumPy golden on the stream's first "
+        f"{NATIVE_NUMPY_FRAMES} codewords ({int(nc.sum())} converged) in every field; "
+        f"against the f64 one: bits equal on the {int(both.sum())} both converge, "
+        f"{apart} frames apart in converged or iterations")
+
+    bench_code = wimax(576, "3/4B")
+    _, (llr,) = bench.stage(bench_code, torch.device("cuda"), bench.BATCH, 1, bench.SEED)
+    llr = llr[:NATIVE_LAYERED_FRAMES].contiguous()
+    cfg = dataclasses.replace(bench.CONFIG, triage_iters=0)
+    dec = Decoder(bench_code, cfg, device="cuda")
+    if dec.implementation != "cuda":
+        raise AssertionError(f"the bench point resolved to {dec.implementation}")
+    res = dec(llr)
+    want = native.decode_golden_layered_native(
+        bench_code, llr.cpu().numpy(), max_iters=cfg.max_iters,
+        normalization=cfg.normalization)
+    for name, got, w in zip(("bits", "converged", "iterations"),
+                            (res.bits, res.converged, res.iterations), want):
+        if not np.array_equal(got.cpu().numpy(), w):
+            raise AssertionError(f"kernel A != the native layered golden: {name}")
+    log(f"[phase4t] kernel A (no triage) == the native layered golden at the bench "
+        f"point's first {NATIVE_LAYERED_FRAMES} frames ({int(want[1].sum())} converged, "
+        f"mean iterations {want[2].mean():.3f}): bits, converged, iterations")
+
+    decode_qc_cuda.launches = 0
+    record = bench.measure()
+    torch.cuda.synchronize()
+    launches = decode_qc_cuda.launches
+    if launches < 1 or not record["implementation"].startswith("cuda"):
+        raise AssertionError(f"bench: {launches} kernel A launches, "
+                             f"implementation {record['implementation']}")
+    log(json.dumps({"bench": record}))
+    log(f"[phase4t] bench: {record['value']:.1f} Mbit/s, {record['batch_ms']:.4f} ms "
+        f"a batch, {record['vs_baseline']:.1f}x the native golden's "
+        f"{record['cpu_baseline_mbits']:.3f} Mbit/s; {launches} kernel A launches")
+    return {"record": record, "launches": launches}
+
+
 def learned_times(dec_scalar, tied, llr) -> dict:
     """Phase 5: the bench point's ``Decoder`` with the trained and stored
     tied schedules against the 0.75 scalar's (phase 4's), ms and mean
@@ -3491,6 +3599,11 @@ def main() -> int:
     log(f"[phase2] loaded {lib_path.name}")
     for line in ptxas_lines():
         log(f"[phase2] ptxas {line}")
+    native_path, native_s = native.build()
+    native.load()
+    log(f"[phase2] native host library {native_path.name}: "
+        + (f"built with g++ in {native_s:.2f} s" if native_s is not None
+           else "built before this run"))
     check_long_scratch_layout()
 
     t0 = time.perf_counter()
@@ -3535,6 +3648,7 @@ def main() -> int:
     learned = phase(phase_learned, llr, u)
     gdbf_dec, gdbf_fers, gdbf_worst = phase(phase_gdbf, llr, u, rs_dec, rs_llr)
     probe = phase(phase_probe, dec, llr)
+    nat = phase(phase_native_bench, stream, native_s)
     mp = phase(phase_multiprocess)
     times = phase_times(dec, llr, decode_qc_cuda, decode_qc_cuda_plain,
                         dataclasses.replace(BENCH_CFG, triage_iters=0))
@@ -3653,7 +3767,11 @@ def main() -> int:
               # phase 4s: the CLI probe
               learned_tied_launches={k: v["launches"] for k, v in learned["tied"].items()},
               learned_tied_decoder_ms={k: v["ms"] for k, v in learn_times.items()},
-              probe_launches=probe["launches"], probe_s=probe["probe_s"]),
+              probe_launches=probe["launches"], probe_s=probe["probe_s"],
+              # phase 4t: CLI bench's measure() (its warm-up and timed calls)
+              bench_launches=nat["launches"], bench_mbits=nat["record"]["value"],
+              bench_batch_ms=nat["record"]["batch_ms"],
+              bench_vs_native_golden=nat["record"]["vs_baseline"]),
         # kernel A's xor group (RS-LDPC, phase 4k) and multi-edge cells (3j)
         entry("bp_layered_xor", "bp_layered.cu", kernel_a, rs_launches, worst_xor,
               rs_times, coder_launches=rs_coder_launches,

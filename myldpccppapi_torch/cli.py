@@ -18,10 +18,12 @@ Counterpart of ``myldpccppapi_tpu/cli.py``:
                 DVB-S2 IRA profile (host-side NumPy).
 ``probe``     — error-impulse floor probe through ``Decoder`` on the
                 device (the production kernels on the card).
+``bench``     — the headline throughput at the root ``bench.py``'s
+                operating point, against the port's own C++ golden
+                (:mod:`.bench`); one JSON line.
 
-``test``, ``waterfall`` and ``probe`` run on the card; ``--device cpu`` is
-the only way onto the CPU.  ``bench`` is refused: the port's benchmark is
-ROADMAP Queue 1 item 1.
+``test``, ``waterfall``, ``probe`` and ``bench`` run on the card;
+``--device cpu`` is the only way onto the CPU.
 Under ``torch.distributed.run`` the backend is ``--dist-backend``, or by
 default nccl on CUDA ranks that have a card each and gloo on the CPU;
 ranks that share a card need ``--dist-backend gloo`` (parallel/dist.py).
@@ -52,6 +54,7 @@ Examples::
     python -m myldpccppapi_torch threshold --family nr --z 384 --bg 2
     python -m myldpccppapi_torch design --family nr --bg 2 --steps 300
     python -m myldpccppapi_torch probe --family wimax --n 576 --rate 1/2
+    python -m myldpccppapi_torch bench
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m myldpccppapi_torch -- waterfall --family dvbs2 --n 16200 \
         --rate 1/2 --snr 0.5:4:0.5 --batch 1024 --normalization 0.8 \
@@ -362,9 +365,9 @@ def cmd_probe(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise SystemExit(
-        "bench is not ported to the PyTorch package yet (ROADMAP Queue 1 "
-        "item 1: the port's benchmark against its own native baseline)")
+    from . import bench
+
+    return bench.main(args.device)
 
 
 def _code_args(p, families) -> None:
@@ -466,8 +469,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "each rank takes cuda:LOCAL_RANK %% device count")
     w.set_defaults(fn=cmd_waterfall)
 
-    b = sub.add_parser("bench", help="headline throughput benchmark (not "
-                                     "ported yet: ROADMAP Queue 1 item 1)")
+    b = sub.add_parser("bench", help="headline throughput benchmark (one "
+                                     "JSON line)")
+    b.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="torch device (default: cuda; cpu for the CPU)")
     b.set_defaults(fn=cmd_bench)
 
     families = ["wimax", "wifi", "regular", "nr", "dvbs2", "rs_ldpc"]

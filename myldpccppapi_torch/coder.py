@@ -13,7 +13,8 @@ Decode-type names map onto decoder configurations:
 ==========  =====================================================
 reference    here
 ==========  =====================================================
-DecodeCPU    numpy golden flooding min-sum (ops/golden.py)
+DecodeCPU    the C++ golden flooding min-sum of native/ (f32, the
+             reference's ``decodeCPU``), on the host
 DecodeMS     flooding min-sum, plain torch path
 DecodeSP     flooding sum-product, plain torch path; the soft stream
              is scaled by 8.0 unless ``llr_scale`` says otherwise
@@ -39,7 +40,8 @@ import torch
 from .codes.encoder import Encoder, encode_numpy
 from .codes.wimax import wimax
 from .decoder import Decoder
-from .ops import cuda_bp, cuda_long, golden
+from . import native
+from .ops import cuda_bp, cuda_long
 from .ops.bitflip import GDBFConfig
 from .ops.channel import awgn, bpsk_modulate
 from .ops.packing import pack_bits_np, unpack_bits_np
@@ -364,7 +366,7 @@ class Coder:
             raise ValueError(f"expected {ncw} codewords, got {post.shape[0]}")
         accepted = None
         if de_type == "CPU":
-            bits, conv, iters = golden.decode_golden(
+            bits, conv, iters = native.decode_golden_native(
                 self.code, post, max_iters=self.max_iters)
             if self.crc is not None:
                 # the golden decoder has no in-loop CRC; acceptance is the

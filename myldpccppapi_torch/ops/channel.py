@@ -17,6 +17,7 @@ import torch
 
 __all__ = [
     "sigma_from_snr_db",
+    "snr_db_from_ebn0_db",
     "bpsk_modulate",
     "awgn",
     "channel_llr",
@@ -24,10 +25,23 @@ __all__ = [
 ]
 
 
+#: log10(e) as the reference's f32 log10 multiplies by it
+_LOG10_E = 0.4342944920063019
+
+
 def sigma_from_snr_db(snr_db) -> torch.Tensor:
     """Noise sigma from SNR in dB (float32), sigma = 10^(-snr/20), i.e.
     Es/N0 with Es = 1 (``Test.cpp:57``)."""
     return 10.0 ** (-torch.as_tensor(snr_db, dtype=torch.float32) / 20.0)
+
+
+def snr_db_from_ebn0_db(ebn0_db, rate: float, bits_per_symbol: int = 1) -> torch.Tensor:
+    """Eb/N0 (dB) -> the Es/N0-style SNR above (float32), for a code rate
+    and modulation order: Es = rate * bits_per_symbol * Eb.  The log10 is
+    the reference's f32 ``log(x) * 0.4342944920063019``; its f32 ``log`` is
+    XLA's, which may differ from torch's in the last place."""
+    log10 = torch.log(torch.tensor(rate * bits_per_symbol, dtype=torch.float32)) * _LOG10_E
+    return torch.as_tensor(ebn0_db, dtype=torch.float32) + 10.0 * log10
 
 
 def bpsk_modulate(bits: torch.Tensor) -> torch.Tensor:

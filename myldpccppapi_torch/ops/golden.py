@@ -4,8 +4,10 @@ A direct, readable port of the numerical behaviour of the reference's CPU
 golden path (``Coder::decodeCPU``, ``MyLdpc.cpp:684-784``): flooding min-sum
 (no normalization), syndrome check after every iteration, early exit, hard
 decision ``bit = not (posterior > 0)``.  One codeword at a time; float64 by
-default.  NumPy copy of ``myldpccppapi_tpu/ops/golden.py``; serves the
-``Coder`` decode type ``"CPU"`` — never on the hot path.
+default.  NumPy copy of ``myldpccppapi_tpu/ops/golden.py``: the plain
+version that the tests hold the C++ golden of :mod:`..native` against
+(which serves the ``Coder`` decode type ``"CPU"``) — never on the hot
+path.
 """
 from __future__ import annotations
 

@@ -1,13 +1,14 @@
 """The port's byte-stream Coder and CLI `test` flow against the JAX
 package's Coder on the same soft stream."""
+import json
+
 import numpy as np
 import pytest
 import torch
 
 import myldpccppapi_tpu as ref
-from myldpccppapi_tpu import native as ref_native
 
-from myldpccppapi_torch import Coder
+from myldpccppapi_torch import Coder, bench
 from myldpccppapi_torch.cli import build_parser, main
 
 torch.set_num_threads(1)
@@ -28,11 +29,9 @@ def stream():
 
 
 @pytest.mark.parametrize("de_type", ["TDMP", "TDMPCL", "CPU"])
-def test_decode_matches_reference_coder(stream, de_type, monkeypatch):
-    # the reference's CPU type prefers its C++ golden; hold the port's
-    # NumPy golden against the reference's NumPy golden
-    monkeypatch.setattr(ref_native, "decode_golden_native",
-                        lambda *a, **k: None)
+def test_decode_matches_reference_coder(stream, de_type):
+    """CPU: the port's C++ golden (native/) against the reference's own
+    default, its C++ golden, byte for byte on capped frames too."""
     src, _, post = stream
     mine = Coder(432, 576, "3/4B", device="cpu")
     theirs = ref.Coder(432, 576, "3/4B")
@@ -94,13 +93,25 @@ def test_cli_test_roundtrip(algo, capsys):
     assert "ErrNum=0" in out and "ThroughPut=" in out and "Time=" in out
 
 
-def test_cli_rejects_unported_algo():
+def test_cli_rejects_unported_algo(capsys, monkeypatch):
     """Every reference decode type parses (BF, ported since, too); a name
-    neither package knows does not, and ``bench`` is refused naming its
-    ROADMAP item."""
+    neither package knows does not.  ``bench``, ported since, runs: one
+    JSON line with the record's fields (a batch of 64 on the CPU)."""
     with pytest.raises(SystemExit):
         build_parser().parse_args(["test", "432", "8", "5.0", "BOGUS"])
     assert build_parser().parse_args(["test", "432", "8", "5.0", "MS"]).algo == "MS"
     assert build_parser().parse_args(["test", "432", "8", "5.0", "BF"]).algo == "BF"
-    with pytest.raises(SystemExit, match="Queue 1 item 1"):
-        main(["bench"])
+    monkeypatch.setattr(bench, "BATCH", 64)
+    assert main(["bench", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    record = json.loads(lines[-1])
+    for key in ("metric", "value", "unit", "vs_baseline", "cpu_baseline_mbits",
+                "batch_ms", "ms", "implementation", "conv", "mean_iters",
+                "kernel_launches", "device"):
+        assert key in record, key
+    assert record["metric"] == "decoded_info_throughput_n576_r34B_layered_nms_5dB"
+    assert record["unit"] == "Mbit/s" and record["device"] == "cpu"
+    assert record["vs_baseline"] > 0 and record["cpu_baseline_mbits"] > 0
+    assert len(record["ms"]) == bench.REPS and record["conv"] > 0.98
+    assert record["value"] == pytest.approx(64 * 432 / record["batch_ms"] / 1e3)

@@ -16,7 +16,7 @@ from myldpccppapi_tpu.codes import design as ref_design
 from myldpccppapi_tpu.codes import pexit as ref_pexit
 from myldpccppapi_tpu.utils import profiling as ref_profiling
 
-from myldpccppapi_torch import codes
+from myldpccppapi_torch import bench, codes
 from myldpccppapi_torch.cli import main
 from myldpccppapi_torch.codes import design, pexit
 from myldpccppapi_torch.utils import (PhaseTimer, emit_metrics, iterations_histogram,
@@ -145,6 +145,12 @@ def test_cli_lines_equal_reference(argv, capsys, tmp_path):
         assert a.read_bytes() == b.read_bytes()
 
 
-def test_cli_bench_refused_naming_its_item():
-    with pytest.raises(SystemExit, match="Queue 1 item 1"):
-        main(["bench"])
+def test_cli_bench_refused_naming_its_item(monkeypatch, capsys):
+    """``bench`` runs now; what it refuses is a failed gate: below its
+    operating point (2 dB) the convergence gate raises and no record is
+    printed."""
+    monkeypatch.setattr(bench, "BATCH", 64)
+    monkeypatch.setattr(bench, "SNR_DB", 2.0)
+    with pytest.raises(RuntimeError, match="bench gate: convergence"):
+        main(["bench", "--device", "cpu"])
+    assert capsys.readouterr().out == ""
