@@ -125,7 +125,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the same LLRs at 5 dB.  ``Decoder(..., soft_output=True)`` on the same
    code resolves to ``cuda_long`` (kernel C's soft mode) and equals the
    torch path, posteriors included; soft output on nr_code(48, 1), which
-   neither kernel serves (z < 64), is refused on the card; the
+   neither kernel serves (z < 64), resolves to the torch path on the card
+   (phase 4u decodes such a case) and an explicit kernel there raises; the
    sum-product ``Decoder`` runs kernel C's sum-product mode at 3-6 dB
    with the same gates and equals the torch path at 5 dB.  Then the CLI
    ``waterfall --family nr --z 384 --bg 1`` for two SNR points, and again
@@ -256,8 +257,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    sweeps, the whole codeword through BPSK/AWGN at -3 dB (the schedule's
    own channel), batch 1024, on kernel C, equal to its plain version;
    (e) the stored per-iteration ``learned_weights_wimax576_r12_T10.json``
-   (12 sweeps, soft output) with ``implementation="torch"`` on the card
-   equal to the CPU in every field, and refused by ``"auto"`` on the card.
+   (12 sweeps, soft output) through ``"auto"`` on the card, which must
+   resolve to the torch path (the reference's jnp route), equal to the
+   CPU in every field (phase 4u's case (c), timed in 4u).
 4r. GDBF (ops/bitflip.py, torch ops): at phase 4's LLRs without the
    perturbation the card equals the CPU in every field; the default
    (noise 0.6) through ``Decoder`` at 6 and 7 dB (8192 frames encoded on
@@ -286,6 +288,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    gates held and its JSON record logged as a ``{"bench": ...}`` line;
    kernel A's launches there go into its kernels-line entry
    (``bench_launches``).
+4u. (runs after 4t) The torch route: what no kernel's gate admits, and
+   the reference sends to its jnp path (XLA ops), runs on torch ops on the
+   card (``Decoder`` resolves ``"auto"`` to ``"torch"``), through the normal
+   entry points at full width.  Each case must resolve to the torch path,
+   launch none of the port's kernels and, on the batch's first frames,
+   equal the same ``Decoder`` on the CPU in every field (sum-product: equal
+   bits and converged flags at a converging point, its largest posterior
+   difference logged); its time (median of 3 CUDA-event-timed calls), its
+   CUDA kernels and host-to-device copies (``torch.profiler``) and its
+   busy share are logged.  (a) NR BG1 Z=384 on phase 4b's 5 dB
+   LLRs (batch 512, 30 sweeps): flooding NMS alpha 0.8, SCMS, flooding
+   sum-product with soft output; then ``make_codec("nr", z=384)``'s byte
+   stream (64 codewords at 3 dB) through SCMS (the torch route; its first
+   8 codewords equal to the CPU decode) and MSCL (the layered substitution
+   on kernel C, with its warning); (b) DVB-S2 16200 r1/2 at 1.5 dB and
+   64800 r1/2 at 1.4 dB, flooding NMS alpha 0.85, batch 1024 (64800: one
+   timed call, 4 frames against the CPU); (c) phase 4q (e)'s per-iteration
+   schedule, timed; (d) ``rs_ldpc_from_n(8192)`` at batch 256, 6.5 dB,
+   layered and flooding, then its ``Coder("MSCL")`` stream (256
+   codewords), which must warn as the reference does and decode every
+   converged codeword to its source bytes; (e) soft output on
+   nr_code(32, 1), batch 512, 3 dB; (f) one CLI ``waterfall --family nr
+   --z 384 --schedule flooding`` point at 5 dB, 512 frames.
 6. (runs first, after the build) Kernel E, the op-rate calibration
    (csrc/op_rate.cu, tools/roofline.py): its five bodies (E's fma4, mix3
    and mix4; sfu, the decoders' phi; mufu, bare ex2/lg2) against their
@@ -391,7 +416,9 @@ kernels that the multi-rank dry run's legs run (``bp_layered`` leg 1,
 record (phase 3k's worst difference, 4n's convergence counts and phase
 5's times and launch counts) is a JSON line of its own, ``{"edgelist":
 {...}}``, before the card's name; so are GDBF's (``{"gdbf": {...}}``)
-and the trainer's (``{"train_nms": {...}}``).  ``bp_layered`` adds the
+and the trainer's (``{"train_nms": {...}}``) and phase 4u's torch route
+(``{"torch_route": {...}}``: each case's times, counts and busy share;
+``bp_long`` adds the NR MSCL stream's launches, ``mscl_nr_coder_launches``).  ``bp_layered`` adds the
 tied schedules' launches and ``Decoder`` times (``learned_tied_*``) and
 the CLI probe's (``probe_launches``, ``probe_s``) and phase 4t's bench
 (``bench_launches``: its warm-up and timed calls; ``bench_mbits``,
@@ -414,6 +441,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -757,6 +785,45 @@ PROBE_NR_PAIRS = 256
 #: (bench.py's baseline frames)
 NATIVE_NUMPY_FRAMES = 128
 NATIVE_LAYERED_FRAMES = 256
+#: phase 4u: the torch route on the card (torch ops, no kernel), where no
+#: kernel's gate admits a request and the reference takes its jnp path.
+#: (a) NR BG1 Z=384 (config 4's code) on phase 4b's 5 dB LLRs, batch 512,
+#: 30 sweeps, in the three modes no kernel serves on it (sum-product with
+#: soft output, so that its posteriors are held too); its byte stream
+#: through make_codec("nr", z=384) with SCMS (the torch route) and MSCL
+#: (its layered substitution, on kernel C)
+TR_NR_CFGS = {
+    "flooding": DecoderConfig(schedule="flooding", normalization=0.8, max_iters=30),
+    "scms": DecoderConfig(schedule="flooding", self_correction=True, max_iters=30),
+    "sp flooding": DecoderConfig(schedule="flooding", algorithm="sum-product",
+                                 soft_output=True, max_iters=30),
+}
+TR_NR_SNR = 5.0
+TR_STREAM_CODEWORDS = 64
+TR_STREAM_SNR = 3.0
+#: each case's frames held against the CPU, and its timed calls
+TR_CPU_FRAMES = 8
+TR_REPS = 3
+#: (b) DVB-S2 r1/2, flooding NMS alpha 0.85, 30 sweeps, batch 1024: (n,
+#: SNR, timed calls, frames held against the CPU)
+TR_DVB_CFG = DecoderConfig(schedule="flooding", normalization=0.85, max_iters=30)
+TR_DVB_CASES = ((16200, 1.5, TR_REPS, 16), (64800, 1.4, 1, 4))
+TR_DVB_BATCH = 1024
+#: (d) rs_ldpc_from_n(8192), whose state no thread block holds: layered
+#: and flooding NMS alpha 0.75, 20 sweeps, batch 256, 6.5 dB; its byte
+#: stream through Coder("MSCL")
+TR_RS_N = 8192
+TR_RS_CFGS = {"layered": DecoderConfig(normalization=0.75, max_iters=20),
+              "flooding": DecoderConfig(schedule="flooding", normalization=0.75,
+                                        max_iters=20)}
+TR_RS_BATCH = 256
+TR_RS_SNR = 6.5
+TR_RS_STREAM_CODEWORDS = 256
+#: (e) soft output on nr_code(32, 1) (z < 64: kernel B's route and kernel
+#: C refuse it): NR_CFG with soft output, rate-matched rv0 LLRs, batch 512
+TR_SOFT_Z = 32
+TR_SOFT_BATCH = 512
+TR_SOFT_SNR = 3.0
 NO_LAUNCH_OPS = {"view", "_unsafe_view", "t", "transpose", "slice", "select",
                  "unsqueeze", "squeeze", "expand", "alias", "detach",
                  "as_strided", "permute", "lift_fresh", "scalar_tensor",
@@ -1590,17 +1657,22 @@ def phase_nr_main_path():
     max_abs_diff(results[5.0], plain(llrs[5.0]))
     log("[phase4b] Decoder(cuda_long) == Decoder(torch) on the same LLRs at 5 dB")
     # a config neither kernel serves on a small-z code (soft output at 310
-    # circulants: kernel B's route and kernel C refuse it) is refused on the
-    # card: there is no quiet torch path there
+    # circulants: kernel B's route and kernel C refuse it) takes the torch
+    # path on the card, where the reference takes jnp (phase 4u decodes
+    # one); an explicit kernel there still raises
     small = nr_code(48, 1)
-    try:
-        Decoder(small, dataclasses.replace(NR_CFG, soft_output=True), device="cuda")
-    except ValueError as e:
-        log(f"[phase4b] Decoder({small.name}, soft_output, device=cuda) refused: "
-            f"{str(e)[:60]}...")
-    else:
-        raise AssertionError(f"Decoder({small.name}, soft_output) on the card "
-                             "did not raise")
+    small_soft = dataclasses.replace(NR_CFG, soft_output=True)
+    impl = Decoder(small, small_soft, device="cuda").implementation
+    if impl != "torch":
+        raise AssertionError(f"Decoder({small.name}, soft_output) resolved to {impl}")
+    for kernel in ("cuda", "cuda_long"):
+        try:
+            Decoder(small, small_soft, device="cuda", implementation=kernel)
+        except ValueError:
+            continue
+        raise AssertionError(f"Decoder({small.name}, soft_output, {kernel}) did not raise")
+    log(f"[phase4b] Decoder({small.name}, soft_output, device=cuda): impl={impl}; "
+        "an explicit cuda or cuda_long raises")
 
     # soft output on the long code: kernel C's soft mode, equal to the
     # torch path, the posteriors of every frame included
@@ -2349,19 +2421,28 @@ class OpCount(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def count_ops(fn) -> dict:
-    """One call of ``fn``: the aten ops it dispatches that launch a device
-    kernel (:class:`OpCount`) and, in another call, the CUDA kernels that
-    ``torch.profiler`` records and the sum of their device times (ms)."""
-    with OpCount() as ops:
-        fn()
-    torch.cuda.synchronize()
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the CUDA kernels it
+    records (host-to-device copies among them, ``htod``) and the sum of
+    their device times (ms), read from the profiler's raw events: building
+    its event tree takes seconds at a hundred thousand kernels."""
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {"ops": ops.n, "kernels": len(kernels),
-            "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3}
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return {"kernels": len(kernels), "htod": sum("HtoD" in e.name() for e in kernels),
+            "kernel_ms": sum(e.duration_ns() for e in kernels) / 1e6}
+
+
+def count_ops(fn) -> dict:
+    """One call of ``fn``: the aten ops it dispatches that launch a device
+    kernel (:class:`OpCount`) and, in another call, :func:`profile_call`'s
+    counts."""
+    with OpCount() as ops:
+        fn()
+    torch.cuda.synchronize()
+    return {"ops": ops.n, **profile_call(fn)}
 
 
 def phase_edgelist_times(dec, llr) -> dict:
@@ -2784,14 +2865,10 @@ def stream_round_trip(tag, coder, n_codewords: int, snr_db: float) -> tuple[int,
     """``coder``'s byte stream through encode, ``test`` at ``snr_db`` and a
     TDMPCL decode on the card: the decoded bytes must equal the source.
     Returns the decode's kernel launches and its stats."""
-    coder.for_encoder()
-    coder.for_decoder(2048)
-    src = bytes((ord("a") + i % 26) for i in range(n_codewords * coder._kb))
-    prior = coder.encode(src)
+    src, prior, post = codec_stream(coder, n_codewords, snr_db)
     cw = unpack_bits_np(prior).reshape(-1, coder.code.n)
     if coder.code.syndrome(cw).any():
         raise AssertionError(f"{tag}: the encoded stream holds a non-codeword")
-    post = coder.test(prior, 10 ** (-snr_db / 20), seed=SEED)
     decode_qc_cuda.launches = 0
     out, stats = coder.decode(post, len(src), "TDMPCL", return_stats=True)
     torch.cuda.synchronize()
@@ -3005,8 +3082,9 @@ def streamed_floor(code, cfg, llr, res) -> dict:
             "blocks_per_sm": blocks_per_sm(code, cfg, GLOBAL)}
 
 
-def median_ms(fn, reps: int = 7) -> float:
-    fn()
+def median_ms(fn, reps: int = 7, warm: bool = True) -> float:
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -3187,9 +3265,9 @@ def phase_learned(llr, u):
     schedules through ``Decoder`` on kernel A at the bench point (phase 4's
     LLRs, triage 5), each equal to ``Decoder(implementation="torch")``;
     (d) the stored NR BG2 schedule on kernel C, equal to its plain version;
-    (e) the stored per-iteration schedule on the torch path of the card,
-    equal to the CPU, and refused by ``"auto"`` on the card.  Returns the
-    numbers of the kernels line and phase 5."""
+    (e) the stored per-iteration schedule through ``"auto"`` on the card:
+    the torch path, equal to the CPU (:func:`torch_route_case`).  Returns
+    the numbers of the kernels line and phase 5, and (e)'s case."""
     code = wimax(576, "3/4B")
     run = make_unrolled(code, LEARN_KW["n_iters"])
     held = all_zero_llr_spread(code, LEARN_HELD_OUT, *LEARN_KW["snr_db"], SEED + 900)
@@ -3277,26 +3355,18 @@ def phase_learned(llr, u):
         f"batch={LEARN_NR_BATCH} snr={LEARN_NR_SNR} {summary(res, LEARN_NR_ITERS)} "
         f"launches={nr_launches}; == the plain version (cuda); alpha 0.75: "
         f"{summary(scalar, LEARN_NR_ITERS)}")
-    # (e) the stored per-iteration schedule: the torch path on the card
+    # (e) the stored per-iteration schedule: "auto" on the card takes the
+    # torch path, as the reference's takes jnp
     r12 = wimax(576, "1/2")
     cfg_iter = stored_weights("wimax576_r12_T10").decoder_config(
         DecoderConfig(max_iters=12, soft_output=True))
     x = torch.from_numpy(numpy_llr(r12, LEARN_ITER_BATCH, LEARN_ITER_SNR, SEED + 920))
-    torch_cfg = dataclasses.replace(cfg_iter, implementation="torch")
-    got = Decoder(r12, torch_cfg, device="cuda")(x)
-    max_abs_diff(got, Decoder(r12, torch_cfg, device="cpu")(x))
-    try:
-        Decoder(r12, cfg_iter, device="cuda")
-    except ValueError as e:
-        refusal = str(e)
-    else:
-        raise AssertionError("auto on the card took a per-iteration schedule")
-    log(f"[phase4q] {r12.name} stored per-iteration schedule (10 rows, 12 sweeps) on the "
-        f"torch path of the card: {summary(got, 12)} == the CPU (posteriors too); auto on "
-        f"the card raises: {refusal[:90]}...")
+    iter_case = torch_route_case("phase4q", "stored per-iteration schedule (10 rows, "
+                                 "12 sweeps, soft output)", r12, cfg_iter, x, LEARN_ITER_BATCH)
     return {"step_ms": step_ms, "losses_first10": float(losses[:10].mean()),
             "losses_last10": float(losses[-10:].mean()), "held_out": held_losses,
-            "grad_err": grad_err, "tied": tied, "nr_launches": nr_launches}
+            "grad_err": grad_err, "tied": tied, "nr_launches": nr_launches,
+            "iter_case": iter_case}
 
 
 def phase_gdbf(llr, u, rs_dec, rs_llr):
@@ -3509,6 +3579,197 @@ def phase_native_bench(stream, native_s) -> dict:
     return {"record": record, "launches": launches}
 
 
+def reset_launches() -> None:
+    decode_qc_cuda.launches = 0
+    decode_qc_long.launches = 0
+    decode_qc_long.global_launches = 0
+
+
+def port_launches() -> int:
+    """The port's decode-kernel launches since :func:`reset_launches`."""
+    return (decode_qc_cuda.launches + decode_qc_long.launches
+            + decode_qc_long.global_launches)
+
+
+def torch_route_case(tag, what, code, cfg, llr, cpu_frames):
+    """One request that no kernel serves, through ``Decoder`` (auto) on the
+    card: it must resolve to ``"torch"``, launch none of the port's
+    kernels, and on the batch's first ``cpu_frames`` frames equal the same
+    ``Decoder`` on the CPU in every field, posteriors included
+    (sum-product at a converging point: :func:`sp_cpu_diff`, its largest
+    posterior difference logged).  Returns the Decoder, the batch on the
+    card, its result and that posterior difference."""
+    dec = Decoder(code, cfg, device="cuda")
+    if dec.implementation != "torch":
+        raise AssertionError(f"{tag} {code.name} {what} resolved to {dec.implementation}")
+    x = llr.to("cuda").contiguous()
+    reset_launches()
+    res = dec(x)
+    got = dec(x[:cpu_frames])
+    torch.cuda.synchronize()
+    if port_launches():
+        raise AssertionError(f"{tag} {code.name} {what}: the torch route launched a kernel")
+    want = Decoder(code, cfg, device="cpu")(x[:cpu_frames].cpu())
+    if cfg.algorithm == "sum-product":
+        if not bool(want.converged.all()):
+            raise AssertionError(f"{tag} {code.name} {what}: not a converging point")
+        post = sp_cpu_diff(got, want)
+        held = f"equal bits and converged flags (posteriors within {post:.3g})"
+    else:
+        post = max_abs_diff(got, want)
+        held = "equal in every field"
+    log(f"[{tag}] Decoder {code.name} {what} impl={dec.implementation} batch={x.shape[0]} "
+        f"{summary(res, cfg.max_iters)} launches=0; its first {cpu_frames} frames "
+        f"{held} on the CPU")
+    return dec, x, res, post
+
+
+def torch_route_times(tag, dec, x, res, reps: int = TR_REPS) -> dict:
+    """A torch-route ``Decoder`` on the card (``res``: its result on ``x``,
+    which warmed it up): the median of ``reps`` CUDA-event-timed calls, and
+    in one more call (:func:`profile_call`) the CUDA kernels a sweep, the
+    host-to-device copies and the kernels' device time over the call's (the
+    busy share).  Its torch ops are not counted on the card: a dispatch
+    mode slows every op many times over, and the count is the CPU's."""
+    sweeps = int(res.total_iters)
+    ms = median_ms(lambda: dec(x), reps, warm=False)
+    counts = profile_call(lambda: dec(x))
+    out = {"ms": ms, "sweeps": sweeps, "ms_per_sweep": ms / sweeps,
+           "mean_iterations": res.iterations.float().mean().item(),
+           "cuda_kernels_per_sweep": counts["kernels"] / sweeps,
+           "htod_per_call": counts["htod"], "kernel_ms": counts["kernel_ms"],
+           "busy_share": counts["kernel_ms"] / ms,
+           "decoded_mbits": x.shape[0] * dec.code.k_info / (ms * 1e-3) / 1e6}
+    log(f"[{tag}] {dec.code.name} torch route: {ms:.4f} ms per batch of {x.shape[0]} "
+        f"(median of {reps}; {sweeps} sweeps, {out['ms_per_sweep']:.4f} ms a sweep) = "
+        f"{out['decoded_mbits']:.1f} Mbit/s; {out['cuda_kernels_per_sweep']:.1f} CUDA "
+        f"kernels a sweep, {counts['htod']} host-to-device copies a call, device time "
+        f"{counts['kernel_ms']:.4f} ms (busy share {out['busy_share']:.3f})")
+    return out
+
+
+def codec_stream(coder, n_codewords: int, snr_db: float):
+    """``coder``'s byte stream of ``n_codewords`` codewords, encoded and
+    through ``test`` at ``snr_db``: (source bytes, codeword bytes, soft
+    stream)."""
+    coder.for_encoder()
+    coder.for_decoder(2048)
+    src = bytes((ord("a") + i % 26) for i in range(n_codewords * coder._kb))
+    prior = coder.encode(src)
+    return src, prior, coder.test(prior, 10 ** (-snr_db / 20), seed=SEED)
+
+
+def stream_decode(tag, coder, src, post, de_type, impl, warned=None):
+    """``coder.decode`` of the soft stream by ``de_type`` on the card: its
+    Decoder must resolve to ``impl`` and launch a kernel exactly when
+    ``impl`` names one, the warning ``warned`` must be raised (or none),
+    and every converged codeword's bytes must equal the source.  Returns
+    (decoded bytes, stats, kernel launches)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reset_launches()
+        out, stats = coder.decode(post, len(src), de_type, return_stats=True)
+        torch.cuda.synchronize()
+    launches = port_launches()
+    texts = [str(w.message) for w in caught]
+    got = coder._decoders[de_type].implementation
+    if got != impl or (launches > 0) != (impl != "torch"):
+        raise AssertionError(f"{tag} {de_type}: resolved to {got}, {launches} launches")
+    if (warned is None and texts) or (warned is not None and not any(warned in t for t in texts)):
+        raise AssertionError(f"{tag} {de_type}: warnings {texts}")
+    conv = stats["converged"]
+    kb = coder._kb
+    words = np.frombuffer(src, np.uint8).reshape(-1, kb)
+    if not conv.any() or not np.array_equal(out.reshape(-1, kb)[conv], words[conv]):
+        raise AssertionError(f"{tag} {de_type}: a converged codeword decoded wrong")
+    log(f"[{tag}] Coder {de_type} {coder.code.name}: {len(src)} bytes, impl={got}, "
+        f"launches={launches}, {int(conv.sum())} of {len(conv)} converged, every one "
+        f"byte-equal to the source, mean_iters={stats['mean_iters']:.3f}"
+        + (f"; warned: {texts[0][:70]}..." if texts else ""))
+    return out, stats, launches
+
+
+def phase_torch_route(nr_llrs, iter_case):
+    """Phase 4u: the four classes that no kernel serves and the reference
+    sends to its jnp path, through the normal entry points on the card at
+    full width: (a) NR BG1 Z=384 flooding, SCMS and flooding sum-product,
+    and its byte stream with SCMS and MSCL; (b) DVB-S2 16200 and 64800
+    flooding; (c) the stored per-iteration schedule (phase 4q (e)'s case,
+    timed here); (d) rs_ldpc_from_n(8192) layered and flooding, and its
+    Coder MSCL stream; (e) soft output on nr_code(32, 1); (f) one CLI
+    ``waterfall`` point of NR flooding.  Returns the record and the MSCL
+    stream's kernel-C launches."""
+    from myldpccppapi_torch.codes.rs_ldpc import rs_ldpc_from_n
+
+    rec = {}
+    tag = "phase4u"
+    # (a) NR BG1 Z=384: the Decoder, then the byte stream
+    nr = nr_code(384, 1)
+    for name, cfg in TR_NR_CFGS.items():
+        case = torch_route_case(tag, name, nr, cfg, nr_llrs[TR_NR_SNR], TR_CPU_FRAMES)
+        rec[f"nr_bg1_z384 {name}"] = {**torch_route_times(tag, *case[:3]),
+                                      "cpu_posterior_max_abs_err": case[3]}
+    coder = make_codec("nr", z=384, device="cuda")
+    src, _, post = codec_stream(coder, TR_STREAM_CODEWORDS, TR_STREAM_SNR)
+    out, stats, _ = stream_decode(tag, coder, src, post, "SCMS", "torch")
+    cpu = make_codec("nr", z=384, device="cpu")
+    m = TR_CPU_FRAMES
+    out_cpu, stats_cpu = cpu.decode(post[:m * nr.n], m * coder._kb, "SCMS",
+                                    return_stats=True)
+    if not (np.array_equal(out[:m * coder._kb], out_cpu)
+            and np.array_equal(stats["iterations"][:m], stats_cpu["iterations"])):
+        raise AssertionError("Coder SCMS on the card differs from the CPU decode")
+    log(f"[{tag}] Coder SCMS: its first {m} codewords equal to the CPU decode")
+    _, _, mscl_launches = stream_decode(tag, coder, src, post, "MSCL", "cuda_long",
+                                        warned="LAYERED long-code kernel")
+    # (b) DVB-S2 flooding
+    for n, snr, reps, frames in TR_DVB_CASES:
+        code = dvbs2(n, "1/2")
+        case = torch_route_case(tag, f"flooding {snr} dB", code, TR_DVB_CFG,
+                                dvbs2_llr(code, TR_DVB_BATCH, snr, SEED + 1100 + n), frames)
+        rec[f"dvbs2_{n} flooding"] = torch_route_times(tag, *case[:3], reps=reps)
+    # (c) the stored per-iteration schedule (phase 4q (e) held it)
+    rec["wimax576_r12 per-iteration T10"] = torch_route_times(tag, *iter_case[:3])
+    # (d) RS-LDPC n=8192: the Decoder, then Coder("MSCL")
+    rs = rs_ldpc_from_n(TR_RS_N)
+    rs_llr = torch.from_numpy(numpy_llr(rs, TR_RS_BATCH, TR_RS_SNR, SEED + 1200))
+    for name, cfg in TR_RS_CFGS.items():
+        case = torch_route_case(tag, name, rs, cfg, rs_llr, TR_CPU_FRAMES)
+        rec[f"rs_ldpc_{TR_RS_N} {name}"] = torch_route_times(tag, *case[:3])
+    rs_coder = make_codec("rs_ldpc", TR_RS_N, device="cuda")
+    src, _, post = codec_stream(rs_coder, TR_RS_STREAM_CODEWORDS, TR_RS_SNR)
+    stream_decode(tag, rs_coder, src, post, "MSCL", "torch",
+                  warned="torch flooding path on the card")
+    # (e) soft output on nr_code(32, 1)
+    small = nr_code(TR_SOFT_Z, 1)
+    case = torch_route_case(tag, "soft output", small,
+                            dataclasses.replace(NR_CFG, soft_output=True),
+                            nr_numpy_llr(small, TR_SOFT_BATCH, TR_SOFT_SNR, SEED + 1300),
+                            TR_CPU_FRAMES)
+    rec[f"nr_bg1_z{TR_SOFT_Z} soft output"] = torch_route_times(tag, *case[:3])
+    # (f) one waterfall point through the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["waterfall", "--family", "nr", "--z", "384", "--schedule", "flooding",
+                "--normalization", "0.8", "--snr", str(TR_NR_SNR), "--batch", str(NR_BATCH),
+                "--max-frames", str(NR_BATCH), "--max-iters", "30",
+                "--out", os.path.join(tmp, "wf.csv"), "--device", "cuda"]
+        buf = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            if cli.main(argv) != 0:
+                raise AssertionError("the NR flooding waterfall exited non-zero")
+        wall = time.perf_counter() - t0
+        if port_launches():
+            raise AssertionError("the NR flooding waterfall launched a kernel")
+    for line in buf.getvalue().strip().splitlines():
+        log(f"[{tag}] waterfall {line}")
+    rec["waterfall_nr_flooding_s"] = wall
+    log(f"[{tag}] CLI waterfall --family nr --z 384 --schedule flooding: one point of "
+        f"{NR_BATCH} frames in {wall:.2f} s, no kernel launched")
+    return rec, mscl_launches
+
+
 def learned_times(dec_scalar, tied, llr) -> dict:
     """Phase 5: the bench point's ``Decoder`` with the trained and stored
     tied schedules against the 0.75 scalar's (phase 4's), ms and mean
@@ -3649,6 +3910,7 @@ def main() -> int:
     gdbf_dec, gdbf_fers, gdbf_worst = phase(phase_gdbf, llr, u, rs_dec, rs_llr)
     probe = phase(phase_probe, dec, llr)
     nat = phase(phase_native_bench, stream, native_s)
+    torch_route, nr_mscl_launches = phase(phase_torch_route, nr_llrs, learned["iter_case"])
     mp = phase(phase_multiprocess)
     times = phase_times(dec, llr, decode_qc_cuda, decode_qc_cuda_plain,
                         dataclasses.replace(BENCH_CFG, triage_iters=0))
@@ -3736,6 +3998,11 @@ def main() -> int:
         "decoder_ms": {k: v["ms"] for k, v in learn_times.items()},
         "decoder_mean_iterations": {k: v["mean_iterations"]
                                     for k, v in learn_times.items()}}}))
+    # the torch route runs torch ops, no kernel of its own: its record
+    log(json.dumps({"torch_route": {
+        "source": "myldpccppapi_torch/ops/bp.py",
+        "replaces": "myldpccppapi_tpu/decoder.py:25-102 (the jnp route: XLA ops)",
+        **torch_route}}))
     log(smi)
 
     def entry(name, source, replaces, launches, worst, t, **extra):
@@ -3826,7 +4093,9 @@ def main() -> int:
               # phase 4q (d): the stored NR BG2 Z=384 tied schedule; phase
               # 4s: the NR probe
               learned_nr_bg2_launches=learned["nr_launches"],
-              probe_nr_launches=probe["nr_launches"]),
+              probe_nr_launches=probe["nr_launches"],
+              # phase 4u: Coder("MSCL") on NR BG1 Z=384, its layered substitution
+              mscl_nr_coder_launches=nr_mscl_launches),
         # the global placement (kernel D's port) on the DVB-S2 64800 path
         entry("bp_stream", "bp_stream.cu", kernel_d, dvb_launches,
               worst_global, dvb_times, exact_ms=dvb_exact_times["kernel"],

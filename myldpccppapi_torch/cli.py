@@ -418,13 +418,17 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--algorithm", default="min-sum",
                    choices=["min-sum", "sum-product"])
     w.add_argument("--schedule", default="layered",
-                   choices=["layered", "flooding"])
+                   choices=["layered", "flooding"],
+                   help="flooding runs on the short-code kernel where it "
+                        "serves the code, else (long codes) on torch ops "
+                        "on the card, as the reference's jnp path")
     w.add_argument("--max-iters", type=int, default=40)
     w.add_argument("--normalization", type=float, default=1.0)
     w.add_argument("--self-correction", action="store_true",
                    dest="self_correction",
                    help="SCMS (Savin): sign-flip message erasure; min-sum "
-                        "flooding only")
+                        "flooding only: the short-code kernel where it "
+                        "serves the code, else torch ops on the card")
     w.add_argument("--msg-dtype", default="float32", dest="msg_dtype",
                    choices=["float32", "bfloat16"],
                    help="decoder message precision (bfloat16 halves the "

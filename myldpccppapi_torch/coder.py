@@ -21,10 +21,14 @@ DecodeSP     flooding sum-product, plain torch path; the soft stream
 DecodeTDMP   layered min-sum, plain torch path
 DecodeMSCL   flooding min-sum, 120 iterations, the short-code CUDA
              kernel on a CUDA device (the reference's fused
-             ``decodeOnceMS``); see :meth:`Coder._resolve_mscl`
-DecodeTDMPCL layered min-sum, a CUDA kernel on a CUDA device
-SCMS         self-corrected flooding min-sum, the CUDA kernel on a
-             CUDA device
+             ``decodeOnceMS``) where it serves the code, else the
+             layered schedule on a kernel, else torch ops on the card;
+             see :meth:`Coder._resolve_mscl`
+DecodeTDMPCL layered min-sum, a CUDA kernel on a CUDA device where one
+             serves the code, else torch ops on the card
+SCMS         self-corrected flooding min-sum, the short-code CUDA
+             kernel on a CUDA device where it serves the code, else
+             torch ops on the card
 BF           noisy GDBF bit flipping (ops/bitflip.py), its own budget
              of 100 flips, torch ops on the coder's device; no CRC
 ==========  =====================================================
@@ -239,29 +243,39 @@ class Coder:
         (``decodeOnceMS``, ``decodeCL.c:432-567``): the whole decode in one
         kernel (``myldpccppapi_tpu/coder.py::_resolve_mscl``).  On the card
         it keeps flooding where the short-code kernel serves it; where it
-        does not (its flooding state exceeds a thread block) and the
-        long-code kernel serves the layered schedule, it substitutes the
-        layered schedule (same min-sum arithmetic, fewer iterations to
-        converge) and says so.  Where neither serves, it returns ``cfg``
-        and ``Decoder`` raises: the reference decodes there on its jnp
-        flooding path, the port falls back to no plain path (ROADMAP,
-        divergences by rule).  On the CPU every decode type runs the torch
-        path, so ``cfg`` comes back unchanged."""
+        does not (its flooding state exceeds a thread block) and a kernel
+        serves the layered schedule (the long-code kernel, or kernel B's
+        route on the small-z NR codes, where the reference substitutes its
+        streaming kernel), it substitutes the layered schedule (same
+        min-sum arithmetic, fewer iterations to converge) and says so.
+        Where no kernel serves either, it warns as the reference does and
+        returns ``cfg``, which ``Decoder`` serves on the torch flooding
+        path on the card (the reference's jnp flooding path).  On the CPU
+        every decode type runs the torch path, so ``cfg`` comes back
+        unchanged."""
         if self.device.type != "cuda":
             return cfg
         if cuda_bp.supported(self.code, cfg, self.device):
             return cfg
         layered = dataclasses.replace(cfg, schedule="layered")
-        if cuda_long.supported(self.code, layered, self.device):
-            warnings.warn(
-                f"MSCL on {self.code.name} (n={self.code.n}): the fused "
-                "flooding kernel cannot hold this code, so the fused contract "
-                "is served by the LAYERED long-code kernel instead: same "
-                "min-sum arithmetic, fewer iterations to converge.  Use "
-                'decode type "MS" for exact flooding semantics (torch path).',
-                stacklevel=3,
-            )
-            return layered
+        for kernel, what in ((cuda_long, "long-code kernel"),
+                             (cuda_bp, "short-code kernel's table route")):
+            if kernel.supported(self.code, layered, self.device):
+                warnings.warn(
+                    f"MSCL on {self.code.name} (n={self.code.n}): the fused "
+                    "flooding kernel cannot hold this code, so the fused "
+                    f"contract is served by the LAYERED {what} instead: same "
+                    "min-sum arithmetic, fewer iterations to converge.  Use "
+                    'decode type "MS" for exact flooding semantics (torch path).',
+                    stacklevel=3,
+                )
+                return layered
+        warnings.warn(
+            f"MSCL on {self.code.name} (n={self.code.n}): no fused kernel "
+            "supports this code; decoding on the torch flooding path on the "
+            "card (correct, but not the single-kernel fast path MSCL names).",
+            stacklevel=3,
+        )
         return cfg
 
     # -- size queries (same rounding contract as MyLdpc.cpp:620-631) -------

@@ -7,32 +7,48 @@ arbitrary batches on the decoder's device.
 The device defaults to the card (``"cuda"``); without CUDA that raises,
 and ``device="cpu"`` is the only way onto the CPU.
 
-Dispatch, in the reference's order (``myldpccppapi_tpu/decoder.py``): a
-code without block structure (any object exposing ``n``, ``m`` and
-``h_coo()``, such as the DVB-S2 standard-domain oracle ``dvbs2_oracle``)
-resolves ``"auto"`` to the generic edge-list path (``"edgelist"``,
-ops/bp_edgelist.py: tensor ops on the decoder's device, as the
-reference's are XLA ops) on every device; an explicit ``"edgelist"``
-serves the QC and RS-LDPC codes too, a layer per block row.  For the
-port's block codes, on a CUDA device ``"auto"`` resolves to the
-short-code kernel (``"cuda"``, ops/cuda_bp.py) when it serves the code
-and the config, else to the
-long-code kernel (``"cuda_long"``, ops/cuda_long.py), else it raises; it
-never goes to the torch path quietly.  The short-code kernel serves the
-layered and flooding schedules, min-sum, sum-product, SCMS and soft output
-on codes of up to 120 circulants (multi-edge cells included) and on
-RS-LDPC codes (the xor group, up to 256 blocks), and layered min-sum on
-the small-z 5G NR codes (z < 64, kernel B's route).  The long-code kernel serves the layered
-schedule on 5G NR and DVB-S2 (min-sum or sum-product, soft output,
-multi-edge cells, masked rows, the exact or the lazy syndrome), with the
-posterior in shared memory where it fits (NR, DVB-S2 16200) and in global
-memory otherwise (DVB-S2 64800); so soft output and sum-product on a long
-code resolve to ``"cuda_long"``, as the reference sends them to its z-lane
-kernel.  An explicit ``"cuda"`` or ``"cuda_long"`` that does not serve the
-code raises at construction.  On the CPU, ``"auto"``
-resolves to ``"torch"``.  An explicit ``"torch"`` runs the plain tensor path
-on any device; like the reference's jnp path it checks the exact syndrome
-whatever ``syndrome_mode`` says.
+Dispatch, in the reference's order (``myldpccppapi_tpu/decoder.py::
+_implementation``): a code without block structure (any object exposing
+``n``, ``m`` and ``h_coo()``, such as the DVB-S2 standard-domain oracle
+``dvbs2_oracle``) resolves ``"auto"`` to the generic edge-list path
+(``"edgelist"``, ops/bp_edgelist.py: tensor ops on the decoder's device,
+as the reference's are XLA ops) on every device; an explicit
+``"edgelist"`` serves the QC and RS-LDPC codes too, a layer per block
+row.  For the port's block codes, on a CUDA device ``"auto"`` resolves to
+the short-code kernel (``"cuda"``, ops/cuda_bp.py) when its
+``supported(code, cfg, device)`` admits the request, else to the
+long-code kernel (``"cuda_long"``, ops/cuda_long.py) when its gate does,
+else to the torch path (``"torch"``: ops/bp.py, tensor ops on the card),
+which is where the reference sends a request its Pallas kernels refuse
+to its jnp path (XLA ops on the same device).  The choice is made from
+the gates before any launch and is reported in :attr:`Decoder.implementation`;
+a kernel that fails to build or launch raises, it is never replaced.
+
+The short-code kernel serves the layered and flooding schedules,
+min-sum, sum-product, SCMS and soft output on codes of up to 120
+circulants (multi-edge cells included) and on RS-LDPC codes (the xor
+group, up to 256 blocks) whose state fits a thread block, and layered
+min-sum on the small-z 5G NR codes (z < 64, kernel B's route).  The
+long-code kernel serves the layered schedule on 5G NR and DVB-S2
+(min-sum or sum-product, soft output, multi-edge cells, masked rows, the
+exact or the lazy syndrome), with the posterior in shared memory where
+it fits (NR, DVB-S2 16200) and in global memory otherwise (DVB-S2 64800).
+So the torch path serves on the card, as the reference's jnp path does
+on its device: per-iteration (learned) weight schedules; RS-LDPC codes
+whose state does not fit a thread block (``rs_ldpc_from_n(8192)``);
+soft output, sum-product, per-layer weights and SCMS where neither
+kernel serves them (NR with z < 64); and flooding, SCMS and flooding
+sum-product on the long codes.  The table differs from the TPU's in two
+places, each where the port's kernel serves more (named in
+tests/test_torch_dispatch_parity.py): kernel B's route takes the small-z
+NR layered min-sum that the reference gives its streaming kernel, and
+the same in bf16, which that kernel refuses.
+
+An explicit ``"cuda"`` or ``"cuda_long"`` that does not serve the code
+raises at construction, as the reference's explicit ``"pallas"`` does.
+On the CPU, ``"auto"`` resolves to ``"torch"``.  An explicit ``"torch"``
+runs the plain tensor path on any device; like the reference's jnp path
+it checks the exact syndrome whatever ``syndrome_mode`` says.
 
 Both kernels serve f32 and bf16 messages (``msg_dtype``), as their TPU
 counterparts do.  They stay syndrome-only: with ``crc`` or ``outer`` set,
@@ -41,14 +57,13 @@ its triage) is wrapped in the acceptance wrapper (ops/crc_accept.py,
 ``myldpccppapi_tpu/decoder.py:204-213,282-305``), whose retry is the
 kernel's plain version with the check in its latch, exact syndrome, on
 the same device.  The torch and edge-list paths run the check in their
-own latch.
+own latch, unwrapped.  Under triage both passes take the route that
+dispatch chose, as the reference builds them.
 
 Refused at construction, as the reference refuses them: soft output with
 triage (the two-phase wrapper merges hard outputs only), SCMS on the
 long-code kernel and on the edge list, and min-sum weights that are not
-scalars on the edge list.  An RS-LDPC code whose state does not fit a thread
-block (``rs_ldpc(s=8)``, n = 8192) raises on the card where the reference
-runs its jnp path: the long-code kernel aligns circulants only.
+scalars on the edge list.
 """
 from __future__ import annotations
 
@@ -109,17 +124,15 @@ def _implementation(code, cfg: DecoderConfig, device: torch.device) -> str:
         for name, kernel in _KERNELS.items():
             if kernel.supported(code, cfg, device):
                 return name
-        raise ValueError(
-            f"no CUDA kernel serves {code.name} (n={code.n}, z={code.z}, "
-            f"{code.num_blocks} blocks) under this config: the "
-            f"short-code kernel (\"cuda\") needs {cuda_bp.REQUIREMENTS}; the "
-            f"long-code kernel (\"cuda_long\") needs {cuda_long.REQUIREMENTS}; "
-            "use implementation=\"torch\" for the plain path")
+        # neither kernel's gate admits it: the reference's jnp route, here
+        # torch ops on the card
+        return "torch"
     if not _KERNELS[impl].supported(code, cfg, device):
         raise ValueError(
             f"the {impl!r} kernel does not serve {code.name} under this "
             f"config: it needs {_KERNELS[impl].REQUIREMENTS}; use "
-            "implementation=\"torch\" for the plain path")
+            "implementation=\"auto\" (the torch path where no kernel "
+            "serves) or \"torch\"")
     return impl
 
 

@@ -68,7 +68,7 @@ def decode_gdbf(code, cfg: GDBFConfig, llr: torch.Tensor,
     dev = llr.device
     layers = _layers(code)
     row_align, col_align = _aligners(code)
-    masks_t = _masks(layers, dev)
+    masks_t = _masks(code, dev)
     if generator is None and cfg.noise_scale:
         generator = torch.Generator(device=dev).manual_seed(0)
 

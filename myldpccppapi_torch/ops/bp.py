@@ -133,21 +133,22 @@ def _aligners(code):
     (``myldpccppapi_tpu/ops/bp.py::_aligners``): circulant rolls for
     cyclic codes; for RS-LDPC's additive blocks (``code.group == "xor"``)
     the self-inverse permutation ``y[i] = x[i ^ c]``, one gather along z
-    (its index cached per shift and device)."""
+    (its index cached per z, shift and device)."""
     if getattr(code, "group", "cyclic") != "xor":
         return _row_align, _col_align
     z = code.z
-    index = {}
 
     def xor_align(x: torch.Tensor, c: int) -> torch.Tensor:
-        if not c:
-            return x
-        key = (c, x.device)
-        if key not in index:
-            index[key] = torch.as_tensor(np.arange(z) ^ c, device=x.device)
-        return x[index[key]]
+        return x[_xor_index(z, c, x.device)] if c else x
 
     return xor_align, xor_align
+
+
+@functools.lru_cache(maxsize=1024)
+def _xor_index(z: int, c: int, device: torch.device) -> torch.Tensor:
+    """``arange(z) ^ c`` on ``device``, built once per (z, c, device), so
+    a decode copies nothing from the host per call or sweep."""
+    return torch.as_tensor(np.arange(z) ^ c, device=device)
 
 
 def _check_update_minsum(qs: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
@@ -281,7 +282,7 @@ def layer_weights(normalization, offset, n_layers: int):
         mode, v = canon_weights(w, n_layers)
         if mode == "iter":
             raise ValueError("per-iteration weights are served by the torch "
-                             "path only (implementation=\"torch\")")
+                             "path only (implementation=\"auto\" or \"torch\")")
         return (v,) * n_layers if mode == "scalar" else v
 
     return per_layer(normalization), per_layer(offset)
@@ -341,12 +342,13 @@ def _syndrome_fail(bits_blocks: torch.Tensor, code: QCCode) -> torch.Tensor:
     return (par & 1).any(dim=1).any(dim=0)
 
 
-def _masks(layers, dev):
-    """{edge: [z, 1] bool live-row mask} of the code's row-masked blocks."""
+@functools.lru_cache(maxsize=32)
+def _masks(code: QCCode, dev: torch.device):
+    """{edge: [z, 1] bool live-row mask} of the code's row-masked blocks,
+    built once per (code, device)."""
     return {
         e: torch.as_tensor(mask[:, None], device=dev)
-        for (_, entries) in layers
-        for (e, _, _, mask) in entries
+        for e, mask in enumerate(code.block_row_masks)
         if mask is not None
     }
 
@@ -478,7 +480,7 @@ def _decode_layered(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor,
     row_align, col_align = _aligners(code)
     check_update = _check_update_fn(cfg, code.m_b)
     accept_fail = _accept_fail_blocks(code, cfg)
-    masks_t = _masks(layers, dev)
+    masks_t = _masks(code, dev)
     groups = [_column_groups(entries) for (_, entries) in layers]
 
     post = _to_blocks(llr.to(dt), n_b, z)
@@ -572,7 +574,7 @@ def decode_flooding(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor) -> Deco
     row_align, col_align = _aligners(code)
     check_update = _check_update_fn(cfg, code.m_b)
     accept_fail = _accept_fail_blocks(code, cfg)
-    masks_t = _masks(layers, dev)
+    masks_t = _masks(code, dev)
 
     def masked(x, e, fill):
         return torch.where(masks_t[e], x, fill) if e in masks_t else x

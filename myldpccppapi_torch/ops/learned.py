@@ -10,8 +10,9 @@ gradient descent through T unrolled sweeps: autograd through
 :meth:`LearnedWeights.decoder_config`: tied or per-layer schedules
 (``per_layer=True``) run on the kernels (csrc/bp_layered.cu,
 csrc/bp_long.cu), whose tables hold one weight per layer; full
-per-iteration schedules run on the torch path only
-(``implementation="torch"``).
+per-iteration schedules run on the torch path (ops/bp.py), to which
+``Decoder``'s ``"auto"`` sends them on the card as on the CPU, as the
+reference's sends them to its jnp path.
 
 The unrolled sweep is ops/bp.py's, written so that autograd sees every
 step and nothing it needs is changed in place: the posterior is a list of

@@ -62,8 +62,8 @@ class DecoderConfig:
                   generic edge-list path, ops/bp_edgelist.py, tensor ops on
                   any device, for any H; auto = for a code without block
                   structure the edge list, else on a CUDA device the first
-                  kernel that serves the code, cuda then cuda_long, else an
-                  error, and torch on the CPU)
+                  kernel that serves the code, cuda then cuda_long, else
+                  torch (the reference's jnp route), and torch on the CPU)
     triage_iters: when > 0, decode the batch with this short budget first,
                   then re-decode only the unconverged frames at max_iters
                   (ops/triage.py; bit-identical to a single pass)

@@ -349,9 +349,9 @@ def test_kernels_refuse_per_iteration_schedules():
         bp.layer_weights(iter_cfg.normalization, 0.0, CODE.m_b)
     with pytest.raises(NotImplementedError, match="scalar"):
         check_edgelist_config(iter_cfg)
-    # auto on the card raises naming the kernels; it never goes to torch
-    with pytest.raises(ValueError, match="no CUDA kernel serves"):
-        _implementation(CODE, iter_cfg, torch.device("cuda"))
+    # auto on the card takes the torch path, as the reference's takes jnp;
+    # an explicit kernel still raises
+    assert _implementation(CODE, iter_cfg, torch.device("cuda")) == "torch"
     with pytest.raises(ValueError, match="does not serve"):
         _implementation(CODE, dataclasses.replace(iter_cfg, implementation="cuda"),
                         torch.device("cuda"))

@@ -205,8 +205,9 @@ def test_plain_sum_product_soft_agrees_with_jnp_on_nr():
 def test_long_kernel_serves_soft_output_and_sum_product(monkeypatch):
     """On a CUDA device, soft output and sum-product on NR BG1 Z=384 resolve
     to the long-code kernel in both placements (its fit query, which needs
-    the card, is stubbed); soft output with triage, SCMS on it, and the
-    flooding schedule on a long code stay refused."""
+    the card, is stubbed); soft output with triage and SCMS on it stay
+    refused; the flooding schedule on a long code, which neither kernel
+    serves, takes the torch path on the card (the reference's jnp route)."""
     from myldpccppapi_torch import decoder
 
     code = nr.nr_code(384, 1)
@@ -221,8 +222,7 @@ def test_long_kernel_serves_soft_output_and_sum_product(monkeypatch):
         for cfg in configs:
             assert cuda_long.supported(code, cfg, cuda)
             assert decoder._implementation(code, cfg, cuda) == "cuda_long"
-    with pytest.raises(ValueError, match="no CUDA kernel serves"):
-        decoder._implementation(code, DecoderConfig(schedule="flooding"), cuda)
+    assert decoder._implementation(code, DecoderConfig(schedule="flooding"), cuda) == "torch"
     with pytest.raises(ValueError, match="triage"):
         Decoder(code, DecoderConfig(soft_output=True, triage_iters=5), device="cpu")
     with pytest.raises(ValueError, match="self_correction"):
@@ -386,24 +386,21 @@ def test_decoder_kernels_need_a_cuda_device(impl):
 @pytest.mark.parametrize("short_ok,long_ok,want", [
     (True, True, "cuda"),
     (False, True, "cuda_long"),
-    (False, False, None),
+    (False, False, "torch"),
 ])
 def test_auto_dispatch_order_on_a_cuda_device(monkeypatch, short_ok, long_ok, want):
     """On a CUDA device "auto" takes the short-code kernel, then the
-    long-code kernel, in the reference's order, and raises when neither
-    serves the code (the kernels' own gates are stubbed here: deciding them
-    needs the card)."""
+    long-code kernel, in the reference's order, and the torch path on the
+    card when neither serves the code, where the reference takes its jnp
+    path (the kernels' own gates are stubbed here: deciding them needs the
+    card)."""
     from myldpccppapi_torch import decoder
     from myldpccppapi_torch.ops import cuda_bp
 
     monkeypatch.setattr(cuda_bp, "supported", lambda *a: short_ok)
     monkeypatch.setattr(cuda_long, "supported", lambda *a: long_ok)
     code, cuda = nr.nr_code(48, 1), torch.device("cuda")
-    if want is None:
-        with pytest.raises(ValueError, match="short-code kernel.*long-code kernel"):
-            decoder._implementation(code, DecoderConfig(), cuda)
-    else:
-        assert decoder._implementation(code, DecoderConfig(), cuda) == want
+    assert decoder._implementation(code, DecoderConfig(), cuda) == want
     # an explicit kernel that does not serve the code raises at construction
     for impl, ok in (("cuda", short_ok), ("cuda_long", long_ok)):
         cfg = DecoderConfig(implementation=impl)

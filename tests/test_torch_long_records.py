@@ -57,7 +57,7 @@ def records_decode(code, cfg, llr: torch.Tensor) -> DecodeResult:
     sp = cfg.algorithm == "sum-product"
     lazy = cfg.syndrome_mode == "lazy"
     layers = bp._layers(code)
-    masks = bp._masks(layers, llr.device)
+    masks = bp._masks(code, llr.device)
     alphas, betas = bp.layer_weights(cfg.normalization, cfg.offset, m_b)
     words = cuda_stream.record_words(code.max_row_degree, dt.itemsize)
     batch = llr.shape[0]

@@ -268,7 +268,7 @@ def test_codec_on_multi_edge_layers_of_a_decode():
     cfg = DecoderConfig(normalization=0.85, max_iters=3, early_exit=False, soft_output=True)
     post = cuda_long.decode_qc_long_plain(code, cfg, llr).posteriors
     blocks = bp._to_blocks(post, code.n_b, code.z)
-    masks = bp._masks(bp._layers(code), torch.device("cpu"))
+    masks = bp._masks(code, torch.device("cpu"))
     for li, (p0, entries) in enumerate(bp._layers(code)):
         q = bp._mask_q(torch.stack([torch.roll(blocks[j], -s, 0) for (_, j, s, _) in entries]),
                        entries, masks)
@@ -301,7 +301,7 @@ def staged_decode(code, cfg, llr: torch.Tensor, distance: int = 1) -> DecodeResu
     sp = cfg.algorithm == "sum-product"
     ring = distance + 1
     layers = bp._layers(code)
-    masks = bp._masks(layers, llr.device)
+    masks = bp._masks(code, llr.device)
     alphas, betas = bp.layer_weights(cfg.normalization, cfg.offset, m_b)
     total = cfg.max_iters * m_b
     out = []
