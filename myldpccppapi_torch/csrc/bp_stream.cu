@@ -74,6 +74,19 @@
 // its cells' deltas through a shared delta table and a second barrier, and
 // the owner of each variable adds them in block order (bp_long.cu).  The
 // syndrome's map, the latch and the final write read the global scratch.
+//
+// Phase clocks.  The clocked instantiations (kClocked, min-sum f32 and
+// bf16; the library runs them when the caller passes a phase counter) are
+// the same sweep with thread 0 reading the SM's cycle counter at each
+// layer's boundaries.  It sums four phases: stage (from the layer's top,
+// where warp 0 starts the next layer's copies, through the wait on this
+// layer's stage), pass 1 (to the new record), pass 2 (through the layer's
+// closing fence and barrier) and sweep end (the hard decisions, the
+// syndrome and the latch), and at exit adds them, with the block's
+// resident cycles (entry to exit) and its sweeps, to the counter.  Thread
+// 0 sees the block from warp 0: a barrier folds the other warps' lag into
+// the phase it closes.  Sum-product runs unclocked and leaves the counter
+// as it was.
 
 #include <cstddef>
 #include <cstdint>
@@ -183,10 +196,21 @@ struct Params {
   const float* beta;
   int n_b, z, m_b, num_blocks, total_cols, max_cols, n_masks, group_slots;
   int max_row_degree, max_iters, early_exit, lazy;
+  // the clocked instantiations' counter, int64 [6]: cycles of the
+  // four phases, resident cycles and sweeps, summed over the blocks
+  unsigned long long* phase_cycles;
 };
 
-template <typename T, int kMaxDeg, int kMinBlocks, bool kSumProduct>
+// the counter's slots: the four phases, then resident cycles and sweeps
+constexpr int kStagePhase = 0;
+constexpr int kPass1Phase = 1;
+constexpr int kPass2Phase = 2;
+constexpr int kSweepEndPhase = 3;
+constexpr int kClockPhases = 4;
+
+template <typename T, int kMaxDeg, int kMinBlocks, bool kSumProduct, bool kClocked>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(const Params p) {
+  static_assert(!(kClocked && kSumProduct), "sum-product runs unclocked");
   extern __shared__ __align__(128) char smem[];
   constexpr int kMeta = (kIdxBits + kMaxDeg + 31) / 32;
   constexpr int kValueWords = value_words<T>();
@@ -194,6 +218,24 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(cons
   // sum-product's per-edge messages for narrow rows)
   constexpr bool kStaged = !kSumProduct || stages_messages(kMaxDeg);
   const int r = threadIdx.x;  // check row within a circulant
+  // thread 0's phase clocks (kClocked): the SM's 32-bit cycle counter at
+  // entry and at the last boundary, and each phase's cycles (a block lives
+  // far fewer than 2^32 cycles)
+  [[maybe_unused]] uint32_t clk_entry = 0, clk_mark = 0;
+  [[maybe_unused]] uint32_t clk[kClockPhases] = {};
+  if constexpr (kClocked) {
+    if (r == 0) clk_entry = (uint32_t)clock();
+  }
+  // a boundary: the cycles since the last one go to `phase`
+  auto lap = [&](int phase) {
+    if constexpr (kClocked) {
+      if (r == 0) {
+        const uint32_t now = (uint32_t)clock();
+        clk[phase] += now - clk_mark;
+        clk_mark = now;
+      }
+    }
+  };
   const int z = p.z;
   const int zp = pad_z(z);
   const int n_b = p.n_b;
@@ -312,6 +354,9 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(cons
   int64_t g = 0;       // layers run so far: layer g % m_b of sweep g / m_b
   int s = 0;           // the stage of layer g: g % 2
   uint32_t phase = 0;  // the parity of that stage's use: (g / 2) & 1
+  if constexpr (kClocked) {
+    if (r == 0) clk_mark = (uint32_t)clock();
+  }
   while (t < p.max_iters && !(p.early_exit && done)) {
     bool pre_bad = false;  // lazy mode: some row of this thread failed
     for (int i = 0; i < m_b; ++i, ++g) {
@@ -323,6 +368,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(cons
       char* next = smem + (s ^ 1) * L.stage;  // the next layer's stage
       const T* slots = reinterpret_cast<const T*>(st);
       mbar_wait(bars + s, phase);
+      lap(kStagePhase);
 
       const int p0 = s_ptr[i];
       const int deg = s_ptr[i + 1] - p0;
@@ -429,6 +475,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(cons
           }
         }
 
+        lap(kPass1Phase);
         // pass 2: each edge's message and delta; a lone circulant's updated
         // variables go out at once, a multi-edge cell's deltas to the table
         // an edge shares its cell with the edge before or after it
@@ -503,6 +550,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(cons
       // starts: of its stage, of the forwarded slots, of P and R
       fence_proxy_async();
       __syncthreads();
+      lap(kPass2Phase);
       s ^= 1;
       if (s == 0) phase ^= 1u;
     }
@@ -554,6 +602,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(cons
         }
       }
     }
+    lap(kSweepEndPhase);
     ++t;
   }
 
@@ -572,22 +621,36 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) bp_stream_kernel(cons
     p.converged[b] = done;
     p.iterations[b] = it;
     p.executed[b] = t;
+    if constexpr (kClocked) {
+      const uint32_t resident = (uint32_t)clock() - clk_entry;
+  #pragma unroll
+      for (int k = 0; k < kClockPhases; ++k) {
+        atomicAdd(p.phase_cycles + k, (unsigned long long)clk[k]);
+      }
+      atomicAdd(p.phase_cycles + kClockPhases, (unsigned long long)resident);
+      atomicAdd(p.phase_cycles + kClockPhases + 1, (unsigned long long)t);
+    }
   }
 }
 
 using KernelFn = void (*)(const Params);
 
 // The instantiation for storage type T: narrow rows (up to kNarrowDeg
-// circulants) at two or three blocks to an SM, or wide ones at one.
+// circulants) at two or three blocks to an SM, or wide ones at one; under
+// min-sum with the phase clocks or without.
 template <typename T>
-KernelFn min_sum_instance(bool narrow) {
-  return narrow ? bp_stream_kernel<T, kNarrowDeg, 3, false>
-                : bp_stream_kernel<T, kWideDeg, 1, false>;
+KernelFn min_sum_instance(bool narrow, bool clocked) {
+  if (clocked) {
+    return narrow ? bp_stream_kernel<T, kNarrowDeg, 3, false, true>
+                  : bp_stream_kernel<T, kWideDeg, 1, false, true>;
+  }
+  return narrow ? bp_stream_kernel<T, kNarrowDeg, 3, false, false>
+                : bp_stream_kernel<T, kWideDeg, 1, false, false>;
 }
 template <typename T>
 KernelFn sum_product_instance(bool narrow) {
-  return narrow ? bp_stream_kernel<T, kNarrowDeg, 2, true>
-                : bp_stream_kernel<T, kWideDeg, 1, true>;
+  return narrow ? bp_stream_kernel<T, kNarrowDeg, 2, true, false>
+                : bp_stream_kernel<T, kWideDeg, 1, true, false>;
 }
 
 }  // namespace
@@ -595,18 +658,20 @@ KernelFn sum_product_instance(bool narrow) {
 // The build compiles this file four times, side by side, with
 // BP_STREAM_PART = 1 (the f32 min-sum instantiations and the exported
 // functions), 2 (bf16 min-sum), 3 and 4 (f32 and bf16 sum-product); without
-// BP_STREAM_PART one object holds all eight.  The parts meet here.
-KernelFn bp_stream_min_sum_f32(bool narrow);
-KernelFn bp_stream_min_sum_bf16(bool narrow);
+// BP_STREAM_PART one object holds all twelve.  The parts meet here.
+KernelFn bp_stream_min_sum_f32(bool narrow, bool clocked);
+KernelFn bp_stream_min_sum_bf16(bool narrow, bool clocked);
 KernelFn bp_stream_sum_product_f32(bool narrow);
 KernelFn bp_stream_sum_product_bf16(bool narrow);
 
 #if !defined(BP_STREAM_PART) || BP_STREAM_PART == 1
-KernelFn bp_stream_min_sum_f32(bool narrow) { return min_sum_instance<float>(narrow); }
+KernelFn bp_stream_min_sum_f32(bool narrow, bool clocked) {
+  return min_sum_instance<float>(narrow, clocked);
+}
 #endif
 #if !defined(BP_STREAM_PART) || BP_STREAM_PART == 2
-KernelFn bp_stream_min_sum_bf16(bool narrow) {
-  return min_sum_instance<__nv_bfloat16>(narrow);
+KernelFn bp_stream_min_sum_bf16(bool narrow, bool clocked) {
+  return min_sum_instance<__nv_bfloat16>(narrow, clocked);
 }
 #endif
 #if !defined(BP_STREAM_PART) || BP_STREAM_PART == 3
@@ -623,12 +688,14 @@ KernelFn bp_stream_sum_product_bf16(bool narrow) {
 #if !defined(BP_STREAM_PART) || BP_STREAM_PART == 1
 namespace {
 
-KernelFn pick(int max_row_degree, bool sum_product, bool bf16) {
+// (clocked: min-sum only)
+KernelFn pick(int max_row_degree, bool sum_product, bool bf16, bool clocked) {
   const bool narrow = max_row_degree <= kNarrowDeg;
   if (sum_product) {
     return bf16 ? bp_stream_sum_product_bf16(narrow) : bp_stream_sum_product_f32(narrow);
   }
-  return bf16 ? bp_stream_min_sum_bf16(narrow) : bp_stream_min_sum_f32(narrow);
+  return bf16 ? bp_stream_min_sum_bf16(narrow, clocked)
+              : bp_stream_min_sum_f32(narrow, clocked);
 }
 
 size_t smem_of(int n_b, int z, int m_b, int num_blocks, int total_cols, int max_cols,
@@ -679,7 +746,11 @@ extern "C" {
 // [m_b + 1] into the column words [total_cols] (column | loaded << 16 |
 // forward slot << 17 | forwarded << 23), live_rows [n_masks, (z + 31) /
 // 32] uint32.  max_cols is the most columns of a layer, group_slots the
-// delta table's rows.  Launches on `stream` and returns
+// delta table's rows.  Unless phase_cycles is null, a min-sum decode runs
+// the clocked instantiation, which adds its phase clocks to phase_cycles,
+// int64 [6] on the device: cycles of stage, pass 1, pass 2 and sweep end,
+// resident cycles, sweeps, each summed over the blocks (sum-product runs
+// unclocked and leaves it as it was).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a code
 // it does not serve.
 int ldpc_bp_stream(const void* llr, uint8_t* bits, uint8_t* converged,
@@ -691,12 +762,13 @@ int ldpc_bp_stream(const void* llr, uint8_t* bits, uint8_t* converged,
                    int batch, int n_b, int z, int m_b, int num_blocks, int total_cols,
                    int max_cols, int n_masks, int group_slots, int max_row_degree,
                    int max_iters, int early_exit, int lazy, int sum_product, int bf16,
-                   void* stream) {
+                   void* stream, unsigned long long* phase_cycles) {
   if (!served(z, max_row_degree, max_cols) || p_scratch == nullptr ||
       r_scratch == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
-  const KernelFn kernel = pick(max_row_degree, sum_product, bf16);
+  const bool clocked = phase_cycles != nullptr && !sum_product;
+  const KernelFn kernel = pick(max_row_degree, sum_product, bf16, clocked);
   const size_t smem = smem_of(n_b, z, m_b, num_blocks, total_cols, max_cols, n_masks,
                               group_slots, max_row_degree, sum_product, bf16 ? 2 : 4);
   cudaError_t err = cudaFuncSetAttribute(
@@ -706,7 +778,7 @@ int ldpc_bp_stream(const void* llr, uint8_t* bits, uint8_t* converged,
                       p_scratch, shift, layer_ptr, layer_flags, col_ptr, col_info,
                       live_rows, alpha, beta, n_b, z, m_b, num_blocks, total_cols,
                       max_cols, n_masks, group_slots, max_row_degree, max_iters,
-                      early_exit, lazy};
+                      early_exit, lazy, clocked ? phase_cycles : nullptr};
   kernel<<<batch, z, smem, static_cast<cudaStream_t>(stream)>>>(params);
   return (int)cudaGetLastError();
 }
@@ -719,7 +791,7 @@ int ldpc_bp_stream_blocks_per_sm(int n_b, int z, int m_b, int num_blocks, int to
                                  int max_cols, int n_masks, int group_slots,
                                  int max_row_degree, int sum_product, int itemsize) {
   if (!served(z, max_row_degree, max_cols)) return -(int)cudaErrorInvalidValue;
-  const KernelFn kernel = pick(max_row_degree, sum_product, itemsize == 2);
+  const KernelFn kernel = pick(max_row_degree, sum_product, itemsize == 2, false);
   const size_t smem = smem_of(n_b, z, m_b, num_blocks, total_cols, max_cols, n_masks,
                               group_slots, max_row_degree, sum_product, itemsize);
   cudaError_t err = cudaFuncSetAttribute(

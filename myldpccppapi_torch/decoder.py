@@ -83,6 +83,7 @@ from .ops.crc_accept import decode_with_crc_accept
 from .ops.triage import decode_two_phase
 from .utils.config import DecoderConfig, check_edgelist_config
 from .utils.device import DEFAULT_DEVICE, resolve_device
+from .utils.profiling import span
 
 __all__ = ["Decoder", "DecodeResult", "resolve_device"]
 
@@ -271,14 +272,16 @@ class Decoder:
 
     def __call__(self, llr) -> DecodeResult:
         """Decode [B, n] LLRs (a tensor or array; moved to the decoder's
-        device as float32)."""
-        llr = torch.as_tensor(llr, dtype=torch.float32, device=self.device)
-        if llr.ndim != 2 or llr.shape[-1] != self.code.n:
-            raise ValueError(
-                f"expected llr of shape [batch, {self.code.n}], got "
-                f"{tuple(llr.shape)}"
-            )
-        return self._fn(llr.contiguous())
+        device as float32).  While a torch profiler records, the call is
+        the span ``myldpc.decode`` (``utils.profiling.span``)."""
+        with span("decode"):
+            llr = torch.as_tensor(llr, dtype=torch.float32, device=self.device)
+            if llr.ndim != 2 or llr.shape[-1] != self.code.n:
+                raise ValueError(
+                    f"expected llr of shape [batch, {self.code.n}], got "
+                    f"{tuple(llr.shape)}"
+                )
+            return self._fn(llr.contiguous())
 
     def info_bits(self, result: DecodeResult) -> torch.Tensor:
         """Information bits of the decoded codewords: [B, k_info]."""

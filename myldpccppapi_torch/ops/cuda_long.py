@@ -35,7 +35,12 @@ failed build or launch.  ``decode_qc_long.launches`` counts launches in the
 shared placement and ``decode_qc_long.global_launches`` those in the
 global one; ``decode_qc_long.soft_launches``, ``.sp_launches`` and
 ``.bf16_launches`` count, across placements, those with soft output, those
-of sum-product and those with bf16 messages.
+of sum-product and those with bf16 messages.  While a torch profiler
+records, a CUDA decode shows as three consecutive spans
+(``utils.profiling.span``): ``myldpc.long.prepare`` (every host step before
+the library call: checks, placement, outputs, the cast, scratches, tables,
+arguments), ``myldpc.long.launch`` (the library call) and
+``myldpc.long.finish`` (counters, ``executed.max()``, the result).
 
 The lazy syndrome is per codeword here: a codeword latches on a sweep only
 if its on-the-fly parity check passed on that sweep and then its exact
@@ -55,6 +60,7 @@ import torch
 from ..codes.qc import QCCode
 from ..utils.config import DecoderConfig
 from ..utils.device import cuda_index
+from ..utils.profiling import span
 from . import _build
 from .bp import DecodeResult, _decode_layered, layer_weights, msg_dtype, weights_mode
 from . import cuda_stream
@@ -203,10 +209,11 @@ def scratch_bytes(code: QCCode, sum_product: bool, itemsize: int) -> int:
     return got
 
 
-def _launch_shared(code: QCCode, cfg: DecoderConfig, llr_k: torch.Tensor, bits, conv,
-                   iters, executed, post, stream: int) -> None:
-    """Launch csrc/bp_long.cu (the shared placement) on checked CUDA
-    tensors; ``llr_k`` in the message dtype."""
+def _shared_args(code: QCCode, cfg: DecoderConfig, llr_k: torch.Tensor, bits, conv,
+                 iters, executed, post, stream: int) -> tuple:
+    """The arguments of the library's ``ldpc_bp_long`` (csrc/bp_long.cu, the
+    shared placement) for a decode on checked CUDA tensors; ``llr_k`` in
+    the message dtype.  Allocates the R scratch."""
     dt = llr_k.dtype
     sum_product = cfg.algorithm == "sum-product"
     # the messages R, records or per edge: written before they are read
@@ -214,7 +221,7 @@ def _launch_shared(code: QCCode, cfg: DecoderConfig, llr_k: torch.Tensor, bits, 
     r_scratch = torch.empty((llr_k.shape[0] * per_codeword,), dtype=torch.uint8,
                             device=llr_k.device)
     tables, multi_edge = _device_tables(code, cfg.normalization, cfg.offset, llr_k.device)
-    err = _build.load().ldpc_bp_long(
+    return (
         llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
         executed.data_ptr(), None if post is None else post.data_ptr(),
         r_scratch.data_ptr(), *(t.data_ptr() for t in tables),
@@ -222,8 +229,6 @@ def _launch_shared(code: QCCode, cfg: DecoderConfig, llr_k: torch.Tensor, bits, 
         int(multi_edge), group_slots(code), code.max_row_degree,
         cfg.max_iters, int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
         int(sum_product), int(dt == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"bp_long kernel launch failed: CUDA error {err}")
 
 
 def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
@@ -244,46 +249,49 @@ def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
         raise ValueError(f"expected float32 llr, got {llr.dtype}")
     if llr.device.type == "cpu":
         return decode_qc_long_plain(code, cfg, llr)
-    if llr.device.type != "cuda":
-        raise ValueError(f"unsupported device {llr.device}")
-    if not llr.is_contiguous():
-        raise ValueError("llr must be contiguous")
-    if not supported(code, cfg, llr.device):
-        raise ValueError(
-            f"the CUDA long-code kernel does not serve {code.name} under "
-            f"this config: it needs {REQUIREMENTS}"
-        )
-    dt = msg_dtype(cfg)
-    place = _place or placement(code, cuda_index(llr.device), msg_dtype(cfg).itemsize)
-    batch = llr.shape[0]
-    dev = llr.device
-    bits = torch.empty((batch, code.n), dtype=torch.uint8, device=dev)
-    conv = torch.empty((batch,), dtype=torch.bool, device=dev)
-    iters = torch.empty((batch,), dtype=torch.int32, device=dev)
-    post = (torch.empty((batch, code.n), dtype=dt, device=dev)
-            if cfg.soft_output else None)
-    if batch == 0:
-        return DecodeResult(bits, conv, iters,
-                            torch.zeros((), dtype=torch.int32, device=dev),
-                            posteriors=post)
-    llr_k = llr.to(dt)  # bf16: cast on the card (the reference casts first)
-    executed = torch.empty((batch,), dtype=torch.int32, device=dev)
-    sum_product = cfg.algorithm == "sum-product"
-    with torch.cuda.device(dev):
+    with span("long.prepare"):
+        if llr.device.type != "cuda":
+            raise ValueError(f"unsupported device {llr.device}")
+        if not llr.is_contiguous():
+            raise ValueError("llr must be contiguous")
+        if not supported(code, cfg, llr.device):
+            raise ValueError(
+                f"the CUDA long-code kernel does not serve {code.name} under "
+                f"this config: it needs {REQUIREMENTS}"
+            )
+        dt = msg_dtype(cfg)
+        place = _place or placement(code, cuda_index(llr.device), msg_dtype(cfg).itemsize)
+        batch = llr.shape[0]
+        dev = llr.device
+        bits = torch.empty((batch, code.n), dtype=torch.uint8, device=dev)
+        conv = torch.empty((batch,), dtype=torch.bool, device=dev)
+        iters = torch.empty((batch,), dtype=torch.int32, device=dev)
+        post = (torch.empty((batch, code.n), dtype=dt, device=dev)
+                if cfg.soft_output else None)
+        if batch == 0:
+            return DecodeResult(bits, conv, iters,
+                                torch.zeros((), dtype=torch.int32, device=dev),
+                                posteriors=post)
+        llr_k = llr.to(dt)  # bf16: cast on the card (the reference casts first)
+        executed = torch.empty((batch,), dtype=torch.int32, device=dev)
+        sum_product = cfg.algorithm == "sum-product"
         stream = torch.cuda.current_stream(dev).cuda_stream
+        operands = (code, cfg, llr_k, bits, conv, iters, executed, post, stream)
         if place == GLOBAL:
-            cuda_stream.launch(code, cfg, llr_k, bits, conv, iters, executed, post,
-                               stream)
+            name, args = "ldpc_bp_stream", cuda_stream.launch_args(*operands)
         else:
-            _launch_shared(code, cfg, llr_k, bits, conv, iters, executed, post, stream)
-    if place == GLOBAL:
-        decode_qc_long.global_launches += 1
-    else:
-        decode_qc_long.launches += 1
-    decode_qc_long.soft_launches += post is not None
-    decode_qc_long.sp_launches += sum_product
-    decode_qc_long.bf16_launches += dt == torch.bfloat16
-    return DecodeResult(bits, conv, iters, executed.max(), posteriors=post)
+            name, args = "ldpc_bp_long", _shared_args(*operands)
+    with torch.cuda.device(dev):
+        cuda_stream.launch(name, args)
+    with span("long.finish"):
+        if place == GLOBAL:
+            decode_qc_long.global_launches += 1
+        else:
+            decode_qc_long.launches += 1
+        decode_qc_long.soft_launches += post is not None
+        decode_qc_long.sp_launches += sum_product
+        decode_qc_long.bf16_launches += dt == torch.bfloat16
+        return DecodeResult(bits, conv, iters, executed.max(), posteriors=post)
 
 
 decode_qc_long.launches = 0

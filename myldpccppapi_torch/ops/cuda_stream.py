@@ -28,6 +28,19 @@ type), the first edge whose |q| equals m1, and one sign bit per edge; the
 kernel stores that record instead of the row's per-edge messages.  The
 two functions are the record's encoder and decoder in torch, bit-exact
 with the per-edge messages of ``ops/bp.py``'s check update.
+
+**The phase counter** (:func:`phase_counter`, :func:`phase_cycles`).
+While a torch profiler records (``utils.profiling.recording``), a min-sum
+launch passes its device's counter and the library runs the kernel's
+clocked instantiation, whose thread 0 of each block adds the cycles of a
+layer's stage wait, pass 1 and pass 2 and of each sweep's end, its
+resident cycles and its sweeps (:data:`PHASE_SLOTS`).  The counter lives
+on the device and no launch reads it back; otherwise the launch passes
+null and runs the unclocked kernel.  Sum-product always runs unclocked.
+
+:func:`launch` makes a long-code kernel's library call (this kernel's and
+``ops/cuda_long.py``'s shared placement) inside the ``myldpc.long.launch``
+span; :func:`launch_args` builds this kernel's arguments.
 """
 from __future__ import annotations
 
@@ -38,13 +51,14 @@ import numpy as np
 import torch
 
 from ..codes.qc import QCCode
+from ..utils.profiling import recording, span
 from . import _build
 from .bp import layer_weights
 
-__all__ = ["DISTANCE", "HAS_MASK", "MULTI_EDGE", "StagePlan", "blocks_per_sm",
-           "compress_min_sum", "expand_min_sum", "group_slots", "launch",
-           "layer_flags", "live_words", "n_masks", "pad_z", "record_words",
-           "stage_plan", "stream_bytes"]
+__all__ = ["DISTANCE", "HAS_MASK", "MULTI_EDGE", "PHASES", "PHASE_SLOTS", "StagePlan",
+           "blocks_per_sm", "compress_min_sum", "expand_min_sum", "group_slots",
+           "launch", "launch_args", "layer_flags", "live_words", "n_masks", "pad_z",
+           "phase_counter", "phase_cycles", "record_words", "stage_plan", "stream_bytes"]
 
 #: the kernel's prefetch distance in layers (its ring holds two stages)
 DISTANCE = 1
@@ -55,6 +69,13 @@ _INF = 1e30
 #: field positions of the kernel's table words (csrc/bp_stream.cu)
 _SLOT_SHIFT, _MASK_SHIFT = 14, 20
 _LOAD_BIT, _FWD_SLOT_SHIFT, _FWD_BIT = 16, 17, 23
+#: the clocked kernel's phases, in the order of its counter
+PHASES = ("stage", "pass1", "pass2", "sweep_end")
+#: the counter's slots: each phase's cycles, then the blocks' resident
+#: cycles (entry to exit) and sweeps, each summed over the blocks
+PHASE_SLOTS = PHASES + ("resident", "sweeps")
+#: each device's phase counter, int64 [len(PHASE_SLOTS)]
+_phase_counters: dict = {}
 
 
 def pad_z(z: int) -> int:
@@ -339,11 +360,34 @@ def blocks_per_sm(code: QCCode, sum_product: bool, itemsize: int) -> int:
     return got
 
 
-def launch(code: QCCode, cfg, llr_k: torch.Tensor, bits, conv, iters, executed,
-           post, stream: int) -> None:
-    """Launch the kernel on CUDA tensors the caller (cuda_long.decode_qc_long)
-    has checked and allocated; ``llr_k`` in the message dtype.  Allocates
-    the P and R scratches and raises if the launch fails."""
+def phase_counter(device) -> torch.Tensor:
+    """``device``'s phase counter (int64 [len(PHASE_SLOTS)], zeros when
+    made): made at its first use, then kept for the process."""
+    dev = torch.device(device)
+    counter = _phase_counters.get(dev)
+    if counter is None:
+        counter = _phase_counters[dev] = torch.zeros(len(PHASE_SLOTS), dtype=torch.int64,
+                                                     device=dev)
+    return counter
+
+
+def phase_cycles() -> "dict | None":
+    """What the phase counters hold, summed over the devices: {slot of
+    :data:`PHASE_SLOTS`: int}; None while no counter exists.  Reading waits
+    for each device's queued work."""
+    if not _phase_counters:
+        return None
+    total = sum(c.cpu() for c in _phase_counters.values())
+    return dict(zip(PHASE_SLOTS, total.tolist()))
+
+
+def launch_args(code: QCCode, cfg, llr_k: torch.Tensor, bits, conv, iters, executed,
+                post, stream: int) -> tuple:
+    """The arguments of the library's ``ldpc_bp_stream`` for a decode on
+    CUDA tensors the caller (cuda_long.decode_qc_long) has checked and
+    allocated; ``llr_k`` in the message dtype.  Allocates the P and R
+    scratches.  The last argument is the device's phase counter while a
+    profiler records and the decode is min-sum, else None."""
     dt = llr_k.dtype
     item = dt.itemsize
     batch, dev = llr_k.shape[0], llr_k.device
@@ -358,13 +402,26 @@ def launch(code: QCCode, cfg, llr_k: torch.Tensor, bits, conv, iters, executed,
                  torch.empty((batch, code.m_b, record_words(code.max_row_degree, item), zp),
                              dtype=torch.int32, device=dev))
     tables = _device_tables(code, cfg.normalization, cfg.offset, dev)
-    err = _build.load().ldpc_bp_stream(
+    clocked = recording() and not sum_product
+    return (
         llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
         executed.data_ptr(), None if post is None else post.data_ptr(),
         r_scratch.data_ptr(), p_scratch.data_ptr(), *(t.data_ptr() for t in tables),
         batch, code.n_b, code.z, code.m_b, code.num_blocks, plan.total_cols,
         plan.max_cols, n_masks(code), group_slots(code), code.max_row_degree,
         cfg.max_iters, int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
-        int(sum_product), int(dt == torch.bfloat16), stream)
+        int(sum_product), int(dt == torch.bfloat16), stream,
+        phase_counter(dev).data_ptr() if clocked else None)
+
+
+def launch(name: str, args: tuple) -> None:
+    """Call the kernel library's launcher ``name`` (``ldpc_bp_stream``, or
+    ``ldpc_bp_long`` for cuda_long's shared placement) with ``args``, inside
+    the ``myldpc.long.launch`` span, on the current CUDA device; raises if
+    the launch fails."""
+    fn = getattr(_build.load(), name)
+    with span("long.launch"):
+        err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"bp_stream kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name.removeprefix('ldpc_')} kernel launch failed: "
+                           f"CUDA error {err}")

@@ -1,6 +1,6 @@
 """Configs, profiling/metrics, and small host utilities."""
 from .config import DecoderConfig, RunConfig
-from .profiling import PhaseTimer, emit_metrics, iterations_histogram, trace
+from .profiling import PhaseTimer, emit_metrics, iterations_histogram, recording, span, trace
 
 __all__ = [
     "DecoderConfig",
@@ -8,5 +8,7 @@ __all__ = [
     "RunConfig",
     "emit_metrics",
     "iterations_histogram",
+    "recording",
+    "span",
     "trace",
 ]

@@ -6,6 +6,13 @@ metrics (NumPy copies of the reference's), and :func:`trace`, which
 records a ``torch.profiler`` trace (host and, on a CUDA device, kernel
 activity) around a block and writes it into a directory as a Chrome
 trace, where the reference captures a ``jax.profiler`` trace.
+
+The program's own tracing lives only while a torch profiler records
+(:func:`recording`), inside :func:`trace` or any ``torch.profiler.profile``
+block: :func:`span` ranges named ``myldpc.*`` at its layer boundaries,
+on the profiler's clock beside the device's activity, and the stream
+kernel's phase clocks (``ops/cuda_stream.py``).  Otherwise each costs a
+flag read.
 """
 from __future__ import annotations
 
@@ -17,8 +24,33 @@ from collections import defaultdict
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["PhaseTimer", "trace", "iterations_histogram", "emit_metrics"]
+__all__ = ["PhaseTimer", "trace", "iterations_histogram", "emit_metrics", "recording",
+           "span"]
+
+_NULL = contextlib.nullcontext()
+#: the range a span records: a host-side range of the profiler's trace
+#: (a ``record_function`` would also mark the device's activity inside it)
+_Range = torch._C._profiler._RecordFunctionFast
+
+
+def recording() -> bool:
+    """True while a torch profiler records: the switch of the program's
+    spans and of the stream kernel's phase clocks."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A context manager that records a range named ``"myldpc." + name``
+    while a torch profiler records; otherwise one shared null context, with
+    no profiler call and no allocation.
+
+    >>> with span("decode"): ..."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return _Range("myldpc." + name)
 
 
 class PhaseTimer:
@@ -60,24 +92,39 @@ class PhaseTimer:
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str]) -> Iterator[None]:
-    """Record a ``torch.profiler`` trace of the block (CPU activity, and
-    CUDA kernels where CUDA is available) and export it into ``log_dir`` as
-    ``trace_<pid>_<ns>.json`` (Chrome trace format, viewable in Perfetto or
-    chrome://tracing); a no-op when ``log_dir`` is falsy."""
+    """Record a ``torch.profiler`` trace of the block (CPU activity, the
+    program's ``myldpc.*`` spans, and CUDA kernels where CUDA is available)
+    and export it into ``log_dir`` as ``trace_<pid>_<ns>.json`` (Chrome
+    trace format, viewable in Perfetto or chrome://tracing); a no-op when
+    ``log_dir`` is falsy.  When the stream kernel (``csrc/bp_stream.cu``)
+    ran min-sum decodes in the block, its phase cycles of the block go
+    beside it as one :func:`emit_metrics` line, ``stream_phases_<pid>_<ns>.json``:
+    ``cycles`` (each slot of ``ops.cuda_stream.PHASE_SLOTS`` but the
+    sweeps, summed over the blocks), ``sweeps`` (frame-sweeps) and
+    ``per_frame_sweep`` (each of those cycles over the sweeps)."""
     if not log_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from ..ops import cuda_stream
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    before = cuda_stream.phase_cycles() or {}
     with profile(activities=activities) as prof:
         yield
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    stem = f"{os.getpid()}_{time.time_ns()}"
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{stem}.json"))
+    after = cuda_stream.phase_cycles() or {}
+    moved = {k: v - before.get(k, 0) for k, v in after.items()}
+    sweeps = moved.pop("sweeps", 0)
+    if sweeps:
+        emit_metrics(os.path.join(log_dir, f"stream_phases_{stem}.json"),
+                     cycles=moved, sweeps=sweeps,
+                     per_frame_sweep={k: v / sweeps for k, v in moved.items()})
 
 
 def iterations_histogram(iterations, max_iters: int) -> Dict[str, object]:

@@ -22,6 +22,11 @@ here:
   ``decode_qc_long_plain`` (lazy and exact) and, exact, with the JAX
   package's jnp layered decode.
 """
+import contextlib
+import json
+import os
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -36,6 +41,7 @@ from myldpccppapi_torch import DecoderConfig, QCCode, dvbs2, nr_code
 from myldpccppapi_torch.codes import ira_encode_numpy
 from myldpccppapi_torch.ops import bp, cuda_long, cuda_stream
 from myldpccppapi_torch.ops.bp import DecodeResult
+from myldpccppapi_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -502,26 +508,114 @@ class FakeLib:
         return call
 
 
+def _launch_inputs(msg_dtype="bfloat16", algorithm="min-sum"):
+    code = dvbs2(16200, "1/2")
+    cfg = DecoderConfig(normalization=0.85 if algorithm == "min-sum" else 1.0,
+                        syndrome_mode="lazy", msg_dtype=msg_dtype, algorithm=algorithm)
+    llr = torch.zeros((2, code.n), dtype=bp.msg_dtype(cfg))
+    outs = (torch.empty((2, code.n), dtype=torch.uint8), torch.empty(2, dtype=torch.bool),
+            torch.empty(2, dtype=torch.int32), torch.empty(2, dtype=torch.int32))
+    return code, cfg, llr, outs
+
+
 def test_launch_passes_the_plan_to_the_kernel(monkeypatch):
     """cuda_stream.launch hands ldpc_bp_stream the arguments its ctypes
     signature declares: the plan's tables and sizes, padded scratches of
-    the kernel's layouts and the mode flags."""
+    the kernel's layouts, the mode flags, the stream and (no profiler
+    recording) a null phase counter."""
     lib = FakeLib()
     monkeypatch.setattr(cuda_stream._build, "load", lambda: lib)
-    code = dvbs2(16200, "1/2")
-    cfg = DecoderConfig(normalization=0.85, syndrome_mode="lazy", msg_dtype="bfloat16")
-    llr = torch.zeros((2, code.n), dtype=torch.bfloat16)
-    outs = (torch.empty((2, code.n), dtype=torch.uint8), torch.empty(2, dtype=torch.bool),
-            torch.empty(2, dtype=torch.int32), torch.empty(2, dtype=torch.int32))
-    cuda_stream.launch(code, cfg, llr, *outs, None, 0)
+    code, cfg, llr, outs = _launch_inputs()
+    cuda_stream.launch("ldpc_bp_stream", cuda_stream.launch_args(code, cfg, llr, *outs, None, 0))
     (name, args), = lib.calls
     argtypes, _ = cuda_stream._build._SIGNATURES[name]
-    assert name == "ldpc_bp_stream" and len(args) == len(argtypes) == 32
+    assert name == "ldpc_bp_stream" and len(args) == len(argtypes) == 33
     plan = cuda_stream.stage_plan(code)
     assert args[16:31] == (2, code.n_b, code.z, code.m_b, code.num_blocks, plan.total_cols,
                            plan.max_cols, 1, cuda_stream.group_slots(code),
                            code.max_row_degree, cfg.max_iters, 1, 1, 0, 1)
-    assert args[5] is None and args[31] == 0
+    assert args[5] is None and args[31] == 0 and args[32] is None
+
+
+@pytest.mark.parametrize("recording,algorithm,clocked", [
+    (False, "min-sum", False), (True, "min-sum", True), (True, "sum-product", False)])
+def test_launch_passes_the_phase_counter_while_a_profiler_records(
+        monkeypatch, recording, algorithm, clocked):
+    """The phase counter's pointer goes to the library only while a torch
+    profiler records and only for min-sum (the clocked instantiations);
+    else null, and the library runs the unclocked kernel."""
+    monkeypatch.setattr(cuda_stream, "_phase_counters", {})
+    code, cfg, llr, outs = _launch_inputs("float32", algorithm)
+    with contextlib.ExitStack() as held:
+        if recording:
+            held.enter_context(torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]))
+        args = cuda_stream.launch_args(code, cfg, llr, *outs, None, 0)
+    if clocked:
+        counter = cuda_stream.phase_counter(llr.device)
+        assert args[32] == counter.data_ptr()
+        assert counter.dtype == torch.int64 and counter.tolist() == [0] * 6
+    else:
+        assert args[32] is None and cuda_stream._phase_counters == {}
+
+
+def test_launch_calls_the_library_inside_the_launch_span(monkeypatch):
+    """Under a profiler the library call lies inside ``myldpc.long.launch``,
+    and a failed launch raises."""
+    def call(*args):
+        torch.ones(1)  # an operator the profiler records inside the call
+        return 0
+    monkeypatch.setattr(cuda_stream._build, "load",
+                        lambda: types.SimpleNamespace(ldpc_bp_stream=call,
+                                                      ldpc_bp_long=lambda *a: 700))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        cuda_stream.launch("ldpc_bp_stream", (1, 2))
+    events = prof.events()
+    span, = [e for e in events if e.name == "myldpc.long.launch"]
+    op, = [e for e in events if e.name == "aten::ones"]
+    assert span.time_range.start <= op.time_range.start
+    assert op.time_range.end <= span.time_range.end
+    with pytest.raises(RuntimeError, match="bp_long kernel launch failed: CUDA error 700"):
+        cuda_stream.launch("ldpc_bp_long", ())
+
+
+def test_trace_writes_the_stream_phases_beside_the_trace(monkeypatch, tmp_path):
+    """``profiling.trace`` writes the phase cycles that clocked launches
+    added during the block beside the Chrome trace, and no phase file for a
+    block without one (nor do launches outside the block count)."""
+    monkeypatch.setattr(cuda_stream, "_phase_counters", {})
+
+    def call(*args):  # the clocked kernel's additions, on the CPU
+        if args[32] is not None:
+            cuda_stream.phase_counter("cpu").add_(torch.tensor([10, 20, 30, 4, 70, 2]))
+        return 0
+    monkeypatch.setattr(cuda_stream._build, "load",
+                        lambda: types.SimpleNamespace(ldpc_bp_stream=call))
+    code, cfg, llr, outs = _launch_inputs("float32")
+
+    def decode():
+        cuda_stream.launch("ldpc_bp_stream",
+                           cuda_stream.launch_args(code, cfg, llr, *outs, None, 0))
+
+    with profiling.trace(str(tmp_path / "none")):
+        torch.ones(1)
+    assert [n[:6] for n in os.listdir(tmp_path / "none")] == ["trace_"]
+    with profiling.trace(str(tmp_path / "one")):
+        decode()
+    decode()  # unclocked: nothing recorded
+    with profiling.trace(str(tmp_path / "two")):
+        decode()
+        decode()
+    for sub, times in (("one", 1), ("two", 2)):
+        names = sorted(os.listdir(tmp_path / sub))
+        assert [n.split("_")[0] for n in names] == ["stream", "trace"]
+        line = json.loads((tmp_path / sub / names[0]).read_text())
+        cycles = {"stage": 10 * times, "pass1": 20 * times, "pass2": 30 * times,
+                  "sweep_end": 4 * times, "resident": 70 * times}
+        assert line == {"cycles": cycles, "sweeps": 2 * times,
+                        "per_frame_sweep": {k: v / (2 * times) for k, v in cycles.items()}}
+    assert cuda_stream.phase_cycles() == {"stage": 30, "pass1": 60, "pass2": 90,
+                                          "sweep_end": 12, "resident": 210, "sweeps": 6}
 
 
 def test_blocks_per_sm_of_the_global_placement_asks_bp_stream(monkeypatch):
