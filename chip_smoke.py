@@ -59,7 +59,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and dvbs2(16200, "3/4") (rows of 22 circulants, shared) at batch 1 and
    past two waves as in 3b: 40 cases (the 64800 codes run exact and lazy
    at the easy SNR with early exit on, and lazy at the hard one: early
-   exit off runs in the main path's batch case).
+   exit off runs in the main path's batch case).  Then the persistent
+   grid's turns (:func:`stream_turn_cases`): dvbs2(64800, "1/2") at 1.4 dB
+   at batch 1024, past the card's resident blocks (turns of a few
+   sweeps), and at batch 64 (one turn a codeword), min-sum in f32 and
+   bf16 (exact and lazy, early exit on and off, soft output) and
+   sum-product in f32 and bf16, each against the plain version on CUDA,
+   and the clocked instantiation against the unclocked one, its sweeps
+   equal to the frames' iterations and its turns as the rule says: 18
+   cases.
 3d. Kernel A's new modes vs plain: flooding min-sum (alpha 1.0, alpha 0.75,
    per-layer alpha, beta 0.25), SCMS, sum-product (flooding and layered)
    and soft output (min-sum layered and flooding, sum-product layered and
@@ -1307,8 +1315,68 @@ def phase_dvbs2_kernel_vs_plain() -> tuple[float, float]:
         log(f"[phase3c] {code.name} forced global {cfg.msg_dtype} {cfg.syndrome_mode}: "
             f"{int((~plan.loaded).sum())} of {plan.total_cols} cells forwarded, "
             f"{summary(k)}: kernel == plain (cuda)")
+    d, n = stream_turn_cases()
+    worst[GLOBAL] = max(worst[GLOBAL], d)
+    n_cases += n
     log(f"[phase3c] {n_cases} cases bit-exact")
     return worst[SHARED], worst[GLOBAL]
+
+
+def stream_turn_cases() -> tuple[float, int]:
+    """D's port's persistent grid on dvbs2(64800, "1/2") at 1.4 dB: at the
+    main path's batch, past the card's resident blocks (turns of
+    ``cuda_stream.TURN_SWEEPS`` sweeps from the queue), and at batch 64
+    (one turn a codeword), every mode against the plain version on CUDA;
+    then the clocked instantiation (a profiler recording) against the
+    unclocked one, in f32 and bf16, its sweeps equal to the frames'
+    iterations and its turns as the launcher's rule says.  Returns the
+    largest difference (0.0: any other raises) and the cases run."""
+    code = dvbs2(64800, "1/2")
+    slots = torch.cuda.get_device_properties(0).multi_processor_count * \
+        cuda_stream.blocks_per_sm(code, False, 4)
+    bf16 = dataclasses.replace(DVB_CFG, msg_dtype="bfloat16")
+    modes = (dataclasses.replace(DVB_CFG, syndrome_mode="exact"), DVB_CFG,
+             dataclasses.replace(DVB_CFG, early_exit=False, soft_output=True),
+             dataclasses.replace(bf16, soft_output=True),
+             dataclasses.replace(bf16, syndrome_mode="exact", early_exit=False),
+             DecoderConfig(algorithm="sum-product", max_iters=30, syndrome_mode="lazy"),
+             DecoderConfig(algorithm="sum-product", max_iters=30, msg_dtype="bfloat16",
+                           soft_output=True))
+    worst, n_cases = 0.0, 0
+    for batch in (DVB_BATCH, 64):
+        llr = dvbs2_llr(code, batch, 1.4, SEED + 360 + batch).cuda()
+        quantum = cuda_stream.turn_sweeps(batch, slots, DVB_CFG.max_iters)
+        for cfg in modes:
+            before = decode_qc_long.global_launches
+            k, d = check_long(code, cfg, llr)
+            if decode_qc_long.global_launches != before + 1:
+                raise AssertionError(f"{code.name} batch={batch}: not the global placement")
+            worst = max(worst, d)
+            n_cases += 1
+            log(f"[phase3c] {code.name} batch={batch} ({slots} slots, turns of {quantum}) "
+                f"{cfg.algorithm} {cfg.msg_dtype} {cfg.syndrome_mode} "
+                f"early_exit={cfg.early_exit} {summary(k)}: kernel == plain (cuda)")
+        for cfg in (DVB_CFG, bf16):
+            plain = decode_qc_long(code, cfg, llr)
+            before = cuda_stream.phase_cycles() or dict.fromkeys(cuda_stream.PHASE_SLOTS, 0)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                clocked = decode_qc_long(code, cfg, llr)
+                torch.cuda.synchronize()
+            after = cuda_stream.phase_cycles()
+            got = {key: after[key] - before[key] for key in cuda_stream.PHASE_SLOTS}
+            worst = max(worst, max_abs_diff(clocked, plain))
+            n_cases += 1
+            iters = clocked.iterations.to(torch.int64)
+            want = (iters + quantum - 1) // quantum
+            if got["sweeps"] != int(iters.sum()) or got["turns"] != int(want.clamp(min=1).sum()):
+                raise AssertionError(f"{code.name} batch={batch} {cfg.msg_dtype}: clocked "
+                                     f"sweeps {got['sweeps']}, turns {got['turns']}; the "
+                                     f"frames' {int(iters.sum())} and {int(want.sum())}")
+            phases = sum(got[key] for key in cuda_stream.PHASES)
+            log(f"[phase3c] {code.name} batch={batch} {cfg.msg_dtype} clocked == unclocked: "
+                f"{got['turns']} turns, {got['sweeps'] / got['turns']:.3f} sweeps a turn, "
+                f"phases {phases / got['resident']:.4f} of resident")
+    return worst, n_cases
 
 
 def phase_kernel_vs_plain() -> float:

@@ -65,8 +65,9 @@ _SIGNATURES = {
     # the stream
     "ldpc_bp_layered": ([_P] * 13 + [_I] * 14 + [_P], _I),
     # sixteen tensors (the posterior output may be null), fifteen ints, the
-    # stream, the phase counter (null: the unclocked kernel)
-    "ldpc_bp_stream": ([_P] * 16 + [_I] * 15 + [_P] * 2, _I),
+    # stream, the phase counter (null: the unclocked kernel), the turn
+    # queue's workspace and its entries
+    "ldpc_bp_stream": ([_P] * 16 + [_I] * 15 + [_P] * 3 + [_I], _I),
     # (n_b, z, m_b, num_blocks, total_cols, max_cols, n_masks, group_slots,
     #  max_row_degree, sum_product, itemsize)
     #   -> resident blocks per SM

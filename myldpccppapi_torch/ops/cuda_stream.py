@@ -29,14 +29,36 @@ kernel stores that record instead of the row's per-edge messages.  The
 two functions are the record's encoder and decoder in torch, bit-exact
 with the per-edge messages of ``ops/bp.py``'s check update.
 
+**Persistent blocks and turns** (:func:`turn_sweeps`, :func:`queue_entries`,
+:func:`workspace`).  The kernel's grid is ``min(batch, slots)`` blocks,
+``slots`` the blocks the device holds at once (its SMs times the kernel's
+occupancy, which the library asks once per instantiation, shared bytes and
+device).  A block decodes a codeword in turns: it takes a ticket from a
+device-side FIFO, runs at most
+:data:`TURN_SWEEPS` sweeps of the ticket's codeword from its saved sweep
+count, and puts an unfinished codeword back at the queue's tail.  P and R
+live in device memory and every column ends each sweep written back, so a
+codeword resumes on any block from them, its sweep count, its iterations
+and its latch (the ``executed``, ``iterations`` and ``converged`` outputs
+hold them between turns).  This ends the in-order grid's tail, where the
+last blocks started ran on an emptying card.  Turns engage only when the
+batch exceeds the slots; a batch that fits takes one turn a codeword (its
+whole decode).  The queue (four counters and :func:`queue_entries` codeword
+entries, int32) is a workspace per device and stream, zeros when made; the
+kernel's last block to leave returns it to zeros, so a launch needs no
+clearing of its own.  :func:`turn_sweeps` mirrors the library's rule for
+the CPU tests.
+
 **The phase counter** (:func:`phase_counter`, :func:`phase_cycles`).
 While a torch profiler records (``utils.profiling.recording``), a min-sum
 launch passes its device's counter and the library runs the kernel's
 clocked instantiation, whose thread 0 of each block adds the cycles of a
 layer's stage wait, pass 1 and pass 2 and of each sweep's end, its
-resident cycles and its sweeps (:data:`PHASE_SLOTS`).  The counter lives
-on the device and no launch reads it back; otherwise the launch passes
-null and runs the unclocked kernel.  Sum-product always runs unclocked.
+resident cycles (from taking a turn to its end: the wait on an empty queue
+is not counted), its sweeps and its turns (:data:`PHASE_SLOTS`).  The
+counter lives on the device and no launch reads it back; otherwise the
+launch passes null and runs the unclocked kernel.  Sum-product always runs
+unclocked.
 
 :func:`launch` makes a long-code kernel's library call (this kernel's and
 ``ops/cuda_long.py``'s shared placement) inside the ``myldpc.long.launch``
@@ -55,10 +77,12 @@ from ..utils.profiling import recording, span
 from . import _build
 from .bp import layer_weights
 
-__all__ = ["DISTANCE", "HAS_MASK", "MULTI_EDGE", "PHASES", "PHASE_SLOTS", "StagePlan",
-           "blocks_per_sm", "compress_min_sum", "expand_min_sum", "group_slots",
-           "launch", "launch_args", "layer_flags", "live_words", "n_masks", "pad_z",
-           "phase_counter", "phase_cycles", "record_words", "stage_plan", "stream_bytes"]
+__all__ = ["DISTANCE", "HAS_MASK", "MULTI_EDGE", "PHASES", "PHASE_SLOTS", "QUEUE_COUNTERS",
+           "StagePlan", "TURN_SWEEPS", "blocks_per_sm", "compress_min_sum",
+           "expand_min_sum", "group_slots", "launch", "launch_args",
+           "layer_flags", "live_words", "n_masks", "pad_z", "phase_counter", "phase_cycles",
+           "queue_entries", "record_words", "stage_plan", "stream_bytes", "turn_sweeps",
+           "workspace"]
 
 #: the kernel's prefetch distance in layers (its ring holds two stages)
 DISTANCE = 1
@@ -72,10 +96,19 @@ _LOAD_BIT, _FWD_SLOT_SHIFT, _FWD_BIT = 16, 17, 23
 #: the clocked kernel's phases, in the order of its counter
 PHASES = ("stage", "pass1", "pass2", "sweep_end")
 #: the counter's slots: each phase's cycles, then the blocks' resident
-#: cycles (entry to exit) and sweeps, each summed over the blocks
-PHASE_SLOTS = PHASES + ("resident", "sweeps")
+#: cycles (each turn, from taking it to its end), sweeps and turns, each
+#: summed over the blocks
+PHASE_SLOTS = PHASES + ("resident", "sweeps", "turns")
 #: each device's phase counter, int64 [len(PHASE_SLOTS)]
 _phase_counters: dict = {}
+#: the kernel's turn (its kTurnSweeps): the most sweeps a turn runs when
+#: turns engage
+TURN_SWEEPS = 4
+#: the queue workspace's counters (head, tail, finished, left) before its
+#: entries
+QUEUE_COUNTERS = 4
+#: each (device, stream)'s turn queue workspace, int32
+_workspaces: dict = {}
 
 
 def pad_z(z: int) -> int:
@@ -360,6 +393,36 @@ def blocks_per_sm(code: QCCode, sum_product: bool, itemsize: int) -> int:
     return got
 
 
+def queue_entries(batch: int, max_iters: int) -> int:
+    """Entries of the turn queue that a batch's turns need: every turn of a
+    codeword but its first (the library's ``queue_entries``)."""
+    if max_iters <= TURN_SWEEPS:
+        return 0
+    return batch * (-(-max_iters // TURN_SWEEPS) - 1)
+
+
+def turn_sweeps(batch: int, slots: int, max_iters: int) -> int:
+    """The most sweeps a turn runs, as the library's launcher decides it for
+    ``batch`` codewords on a device that holds ``slots`` blocks at once:
+    :data:`TURN_SWEEPS` when the batch exceeds the slots, else ``max_iters``
+    (one turn a codeword)."""
+    return TURN_SWEEPS if batch > slots and max_iters > TURN_SWEEPS else max_iters
+
+
+def workspace(device, stream: int, entries: int) -> torch.Tensor:
+    """The turn queue's workspace of ``device`` and ``stream`` (int32
+    [QUEUE_COUNTERS + entries] at least, zeros when made): made at its first
+    use, and made anew, larger, when a launch needs more entries.  The
+    kernel leaves it zeros, so the launches of one stream share it; another
+    stream gets its own."""
+    key = (torch.device(device), stream)
+    work = _workspaces.get(key)
+    if work is None or work.numel() < QUEUE_COUNTERS + entries:
+        work = _workspaces[key] = torch.zeros(QUEUE_COUNTERS + entries, dtype=torch.int32,
+                                              device=key[0])
+    return work
+
+
 def phase_counter(device) -> torch.Tensor:
     """``device``'s phase counter (int64 [len(PHASE_SLOTS)], zeros when
     made): made at its first use, then kept for the process."""
@@ -386,8 +449,9 @@ def launch_args(code: QCCode, cfg, llr_k: torch.Tensor, bits, conv, iters, execu
     """The arguments of the library's ``ldpc_bp_stream`` for a decode on
     CUDA tensors the caller (cuda_long.decode_qc_long) has checked and
     allocated; ``llr_k`` in the message dtype.  Allocates the P and R
-    scratches.  The last argument is the device's phase counter while a
-    profiler records and the decode is min-sum, else None."""
+    scratches.  After the stream come the device's phase counter while a
+    profiler records and the decode is min-sum (else None), then the turn
+    queue's workspace of the device and stream and its entries."""
     dt = llr_k.dtype
     item = dt.itemsize
     batch, dev = llr_k.shape[0], llr_k.device
@@ -403,6 +467,7 @@ def launch_args(code: QCCode, cfg, llr_k: torch.Tensor, bits, conv, iters, execu
                              dtype=torch.int32, device=dev))
     tables = _device_tables(code, cfg.normalization, cfg.offset, dev)
     clocked = recording() and not sum_product
+    entries = queue_entries(batch, cfg.max_iters)
     return (
         llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
         executed.data_ptr(), None if post is None else post.data_ptr(),
@@ -411,7 +476,8 @@ def launch_args(code: QCCode, cfg, llr_k: torch.Tensor, bits, conv, iters, execu
         plan.max_cols, n_masks(code), group_slots(code), code.max_row_degree,
         cfg.max_iters, int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
         int(sum_product), int(dt == torch.bfloat16), stream,
-        phase_counter(dev).data_ptr() if clocked else None)
+        phase_counter(dev).data_ptr() if clocked else None,
+        workspace(dev, stream, entries).data_ptr(), entries)
 
 
 def launch(name: str, args: tuple) -> None:

@@ -100,8 +100,9 @@ def trace(log_dir: Optional[str]) -> Iterator[None]:
     ran min-sum decodes in the block, its phase cycles of the block go
     beside it as one :func:`emit_metrics` line, ``stream_phases_<pid>_<ns>.json``:
     ``cycles`` (each slot of ``ops.cuda_stream.PHASE_SLOTS`` but the
-    sweeps, summed over the blocks), ``sweeps`` (frame-sweeps) and
-    ``per_frame_sweep`` (each of those cycles over the sweeps)."""
+    sweeps and turns, summed over the blocks), ``sweeps`` (frame-sweeps),
+    ``turns`` (the blocks' turns) and ``per_frame_sweep`` (each of those
+    cycles over the sweeps)."""
     if not log_dir:
         yield
         return
@@ -121,9 +122,10 @@ def trace(log_dir: Optional[str]) -> Iterator[None]:
     after = cuda_stream.phase_cycles() or {}
     moved = {k: v - before.get(k, 0) for k, v in after.items()}
     sweeps = moved.pop("sweeps", 0)
+    turns = moved.pop("turns", 0)
     if sweeps:
         emit_metrics(os.path.join(log_dir, f"stream_phases_{stem}.json"),
-                     cycles=moved, sweeps=sweeps,
+                     cycles=moved, sweeps=sweeps, turns=turns,
                      per_frame_sweep={k: v / sweeps for k, v in moved.items()})
 
 

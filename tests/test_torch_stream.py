@@ -20,11 +20,19 @@ here:
   the staged records (or staged per-edge messages under sum-product) and
   its exact syndrome from a map of the hard decisions, bit-exact with
   ``decode_qc_long_plain`` (lazy and exact) and, exact, with the JAX
-  package's jnp layered decode.
+  package's jnp layered decode;
+* the persistent grid's turns: the emulation run in the kernel's turns of
+  at most ``TURN_SWEEPS`` sweeps, in its FIFO order, each resumed only from
+  the written-back P and R and the codeword's sweep count, iterations and
+  latch, equals the uninterrupted emulation and the plain version; the
+  launcher's rule (grid, turn length, queue entries) through its Python
+  mirror, and the queue's workspace.
 """
+import collections
 import contextlib
 import json
 import os
+import pathlib
 import types
 
 import numpy as np
@@ -291,16 +299,28 @@ def test_codec_on_multi_edge_layers_of_a_decode():
 
 # -- the staged sweep, emulated ------------------------------------------------
 
-def staged_decode(code, cfg, llr: torch.Tensor, distance: int = 1) -> DecodeResult:
-    """The kernel's sweep in torch, one codeword after another: P and R
-    (records, or per-edge messages under sum-product) in padded "device"
-    buffers, a ring of ``distance + 1`` stages filled from them only at the
-    moments the kernel starts its copies (or by the forwards the plan
-    names), every q from a stage, every r_old from a staged record (or
-    staged messages under sum-product, as the kernel stages them for rows
-    of up to 24 edges), the exact syndrome from a map of the written-back
-    P's hard decisions and the latch from the written-back P.  The kernel
-    runs at distance 1; other distances replay the plan further ahead."""
+def staged_decode(code, cfg, llr: torch.Tensor, distance: int = 1, slots=None,
+                  log=None) -> DecodeResult:
+    """The kernel's sweep in torch: P and R (records, or per-edge messages
+    under sum-product) in padded "device" buffers, a ring of ``distance +
+    1`` stages filled from them only at the moments the kernel starts its
+    copies (or by the forwards the plan names), every q from a stage, every
+    r_old from a staged record (or staged messages under sum-product, as
+    the kernel stages them for rows of up to 24 edges), the exact syndrome
+    from a map of the written-back P's hard decisions and the latch from
+    the written-back P.  The kernel runs at distance 1; other distances
+    replay the plan further ahead.
+
+    The codewords run in the kernel's turns, in its FIFO order: tickets
+    0..B-1 are the codewords' first turns, then the queue's entries in the
+    order their turns ended.  With ``slots`` (the persistent grid's
+    blocks) a turn runs at most ``cuda_stream.turn_sweeps(B, slots,
+    max_iters)`` sweeps, else each codeword runs one turn.  A turn resumes only from the
+    written-back P and R, the codeword's sweep count, iterations and latch,
+    with an empty ring: its first layers load every cell whose writer lies
+    before the turn, and its messages.  ``log``, a dict, receives
+    ``turns`` (the codeword of each turn, in order) and ``executed`` (each
+    codeword's sweeps, the kernel's ``executed`` output)."""
     plan = cuda_stream.stage_plan(code, distance)
     z, zp, m_b = code.z, cuda_stream.pad_z(code.z), code.m_b
     dt = bp.msg_dtype(cfg)
@@ -309,31 +329,37 @@ def staged_decode(code, cfg, llr: torch.Tensor, distance: int = 1) -> DecodeResu
     layers = bp._layers(code)
     masks = bp._masks(code, llr.device)
     alphas, betas = bp.layer_weights(cfg.normalization, cfg.offset, m_b)
-    total = cfg.max_iters * m_b
-    out = []
+    quantum = (cfg.max_iters if slots is None
+               else cuda_stream.turn_sweeps(len(llr), slots, cfg.max_iters))
+    words = []  # each codeword's state between turns
     for row in llr.to(dt):
         P = torch.zeros((code.n_b, zp), dtype=dt)
         P[:, :z] = row.view(code.n_b, z)
-        R = {}  # layer -> record words, or edge -> messages (sum-product)
+        # R: layer -> record words, or edge -> messages (sum-product)
+        words.append(dict(P=P, R={}, t=0, it=0, done=False, bits=None, post=None))
+
+    def run_turn(w, t_end):
+        P, R = w["P"], w["R"]
+        t, it, done = w["t"], w["it"], w["done"]
+        g_first, g_end = t * m_b, t_end * m_b
         stages = [{"slots": [None] * plan.max_cols, "rec": None} for _ in range(ring)]
 
         def prefetch(a):
             i, stage = a % m_b, stages[a % ring]
             for k, c in enumerate(range(plan.col_ptr[i], plan.col_ptr[i + 1])):
-                if plan.loaded[c] or a < plan.back[c]:
+                if plan.loaded[c] or a - plan.back[c] < g_first:
                     stage["slots"][k] = P[plan.cols[c]].clone()
-            if a >= m_b and not plan.record_forwarded:
+            if a >= m_b and (not plan.record_forwarded or a - m_b < g_first):
                 stage["rec"] = ([R[e].clone() for (e, _, _, _) in layers[i][1]] if sp
                                 else R[i].clone())
 
-        for a in range(min(distance, total)):
+        for a in range(g_first, min(g_first + distance, g_end)):
             prefetch(a)
-        done, it, t, g = False, 0, 0, 0
-        bits_out = post_out = None
-        while t < cfg.max_iters and not (cfg.early_exit and done):
+        g = g_first
+        while t < t_end and not (cfg.early_exit and done):
             pre_bad = False
             for i, (p0, entries) in enumerate(layers):
-                if g + distance < total:
+                if g + distance < g_end:
                     prefetch(g + distance)
                 stage = stages[g % ring]
                 deg = len(entries)
@@ -383,7 +409,8 @@ def staged_decode(code, cfg, llr: torch.Tensor, distance: int = 1) -> DecodeResu
                     c = c0 + plan.edge_slot[entries[k0][0]]
                     P[j, :z] = upd
                     if plan.fwd_dist[c]:
-                        stages[(g + plan.fwd_dist[c]) % ring]["slots"][plan.fwd_slot[c]] = P[j].clone()
+                        target = stages[(g + plan.fwd_dist[c]) % ring]
+                        target["slots"][plan.fwd_slot[c]] = P[j].clone()
                 g += 1
             if not done:
                 it = t + 1
@@ -398,18 +425,32 @@ def staged_decode(code, cfg, llr: torch.Tensor, distance: int = 1) -> DecodeResu
                         fail |= bool(par.any())
                     if not fail:
                         done = True
-                        bits_out, post_out = hard.clone(), P[:, :z].clone()
+                        w["bits"], w["post"] = hard.clone(), P[:, :z].clone()
             t += 1
-        if not done:
-            bits_out = (P[:, :z] <= 0) & (t > 0)
-            post_out = P[:, :z].clone()
-        out.append((bits_out.reshape(-1), done, it, t, post_out.reshape(-1)))
+        w.update(t=t, it=it, done=done)
+        finished = (cfg.early_exit and done) or t >= cfg.max_iters
+        if finished and not done:
+            w["bits"] = (P[:, :z] <= 0) & (t > 0)
+            w["post"] = P[:, :z].clone()
+        return finished
+
+    queue = collections.deque(range(len(words)))
+    turns = []
+    while queue:
+        c = queue.popleft()
+        turns.append(c)
+        w = words[c]
+        if not run_turn(w, min(w["t"] + quantum, cfg.max_iters)):
+            queue.append(c)
+    if log is not None:
+        log.update(turns=turns, executed=[w["t"] for w in words])
     return DecodeResult(
-        bits=torch.stack([o[0] for o in out]).to(torch.uint8),
-        converged=torch.tensor([o[1] for o in out]),
-        iterations=torch.tensor([o[2] for o in out], dtype=torch.int32),
-        total_iters=torch.tensor(max(o[3] for o in out), dtype=torch.int32),
-        posteriors=torch.stack([o[4] for o in out]) if cfg.soft_output else None)
+        bits=torch.stack([w["bits"].reshape(-1) for w in words]).to(torch.uint8),
+        converged=torch.tensor([w["done"] for w in words]),
+        iterations=torch.tensor([w["it"] for w in words], dtype=torch.int32),
+        total_iters=torch.tensor(max(w["t"] for w in words), dtype=torch.int32),
+        posteriors=(torch.stack([w["post"].reshape(-1) for w in words])
+                    if cfg.soft_output else None))
 
 
 def dvbs2_llr(code, batch, snr_db, seed) -> np.ndarray:
@@ -495,6 +536,100 @@ def test_staged_sweep_equals_jnp_layered_decode(which):
     assert_same(got, want, soft=True)
 
 
+TURN_CASES = {
+    # (code, LLRs, config, the grid's slots, prefetch distance): three
+    # codewords of 16200 r1/2 (multi-edge cells, a masked row) at 1.0 dB run
+    # 10-12 sweeps, one never converging; the staircase's two run 4 and 8
+    "16200 exact": ("d16", dict(normalization=0.85, max_iters=12), 2, 1),
+    "16200 lazy soft": ("d16", dict(normalization=0.85, max_iters=12, syndrome_mode="lazy",
+                                    soft_output=True), 1, 1),
+    "16200 bf16 no early exit": ("d16", dict(normalization=0.85, max_iters=12,
+                                             msg_dtype="bfloat16", early_exit=False,
+                                             soft_output=True), 2, 1),
+    "16200 sum-product lazy": ("d16", dict(algorithm="sum-product", max_iters=8,
+                                           syndrome_mode="lazy"), 2, 1),
+    "16200 lazy, batch at the slots": ("d16", dict(normalization=0.85, max_iters=12,
+                                                   syndrome_mode="lazy"), 3, 1),
+    "staircase exact no early exit": ("stair", dict(normalization=0.8, max_iters=8,
+                                                    early_exit=False, soft_output=True), 1, 1),
+    "staircase lazy distance 2": ("stair", dict(normalization=0.8, max_iters=8,
+                                                syndrome_mode="lazy", soft_output=True), 1, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(TURN_CASES))
+def test_turns_equal_one_uninterrupted_decode(case, emulation_inputs):
+    """A batch past the grid's slots decodes in turns of at most
+    ``TURN_SWEEPS`` sweeps, each resumed only from the written-back P and
+    R and the codeword's sweep count, iterations and latch, in the
+    kernel's FIFO order: bits, converged flags, iterations, sweeps run and
+    latched posteriors equal the uninterrupted staged decode and the plain
+    version bit for bit.  A batch within the slots takes one turn a
+    codeword."""
+    which, kw, slots, distance = TURN_CASES[case]
+    code, llr = emulation_inputs[which]
+    cfg = DecoderConfig(**kw)
+    turned, whole = {}, {}
+    got = staged_decode(code, cfg, llr, distance, slots=slots, log=turned)
+    assert_same(got, staged_decode(code, cfg, llr, distance, log=whole), cfg.soft_output)
+    assert_same(got, cuda_long.decode_qc_long_plain(code, cfg, llr), cfg.soft_output)
+    assert turned["executed"] == whole["executed"]
+    batch = len(llr)
+    quantum = cuda_stream.turn_sweeps(batch, slots, cfg.max_iters)
+    assert quantum == (cuda_stream.TURN_SWEEPS if batch > slots else cfg.max_iters)
+    # tickets 0..B-1 are the first turns; then the queue, in FIFO order
+    assert turned["turns"][:batch] == list(range(batch))
+    for c, sweeps in enumerate(turned["executed"]):
+        assert turned["turns"].count(c) == max(1, -(-sweeps // quantum)), c
+    assert len(turned["turns"]) - batch <= cuda_stream.queue_entries(batch, cfg.max_iters)
+    if batch > slots:
+        assert len(turned["turns"]) > batch  # some codeword took a second turn
+
+
+def test_launcher_turn_rule():
+    """The launcher's rule, through its mirror: turns of TURN_SWEEPS
+    sweeps only when the batch exceeds the slots (and a decode runs more
+    sweeps than a turn), else one turn a codeword; a queue that holds
+    every later turn."""
+    k = cuda_stream.TURN_SWEEPS
+    assert cuda_stream.turn_sweeps(1024, 396, 30) == k
+    assert cuda_stream.turn_sweeps(397, 396, 30) == k
+    assert cuda_stream.turn_sweeps(396, 396, 30) == 30
+    assert cuda_stream.turn_sweeps(64, 396, 30) == 30
+    assert cuda_stream.turn_sweeps(1024, 396, k) == k
+    assert cuda_stream.turn_sweeps(1024, 396, 2) == 2
+    assert cuda_stream.queue_entries(1024, k) == 0
+    assert cuda_stream.queue_entries(1024, 30) == 1024 * (-(-30 // k) - 1)
+    assert cuda_stream.queue_entries(1024, 30) * 4 <= 32 * 1024  # at most 32 KB
+
+
+def test_turn_rule_mirrors_the_kernel():
+    """The Python mirror of the launcher's rule holds the kernel's own
+    constants: the turn's sweeps and the queue's counters before its
+    entries."""
+    import re
+
+    src = (pathlib.Path(cuda_stream.__file__).parent.parent / "csrc" / "bp_stream.cu").read_text()
+    assert int(re.search(r"constexpr int kTurnSweeps = (\d+);", src)[1]) == cuda_stream.TURN_SWEEPS
+    assert int(re.search(r"constexpr int kQueue = (\d+);", src)[1]) == cuda_stream.QUEUE_COUNTERS
+
+
+def test_workspace_per_device_and_stream(monkeypatch):
+    """The turn queue's workspace: zeros when made, kept for its (device,
+    stream), made anew and larger when a launch needs more entries, and
+    another stream's its own."""
+    monkeypatch.setattr(cuda_stream, "_workspaces", {})
+    n = cuda_stream.QUEUE_COUNTERS
+    a = cuda_stream.workspace("cpu", 0, 10)
+    assert a.dtype == torch.int32 and a.numel() == n + 10 and not a.any()
+    assert cuda_stream.workspace("cpu", 0, 4) is a
+    other = cuda_stream.workspace("cpu", 7, 4)
+    assert other is not a and other.numel() == n + 4
+    b = cuda_stream.workspace("cpu", 0, 20)
+    assert b is not a and b.numel() == n + 20 and not b.any()
+    assert cuda_stream.workspace("cpu", 0, 10) is b
+
+
 class FakeLib:
     """Records the kernel library's calls (the library needs a card)."""
 
@@ -521,20 +656,24 @@ def _launch_inputs(msg_dtype="bfloat16", algorithm="min-sum"):
 def test_launch_passes_the_plan_to_the_kernel(monkeypatch):
     """cuda_stream.launch hands ldpc_bp_stream the arguments its ctypes
     signature declares: the plan's tables and sizes, padded scratches of
-    the kernel's layouts, the mode flags, the stream and (no profiler
-    recording) a null phase counter."""
+    the kernel's layouts, the mode flags, the stream, (no profiler
+    recording) a null phase counter, and the stream's turn queue
+    workspace with the entries the batch's turns need."""
     lib = FakeLib()
     monkeypatch.setattr(cuda_stream._build, "load", lambda: lib)
     code, cfg, llr, outs = _launch_inputs()
     cuda_stream.launch("ldpc_bp_stream", cuda_stream.launch_args(code, cfg, llr, *outs, None, 0))
     (name, args), = lib.calls
     argtypes, _ = cuda_stream._build._SIGNATURES[name]
-    assert name == "ldpc_bp_stream" and len(args) == len(argtypes) == 33
+    assert name == "ldpc_bp_stream" and len(args) == len(argtypes) == 35
     plan = cuda_stream.stage_plan(code)
     assert args[16:31] == (2, code.n_b, code.z, code.m_b, code.num_blocks, plan.total_cols,
                            plan.max_cols, 1, cuda_stream.group_slots(code),
                            code.max_row_degree, cfg.max_iters, 1, 1, 0, 1)
     assert args[5] is None and args[31] == 0 and args[32] is None
+    entries = cuda_stream.queue_entries(2, cfg.max_iters)
+    assert args[33] == cuda_stream.workspace(llr.device, 0, entries).data_ptr()
+    assert args[34] == entries
 
 
 @pytest.mark.parametrize("recording,algorithm,clocked", [
@@ -554,7 +693,7 @@ def test_launch_passes_the_phase_counter_while_a_profiler_records(
     if clocked:
         counter = cuda_stream.phase_counter(llr.device)
         assert args[32] == counter.data_ptr()
-        assert counter.dtype == torch.int64 and counter.tolist() == [0] * 6
+        assert counter.dtype == torch.int64 and counter.tolist() == [0] * 7
     else:
         assert args[32] is None and cuda_stream._phase_counters == {}
 
@@ -587,7 +726,7 @@ def test_trace_writes_the_stream_phases_beside_the_trace(monkeypatch, tmp_path):
 
     def call(*args):  # the clocked kernel's additions, on the CPU
         if args[32] is not None:
-            cuda_stream.phase_counter("cpu").add_(torch.tensor([10, 20, 30, 4, 70, 2]))
+            cuda_stream.phase_counter("cpu").add_(torch.tensor([10, 20, 30, 4, 70, 2, 1]))
         return 0
     monkeypatch.setattr(cuda_stream._build, "load",
                         lambda: types.SimpleNamespace(ldpc_bp_stream=call))
@@ -612,10 +751,11 @@ def test_trace_writes_the_stream_phases_beside_the_trace(monkeypatch, tmp_path):
         line = json.loads((tmp_path / sub / names[0]).read_text())
         cycles = {"stage": 10 * times, "pass1": 20 * times, "pass2": 30 * times,
                   "sweep_end": 4 * times, "resident": 70 * times}
-        assert line == {"cycles": cycles, "sweeps": 2 * times,
+        assert line == {"cycles": cycles, "sweeps": 2 * times, "turns": times,
                         "per_frame_sweep": {k: v / (2 * times) for k, v in cycles.items()}}
     assert cuda_stream.phase_cycles() == {"stage": 30, "pass1": 60, "pass2": 90,
-                                          "sweep_end": 12, "resident": 210, "sweeps": 6}
+                                          "sweep_end": 12, "resident": 210, "sweeps": 6,
+                                          "turns": 3}
 
 
 def test_blocks_per_sm_of_the_global_placement_asks_bp_stream(monkeypatch):
