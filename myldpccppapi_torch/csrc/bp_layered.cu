@@ -90,8 +90,9 @@
 //
 // THE GROUP (a template parameter, XOR): block e aligns row r with
 // variable j*z + (r + s) mod z (cyclic) or j*z + (r ^ s) (xor; z is a
-// power of two, so r ^ s < z).  The build compiles this file twice, side
-// by side (BP_LAYERED_PART 1: cyclic and the exported functions; 2: xor).
+// power of two, so r ^ s < z).  The build compiles this file three times,
+// side by side (BP_LAYERED_PART 1: cyclic and the exported functions; 2:
+// xor; 3: the slot clocks' instantiations).
 //
 // State per codeword in shared memory: the posterior P [n], the messages
 // (records [m_b][record words][z] or, sum-product, R [num_blocks][z]); the
@@ -131,6 +132,22 @@
 // delta, each flooding rebuild add, and SCMS's next q round to bf16 (to
 // nearest even, as torch's .to(bfloat16)); the check update computes in
 // f32 on the upcast q and rounds r_new (_check_update_rows, :177-182).
+//
+// SLOT CLOCKS (a template parameter, CLOCKED: the layered min-sum
+// instantiations of the cyclic group without multi-edge cells, f32 and
+// bf16, narrow and wide; the library runs them when the caller passes a
+// slot counter).  The same sweep, with thread 0 of each block reading
+// %globaltimer at the block's entry and, after a last barrier, at its exit,
+// and adding to the counter, int64 [kClockSlots] on the device: the block's
+// resident ns, its block-sweeps (sweeps run times the tile) and one block;
+// the thread that writes a codeword's iteration count adds it to the
+// frame-sweeps.  The last block to leave a launch adds the launch's slot-ns,
+// the slots the host passes (SMs x resident blocks at the launch's tile)
+// times the span from the first block's entry to the last one's exit, and
+// one launch, and returns the counter's three scratch slots (first entry,
+// last exit, blocks left) to their idle values.  ops/cuda_bp.py::
+// fold_slot_clocks is the same fold on the host.  The unclocked
+// instantiations compile as before.
 
 #include <cstddef>
 #include <cstdint>
@@ -174,6 +191,18 @@ constexpr int kShiftMask = (1 << kShiftBits) - 1;
 // 9..19, its position within its row from bit 20
 constexpr int kEdgeBits = 9;
 constexpr int kLayerBits = 11;
+// the slot counter's slots (ops/cuda_bp.py::SLOT_CLOCKS), then its scratch:
+// the launch's first entry (idle: all ones), last exit and blocks left
+// (idle: 0)
+constexpr int kResidentNs = 0;
+constexpr int kSlotNs = 1;
+constexpr int kFrameSweeps = 2;
+constexpr int kBlockSweeps = 3;
+constexpr int kBlocks = 4;
+constexpr int kLaunches = 5;
+constexpr int kFirstEntry = 6;
+constexpr int kLastExit = 7;
+constexpr int kBlocksLeft = 8;
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) / 16 * 16; }
 
@@ -239,11 +268,48 @@ struct Params {
   const float* beta;
   int batch, n_b, z, m_b, num_blocks, group_slots, max_deg, log_lanes, tile;
   int max_iters, early_exit;
+  // the clocked instantiations' counter and the launch's slots
+  unsigned long long* slot_clocks;
+  int slots;
 };
 
-template <typename T, int K, bool FLOODING, bool SUM_PRODUCT, bool SCMS, bool XOR, bool MULTI>
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Thread 0 of a clocked block, at its exit: the block's slot clocks, and
+// in the launch's last block out the launch's slot-ns and its launch.
+__device__ void add_slot_clocks(unsigned long long* k, int slots, unsigned long long entry,
+                                int sweeps, int tile) {
+  const unsigned long long exit = global_ns();
+  atomicAdd(k + kResidentNs, exit - entry);
+  atomicAdd(k + kBlockSweeps, (unsigned long long)sweeps * tile);
+  atomicAdd(k + kBlocks, 1ull);
+  atomicMin(k + kFirstEntry, entry);
+  atomicMax(k + kLastExit, exit);
+  __threadfence();
+  if (atomicAdd(k + kBlocksLeft, 1ull) == gridDim.x - 1) {
+    __threadfence();
+    const unsigned long long first = atomicExch(k + kFirstEntry, ~0ull);
+    const unsigned long long last = atomicExch(k + kLastExit, 0ull);
+    atomicAdd(k + kSlotNs, (unsigned long long)slots * (last - first));
+    atomicAdd(k + kLaunches, 1ull);
+    atomicExch(k + kBlocksLeft, 0ull);
+  }
+}
+
+template <typename T, int K, bool FLOODING, bool SUM_PRODUCT, bool SCMS, bool XOR, bool MULTI,
+          bool CLOCKED = false>
 __global__ void __launch_bounds__(max_threads(K)) bp_layered_kernel(const Params p) {
+  static_assert(!CLOCKED || !(FLOODING || SUM_PRODUCT || SCMS || XOR || MULTI),
+                "the clocks are layered min-sum's, cyclic, without multi-edge cells");
   extern __shared__ __align__(16) char smem[];
+  [[maybe_unused]] unsigned long long entry_ns = 0;
+  if constexpr (CLOCKED) {
+    if (threadIdx.x == 0) entry_ns = global_ns();
+  }
   constexpr int mode = (FLOODING ? kFlooding : 0) | (SUM_PRODUCT ? kSumProduct : 0) |
                        (SCMS ? kScms : 0);
   constexpr int kValueWords = value_words<T>();
@@ -613,9 +679,14 @@ __global__ void __launch_bounds__(max_threads(K)) bp_layered_kernel(const Params
     if (r == 0 && lane == 0) {
       p.converged[b] = done;
       p.iterations[b] = it;
+      if constexpr (CLOCKED) atomicAdd(p.slot_clocks + kFrameSweeps, (unsigned long long)it);
     }
   }
   if (tid == 0) p.executed[blockIdx.x] = t;
+  if constexpr (CLOCKED) {
+    __syncthreads();  // the block's outputs are written: its exit
+    if (tid == 0) add_slot_clocks(p.slot_clocks, p.slots, entry_ns, t, tile);
+  }
 }
 
 using KernelFn = void (*)(const Params);
@@ -649,16 +720,24 @@ template <typename T, bool XOR>
 KernelFn instance(int mode, bool multi, bool wide) {
   return wide ? instance<T, kWide, XOR>(mode, multi) : instance<T, kNarrow, XOR>(mode, multi);
 }
+// The clocked layered min-sum instantiation (cyclic, no multi-edge cells).
+template <typename T>
+KernelFn clocked_instance(bool wide) {
+  return wide ? bp_layered_kernel<T, kWide, false, false, false, false, false, true>
+              : bp_layered_kernel<T, kNarrow, false, false, false, false, false, true>;
+}
 
 }  // namespace
 
-// The build compiles this file twice, side by side, with BP_LAYERED_PART
-// = 1 (the cyclic group's twenty-eight instantiations, eight of them the
-// layered modes' multi-edge ones, and the exported functions) and 2 (the
-// xor group's twenty); without BP_LAYERED_PART one object holds all
-// forty-eight.  The parts meet in these two functions.
+// The build compiles this file three times, side by side, with
+// BP_LAYERED_PART = 1 (the cyclic group's twenty-eight instantiations,
+// eight of them the layered modes' multi-edge ones, and the exported
+// functions), 2 (the xor group's twenty) and 3 (the four clocked ones);
+// without BP_LAYERED_PART one object holds all fifty-two.  The parts meet
+// in these three functions.
 KernelFn bp_layered_cyclic(int mode, bool bf16, bool multi, bool wide);
 KernelFn bp_layered_xor(int mode, bool bf16, bool multi, bool wide);
+KernelFn bp_layered_clocked(bool bf16, bool wide);
 
 #if !defined(BP_LAYERED_PART) || BP_LAYERED_PART == 1
 KernelFn bp_layered_cyclic(int mode, bool bf16, bool multi, bool wide) {
@@ -673,6 +752,12 @@ KernelFn bp_layered_xor(int mode, bool bf16, bool multi, bool wide) {
 }
 #endif
 
+#if !defined(BP_LAYERED_PART) || BP_LAYERED_PART == 3
+KernelFn bp_layered_clocked(bool bf16, bool wide) {
+  return bf16 ? clocked_instance<__nv_bfloat16>(wide) : clocked_instance<float>(wide);
+}
+#endif
+
 #if !defined(BP_LAYERED_PART) || BP_LAYERED_PART == 1
 namespace {
 
@@ -683,9 +768,10 @@ int block_threads(int z, int lanes, int tile) { return (z * lanes * tile + 31) /
 // power of two up to kMaxLanes that leaves each lane at most kNarrow
 // edges of the widest row (the narrow instantiation) or at most kWide (the
 // wide one), rows of at most kMaxDeg edges, a block of at most the
-// instantiation's threads.
+// instantiation's threads; clocked where asked and such an instantiation
+// exists (layered min-sum, cyclic, no multi-edge cells).
 KernelFn pick(int z, int max_deg, int mode, bool bf16, bool xor_group, int group_slots,
-              int lanes, int tile) {
+              int lanes, int tile, bool clocked) {
   const bool wide = max_deg > lanes * kNarrow;
   if (lanes < 1 || lanes > kMaxLanes || (lanes & (lanes - 1)) != 0 ||
       max_deg > lanes * kWide || max_deg > kMaxDeg || tile < 1 ||
@@ -693,6 +779,7 @@ KernelFn pick(int z, int max_deg, int mode, bool bf16, bool xor_group, int group
     return nullptr;
   }
   const bool multi = group_slots > 0;
+  if (clocked && mode == 0 && !xor_group && !multi) return bp_layered_clocked(bf16, wide);
   return xor_group ? bp_layered_xor(mode, bf16, multi, wide)
                    : bp_layered_cyclic(mode, bf16, multi, wide);
 }
@@ -719,17 +806,26 @@ extern "C" {
 // max_deg is the widest row (at most 64), lanes the lanes per row (a power
 // of two: max_deg <= 4 lanes takes the narrow instantiation, up to 1024
 // threads a block; max_deg <= 8 lanes the wide one, up to 512), tile the
-// codewords per block (z * lanes * tile threads at most).  Launches on `stream` and returns cudaGetLastError() (0 on
-// success; cudaErrorInvalidValue for a launch it does not serve).
+// codewords per block (z * lanes * tile threads at most).  Unless
+// slot_clocks is null, a layered min-sum decode of a cyclic code without
+// multi-edge cells runs the clocked instantiation, which adds its slot
+// clocks to slot_clocks, int64 [9] on the device (resident ns, slot-ns,
+// frame-sweeps, block-sweeps, blocks, launches; then its scratch: all ones,
+// 0, 0 when idle, and the kernel leaves it so), with `slots` the launch's
+// slots (SMs x resident blocks at this tile); other decodes run unclocked
+// and leave it as it was.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success; cudaErrorInvalidValue for a launch it
+// does not serve).
 int ldpc_bp_layered(const void* llr, uint8_t* bits, uint8_t* converged,
                     int32_t* iterations, int32_t* executed, void* post_out,
                     const int32_t* edge, const int32_t* layer_ptr, const int32_t* col_ptr,
                     const int32_t* col_edge, const int32_t* cell, const float* alpha,
                     const float* beta, int batch, int n_b, int z, int m_b, int num_blocks,
                     int group_slots, int max_deg, int lanes, int tile, int max_iters,
-                    int early_exit, int mode, int bf16, int xor_group, void* stream) {
-  const KernelFn kernel =
-      pick(z, max_deg, mode, bf16 != 0, xor_group != 0, group_slots, lanes, tile);
+                    int early_exit, int mode, int bf16, int xor_group, void* stream,
+                    unsigned long long* slot_clocks, int slots) {
+  const KernelFn kernel = pick(z, max_deg, mode, bf16 != 0, xor_group != 0, group_slots,
+                               lanes, tile, slot_clocks != nullptr);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = layout(n_b * z, z, m_b, num_blocks, group_slots, max_deg, mode, tile,
                              bf16 ? 2 : 4).total;
@@ -741,7 +837,7 @@ int ldpc_bp_layered(const void* llr, uint8_t* bits, uint8_t* converged,
   const Params params{llr, bits, converged, iterations, executed, post_out, edge,
                       layer_ptr, col_ptr, col_edge, cell, alpha, beta, batch, n_b, z,
                       m_b, num_blocks, group_slots, max_deg, log_lanes, tile,
-                      max_iters, early_exit};
+                      max_iters, early_exit, slot_clocks, slots};
   const int grid = (batch + tile - 1) / tile;
   const int threads = block_threads(z, lanes, tile);
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(params);
@@ -755,8 +851,8 @@ int ldpc_bp_layered(const void* llr, uint8_t* bits, uint8_t* converged,
 int ldpc_bp_layered_blocks_per_sm(int n, int z, int m_b, int num_blocks, int group_slots,
                                   int max_deg, int mode, int itemsize, int xor_group,
                                   int lanes, int tile, int device) {
-  const KernelFn kernel =
-      pick(z, max_deg, mode, itemsize == 2, xor_group != 0, group_slots, lanes, tile);
+  const KernelFn kernel = pick(z, max_deg, mode, itemsize == 2, xor_group != 0, group_slots,
+                               lanes, tile, false);
   if (kernel == nullptr) return 0;
   const size_t smem =
       layout(n, z, m_b, num_blocks, group_slots, max_deg, mode, tile, itemsize).total;

@@ -2,8 +2,8 @@
 
 The sources have a plain ``extern "C"`` interface and include no PyTorch
 header, so ``nvcc`` compiles each in seconds; :func:`build` starts one
-``nvcc`` per object, all together (``bp_layered.cu`` as two objects, its
-cyclic and xor groups; ``bp_long.cu`` and ``bp_stream.cu`` as four each,
+``nvcc`` per object, all together (``bp_layered.cu`` as three objects, its
+cyclic and xor groups and its clocked instantiations; ``bp_long.cu`` and ``bp_stream.cu`` as four each,
 their f32 and bf16 min-sum and sum-product instantiations; ``op_rate.cu``),
 and links the objects into one shared library that :mod:`ctypes` loads.
 The decode kernels' objects (``bp_layered.cu``, ``bp_long.cu``,
@@ -38,13 +38,13 @@ SOURCES = ("bp_layered.cu", "bp_long.cu", "bp_stream.cu", "op_rate.cu")
 #: the headers they include from csrc
 HEADERS = ("async_copy.cuh", "phi.cuh", "record.cuh", "storage.cuh")
 #: the objects, (source, its own flags), each compiled by its own nvcc
-#: process: bp_layered.cu's two parts (BP_LAYERED_PART: the cyclic and the
-#: xor group's instantiations), bp_long.cu's four (BP_LONG_PART: its f32
+#: process: bp_layered.cu's three parts (BP_LAYERED_PART: the cyclic and the
+#: xor group's instantiations, and the clocked ones), bp_long.cu's four (BP_LONG_PART: its f32
 #: and bf16 min-sum and sum-product instantiations) and bp_stream.cu's four
 #: (BP_STREAM_PART, the same split) take comparable times, so the build
 #: takes the longest one
 _OBJECTS = (*(("bp_layered.cu", (f"-DBP_LAYERED_PART={part}", "-Xptxas", "-v"))
-              for part in (1, 2)),
+              for part in (1, 2, 3)),
             *(("bp_long.cu", (f"-DBP_LONG_PART={part}", "-Xptxas", "-v"))
               for part in (1, 2, 3, 4)),
             *(("bp_stream.cu", (f"-DBP_STREAM_PART={part}", "-Xptxas", "-v"))
@@ -62,8 +62,9 @@ _I = ctypes.c_int
 #: C signatures: (argtypes, restype) per exported function
 _SIGNATURES = {
     # thirteen tensors (the posterior output may be null), fourteen ints,
-    # the stream
-    "ldpc_bp_layered": ([_P] * 13 + [_I] * 14 + [_P], _I),
+    # the stream, the slot counter (null: the unclocked kernel) and the
+    # launch's slots
+    "ldpc_bp_layered": ([_P] * 13 + [_I] * 14 + [_P] * 2 + [_I], _I),
     # sixteen tensors (the posterior output may be null), fifteen ints, the
     # stream, the phase counter (null: the unclocked kernel), the turn
     # queue's workspace and its entries

@@ -35,6 +35,28 @@ those with soft output, ``decode_qc_cuda.bf16_launches`` those with bf16
 messages, ``decode_qc_cuda.xor_launches`` those on an xor-group code and
 ``decode_qc_cuda.multi_edge_launches`` those on a code with multi-edge
 cells.
+
+While a torch profiler records, a CUDA decode shows as three consecutive
+spans (``utils.profiling.span``): ``myldpc.short.prepare`` (checks,
+``supported()``, the tile, outputs, the cast, tables, the argument list),
+``myldpc.short.launch`` (the library call) and ``myldpc.short.finish``
+(counters, ``executed.max()``, the result).
+
+**The slot clocks** (:func:`slot_counter`, :func:`slot_clocks`,
+:func:`fold_slot_clocks`).  While a torch profiler records
+(``utils.profiling.recording``), a layered min-sum launch on a cyclic code
+without multi-edge cells (:func:`clocked`) passes its device and stream's
+slot counter and the launch's slots (SMs times the blocks of its tile
+that one SM holds), and the library runs the kernel's clocked
+instantiation: thread 0 of each block reads ``%globaltimer`` at the
+block's entry and exit, and the counter sums, over every clocked launch,
+each block's resident ns, each launch's slot-ns (its slots times the span
+from its first block's entry to its last block's exit), the frame-sweeps
+(the codewords' iterations), the block-sweeps (each block's sweeps times
+the tile), the blocks and the launches (:data:`SLOT_CLOCKS`).  Resident ns
+over slot-ns is the share of the card's block slots that the launches kept
+busy.  The counter lives on the device and no launch reads it back;
+otherwise the launch passes null and runs the unclocked kernel.
 """
 from __future__ import annotations
 
@@ -47,12 +69,14 @@ from ..codes.qc import QCCode
 from ..codes.rs_ldpc import RSLDPCCode
 from ..utils.config import DecoderConfig
 from ..utils.device import cuda_index
+from ..utils.profiling import recording, span
 from . import _build
 from .bp import DecodeResult, decode_qc, layer_weights, msg_dtype, weights_mode
 from .cuda_long import MIN_Z as _LONG_MIN_Z
 
-__all__ = ["REQUIREMENTS", "choose_tile", "decode_qc_cuda", "decode_qc_cuda_plain",
-           "lanes", "mode", "supported", "tile_size"]
+__all__ = ["REQUIREMENTS", "SLOT_CLOCKS", "choose_tile", "clocked", "decode_qc_cuda",
+           "decode_qc_cuda_plain", "fold_slot_clocks", "lanes", "launch_args", "mode",
+           "slot_clocks", "slot_counter", "supported", "tile_size"]
 
 #: the TPU kernels' split (pallas_bp._DYN_BLOCK_THRESHOLD): up to this many
 #: circulants kernel A's statically unrolled body, above it kernel B's
@@ -74,6 +98,14 @@ _NARROW_THREADS = 128
 #: bit fields of the kernel's tables: an edge word is col * z << 10 |
 #: shift; a flooding column-list word block | layer << 9 | position << 20
 _SHIFT_BITS, _EDGE_BITS, _LAYER_BITS = 10, 9, 11
+#: the slot counter's slots, in the kernel's order (csrc/bp_layered.cu)
+SLOT_CLOCKS = ("resident_ns", "slot_ns", "frame_sweeps", "block_sweeps", "blocks",
+               "launches")
+#: the counter's scratch after them, at its idle values: the launch's first
+#: entry (all ones, the identity of its min), last exit and blocks left
+_SLOT_SCRATCH = (-1, 0, 0)
+#: each (device, stream)'s slot counter, int64 [len(SLOT_CLOCKS) + 3]
+_slot_counters: dict = {}
 #: what :func:`supported` asks of a code and a config, for error messages
 REQUIREMENTS = (
     "an unmasked QCCode or an RSLDPCCode whose codeword state (posterior "
@@ -313,25 +345,107 @@ def decode_qc_cuda(code, cfg: DecoderConfig,
         raise ValueError(f"expected float32 llr, got {llr.dtype}")
     if llr.device.type == "cpu":
         return decode_qc_cuda_plain(code, cfg, llr)
-    if llr.device.type != "cuda":
-        raise ValueError(f"unsupported device {llr.device}")
-    if not llr.is_contiguous():
-        raise ValueError("llr must be contiguous")
-    if not supported(code, cfg, llr.device):
-        raise ValueError(
-            f"the CUDA short-code kernel does not serve {code.name} under "
-            f"this config: it needs {REQUIREMENTS}"
-        )
-    tile = tile_size(code, llr.device.index, llr.shape[0], mode(cfg),
-                     msg_dtype(cfg).itemsize)
-    return _launch(code, cfg, llr, tile)
+    with span("short.prepare"):
+        if llr.device.type != "cuda":
+            raise ValueError(f"unsupported device {llr.device}")
+        if not llr.is_contiguous():
+            raise ValueError("llr must be contiguous")
+        if not supported(code, cfg, llr.device):
+            raise ValueError(
+                f"the CUDA short-code kernel does not serve {code.name} under "
+                f"this config: it needs {REQUIREMENTS}"
+            )
+        tile = tile_size(code, llr.device.index, llr.shape[0], mode(cfg),
+                         msg_dtype(cfg).itemsize)
+        result, args = _prepare(code, cfg, llr, tile)
+    return _run(code, cfg, result, args)
 
 
-def _launch(code, cfg: DecoderConfig, llr: torch.Tensor,
-            tile: int) -> DecodeResult:
-    """Launch the kernel on a checked, contiguous CUDA ``llr`` with ``tile``
-    codewords per thread block (any tile that fits gives the same
-    result)."""
+def clocked(code, cfg: DecoderConfig) -> bool:
+    """True where the kernel has a clocked instantiation: layered min-sum
+    on a cyclic code without multi-edge cells (f32 or bf16)."""
+    return mode(cfg) == 0 and not _xor(code) and group_slots(code) == 0
+
+
+def slot_counter(device, stream: int) -> torch.Tensor:
+    """The slot counter of ``device`` and ``stream`` (int64 [len(SLOT_CLOCKS)
+    + 3]: zeros, then the scratch at its idle values, when made): made at
+    its first use, then kept for the process.  Each stream has its own, so
+    that launches in flight together never share a launch's scratch."""
+    key = (torch.device(device), stream)
+    counter = _slot_counters.get(key)
+    if counter is None:
+        counter = torch.tensor((0,) * len(SLOT_CLOCKS) + _SLOT_SCRATCH, dtype=torch.int64,
+                               device=key[0])
+        _slot_counters[key] = counter
+    return counter
+
+
+def slot_clocks() -> "dict | None":
+    """What the slot counters hold, summed over the devices and streams:
+    {slot of :data:`SLOT_CLOCKS`: int}; None while no counter exists.
+    Reading waits for each device's queued work."""
+    if not _slot_counters:
+        return None
+    total = sum(c[:len(SLOT_CLOCKS)].cpu() for c in _slot_counters.values())
+    return dict(zip(SLOT_CLOCKS, total.tolist()))
+
+
+def fold_slot_clocks(entry_ns, exit_ns, tile: int, executed, iterations,
+                     slots: int) -> dict:
+    """What one clocked launch adds to the slot counter, from each block's
+    entry and exit times (ns), the tile, each block's sweeps (``executed``),
+    each codeword's iterations and the launch's slots: the kernel's own
+    fold (csrc/bp_layered.cu, ``add_slot_clocks``), on the host."""
+    entry = np.asarray(entry_ns, dtype=np.int64)
+    leave = np.asarray(exit_ns, dtype=np.int64)
+    return {"resident_ns": int((leave - entry).sum()),
+            "slot_ns": int(slots) * int(leave.max() - entry.min()),
+            "frame_sweeps": int(np.asarray(iterations, dtype=np.int64).sum()),
+            "block_sweeps": int(np.asarray(executed, dtype=np.int64).sum()) * int(tile),
+            "blocks": int(entry.size), "launches": 1}
+
+
+def _slots(code, cfg: DecoderConfig, device, tile: int) -> int:
+    """The launch's slots: the device's SMs times the blocks of ``tile``
+    codewords that one SM holds in ``cfg``'s mode."""
+    index = cuda_index(device)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * _blocks_per_sm(code, index, mode(cfg), msg_dtype(cfg).itemsize)[tile - 1]
+
+
+def launch_args(code, cfg: DecoderConfig, llr_k: torch.Tensor, bits, conv, iters,
+                executed, post, tile: int, stream: int) -> tuple:
+    """The arguments of the library's ``ldpc_bp_layered`` for a decode of
+    ``llr_k`` (in the message dtype) into outputs the caller has checked and
+    allocated, ``tile`` codewords a block, on ``stream``.  Last come the
+    device and stream's slot counter while a profiler records and the
+    decode has a clocked instantiation (else None) and the launch's slots
+    (else 0)."""
+    dev = llr_k.device
+    edge, ptr, col_ptr, col_edge, cell, alpha, beta = _device_tables(
+        code, cfg.normalization, cfg.offset, dev)
+    clock = recording() and clocked(code, cfg)
+    return (
+        llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
+        executed.data_ptr(), None if post is None else post.data_ptr(),
+        edge.data_ptr(), ptr.data_ptr(), col_ptr.data_ptr(), col_edge.data_ptr(),
+        cell.data_ptr(), alpha.data_ptr(), beta.data_ptr(), llr_k.shape[0], code.n_b,
+        code.z, code.m_b, code.num_blocks, group_slots(code),
+        code.max_row_degree, lanes(code), tile, cfg.max_iters,
+        int(cfg.early_exit), mode(cfg), int(llr_k.dtype == torch.bfloat16),
+        int(_xor(code)), stream,
+        slot_counter(dev, stream).data_ptr() if clock else None,
+        _slots(code, cfg, dev, tile) if clock else 0,
+    )
+
+
+def _prepare(code, cfg: DecoderConfig, llr: torch.Tensor, tile: int):
+    """A launch on a checked, contiguous CUDA ``llr`` with ``tile``
+    codewords per thread block: (result, args), the DecodeResult of its
+    outputs with each block's sweep count (``executed``) for
+    ``total_iters``, and the library call's arguments; args None for an
+    empty batch, whose result is final."""
     batch = llr.shape[0]
     dev = llr.device
     dt = msg_dtype(cfg)
@@ -343,33 +457,45 @@ def _launch(code, cfg: DecoderConfig, llr: torch.Tensor,
     if batch == 0:
         return DecodeResult(bits, conv, iters,
                             torch.zeros((), dtype=torch.int32, device=dev),
-                            posteriors=post)
+                            posteriors=post), None
     llr_k = llr.to(dt)  # bf16: cast on the card (the reference casts first)
     executed = torch.empty(((batch + tile - 1) // tile,), dtype=torch.int32,
                            device=dev)
-    edge, ptr, col_ptr, col_edge, cell, alpha, beta = _device_tables(
-        code, cfg.normalization, cfg.offset, dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ldpc_bp_layered(
-            llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-            executed.data_ptr(), None if post is None else post.data_ptr(),
-            edge.data_ptr(), ptr.data_ptr(), col_ptr.data_ptr(), col_edge.data_ptr(),
-            cell.data_ptr(), alpha.data_ptr(), beta.data_ptr(), batch, code.n_b,
-            code.z, code.m_b, code.num_blocks, group_slots(code),
-            code.max_row_degree, lanes(code), tile, cfg.max_iters,
-            int(cfg.early_exit), mode(cfg), int(dt == torch.bfloat16),
-            int(_xor(code)), stream,
-        )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return (DecodeResult(bits, conv, iters, executed, posteriors=post),
+            launch_args(code, cfg, llr_k, bits, conv, iters, executed, post, tile, stream))
+
+
+def _run(code, cfg: DecoderConfig, result: DecodeResult, args) -> DecodeResult:
+    """Make the library call of :func:`_prepare`'s launch inside the
+    ``myldpc.short.launch`` span, then count it and return its result
+    (``total_iters`` the largest block sweep count) inside
+    ``myldpc.short.finish``; raises if the launch fails."""
+    if args is None:
+        return result
+    with torch.cuda.device(result.bits.device):
+        with span("short.launch"):
+            err = _build.load().ldpc_bp_layered(*args)
     if err != 0:
         raise RuntimeError(f"bp_layered kernel launch failed: CUDA error {err}")
-    decode_qc_cuda.launches += 1
-    decode_qc_cuda.soft_launches += post is not None
-    decode_qc_cuda.bf16_launches += dt == torch.bfloat16
-    decode_qc_cuda.xor_launches += _xor(code)
-    decode_qc_cuda.multi_edge_launches += group_slots(code) > 0
-    return DecodeResult(bits, conv, iters, executed.max(), posteriors=post)
+    with span("short.finish"):
+        decode_qc_cuda.launches += 1
+        decode_qc_cuda.soft_launches += result.posteriors is not None
+        decode_qc_cuda.bf16_launches += cfg.msg_dtype == "bfloat16"
+        decode_qc_cuda.xor_launches += _xor(code)
+        decode_qc_cuda.multi_edge_launches += group_slots(code) > 0
+        return DecodeResult(result.bits, result.converged, result.iterations,
+                            result.total_iters.max(), posteriors=result.posteriors)
+
+
+def _launch(code, cfg: DecoderConfig, llr: torch.Tensor,
+            tile: int) -> DecodeResult:
+    """Launch the kernel on a checked, contiguous CUDA ``llr`` with ``tile``
+    codewords per thread block (any tile that fits gives the same
+    result)."""
+    with span("short.prepare"):
+        result, args = _prepare(code, cfg, llr, tile)
+    return _run(code, cfg, result, args)
 
 
 decode_qc_cuda.launches = 0

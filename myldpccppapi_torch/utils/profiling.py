@@ -10,9 +10,9 @@ trace, where the reference captures a ``jax.profiler`` trace.
 The program's own tracing lives only while a torch profiler records
 (:func:`recording`), inside :func:`trace` or any ``torch.profiler.profile``
 block: :func:`span` ranges named ``myldpc.*`` at its layer boundaries,
-on the profiler's clock beside the device's activity, and the stream
-kernel's phase clocks (``ops/cuda_stream.py``).  Otherwise each costs a
-flag read.
+on the profiler's clock beside the device's activity, the stream kernel's
+phase clocks (``ops/cuda_stream.py``) and the short-code kernel's slot
+clocks (``ops/cuda_bp.py``).  Otherwise each costs a flag read.
 """
 from __future__ import annotations
 
@@ -38,7 +38,8 @@ _Range = torch._C._profiler._RecordFunctionFast
 
 def recording() -> bool:
     """True while a torch profiler records: the switch of the program's
-    spans and of the stream kernel's phase clocks."""
+    spans, of the stream kernel's phase clocks and of the short-code
+    kernel's slot clocks."""
     return _autograd_profiler._is_profiler_enabled
 
 

@@ -1,0 +1,197 @@
+"""Kernel A's slot clocks (``ops/cuda_bp.py``, ``csrc/bp_layered.cu``) on the
+CPU: the fold of a launch's per-block entry and exit times, tile, sweeps
+and iterations into the counter's slots, pinned on hand-made launches; the
+counter and its pointer go to the library only while a profiler records a
+decode that has a clocked instantiation; the library call lies inside the
+``myldpc.short.launch`` span; and the benchmark's reader of the slots finds
+nothing where no counter exists.  The kernel itself runs on the card only
+(``portbench/tests/test_portbench_wifi_card.py``).
+
+About 6 s alone, on one thread."""
+import contextlib
+import types
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from myldpccppapi_torch.codes import wifi, wimax
+from myldpccppapi_torch.codes.rs_ldpc import rs_ldpc
+from myldpccppapi_torch.ops import cuda_bp
+from myldpccppapi_torch.utils.config import DecoderConfig
+
+torch.set_num_threads(1)
+
+
+def _occupancy(got):
+    return 100.0 * got["resident_ns"] / got["slot_ns"]
+
+
+def test_fold_one_wave():
+    """Four blocks on four slots, each resident for the whole launch: every
+    slot busy."""
+    got = cuda_bp.fold_slot_clocks([100, 100, 100, 100], [900, 900, 900, 900], 1,
+                                   [5, 5, 5, 5], [3, 5, 4, 2], slots=4)
+    assert got == {"resident_ns": 3200, "slot_ns": 3200, "frame_sweeps": 14,
+                   "block_sweeps": 20, "blocks": 4, "launches": 1}
+    assert _occupancy(got) == 100.0
+
+
+def test_fold_lone_straggler_in_the_last_wave():
+    """Two slots, a second wave whose last block runs 40 sweeps alone on
+    the emptied card: the share of slot-time it leaves idle."""
+    entry = [0, 0, 10, 12]
+    leave = [10, 12, 20, 100]
+    got = cuda_bp.fold_slot_clocks(entry, leave, 1, [4, 5, 4, 40], [4, 5, 4, 40], slots=2)
+    assert got["resident_ns"] == 10 + 12 + 10 + 88
+    assert got["slot_ns"] == 2 * 100
+    assert _occupancy(got) == pytest.approx(60.0)
+    assert got["frame_sweeps"] == got["block_sweeps"] == 53
+
+
+def test_fold_partial_last_tile():
+    """Five codewords in tiles of two: the last block holds one codeword
+    and a ghost, and counts its sweeps for both slots of its tile; the
+    frame-sweeps count the five codewords."""
+    got = cuda_bp.fold_slot_clocks([5, 7, 9], [25, 27, 19], 2, [3, 4, 2], [3, 2, 4, 1, 2],
+                                   slots=3)
+    assert got == {"resident_ns": 20 + 20 + 10, "slot_ns": 3 * (27 - 5),
+                   "frame_sweeps": 12, "block_sweeps": 18, "blocks": 3, "launches": 1}
+
+
+def test_slot_clocks_is_none_before_any_clocked_launch(monkeypatch):
+    monkeypatch.setattr(cuda_bp, "_slot_counters", {})
+    assert cuda_bp.slot_clocks() is None
+
+
+def test_slot_counter_starts_idle_and_sums_over_streams(monkeypatch):
+    monkeypatch.setattr(cuda_bp, "_slot_counters", {})
+    a = cuda_bp.slot_counter("cpu", 0)
+    assert a is cuda_bp.slot_counter("cpu", 0)
+    assert a.dtype == torch.int64
+    assert a.tolist() == [0] * len(cuda_bp.SLOT_CLOCKS) + [-1, 0, 0]
+    b = cuda_bp.slot_counter("cpu", 7)
+    a[:6] = torch.arange(1, 7)
+    b[:6] = 10
+    assert cuda_bp.slot_clocks() == dict(zip(cuda_bp.SLOT_CLOCKS, [11, 12, 13, 14, 15, 16]))
+
+
+class FakeLib:
+    """Records the kernel library's calls (the library needs a card)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            torch.ones(1)  # an operator the profiler records inside the call
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+def _args(code, cfg, batch=3, tile=2):
+    llr = torch.zeros((batch, code.n), dtype=torch.float32)
+    outs = (torch.empty((batch, code.n), dtype=torch.uint8), torch.empty(batch, dtype=torch.bool),
+            torch.empty(batch, dtype=torch.int32),
+            torch.empty((batch + tile - 1) // tile, dtype=torch.int32), None)
+    return cuda_bp.launch_args(code, cfg, llr, *outs, tile, 0)
+
+
+@pytest.mark.parametrize("recording,code,cfg,clocked", [
+    (False, wifi(1944, "5/6"), DecoderConfig(normalization=0.75), False),
+    (True, wifi(1944, "5/6"), DecoderConfig(normalization=0.75), True),
+    (True, wimax(576, "3/4B"), DecoderConfig(msg_dtype="bfloat16"), True),
+    (True, wifi(1944, "5/6"), DecoderConfig(schedule="flooding"), False),
+    (True, wifi(1944, "5/6"), DecoderConfig(algorithm="sum-product"), False),
+    (True, rs_ldpc(4, 4, 8), DecoderConfig(), False),
+], ids=["idle", "wifi", "wimax-bf16", "flooding", "sum-product", "xor"])
+def test_launch_passes_the_slot_counter_while_a_profiler_records(
+        monkeypatch, recording, code, cfg, clocked):
+    """The slot counter's pointer and the launch's slots go to the library
+    only while a torch profiler records a layered min-sum decode of a
+    cyclic code without multi-edge cells; else null and 0, and the library
+    runs the unclocked kernel."""
+    monkeypatch.setattr(cuda_bp, "_slot_counters", {})
+    monkeypatch.setattr(cuda_bp, "_slots", lambda code, cfg, dev, tile: 660)
+    with contextlib.ExitStack() as held:
+        if recording:
+            held.enter_context(profile(activities=[ProfilerActivity.CPU]))
+        args = _args(code, cfg)
+    argtypes, _ = cuda_bp._build._SIGNATURES["ldpc_bp_layered"]
+    assert len(args) == len(argtypes) == 30
+    assert args[13:22] == (3, code.n_b, code.z, code.m_b, code.num_blocks,
+                           cuda_bp.group_slots(code), code.max_row_degree,
+                           cuda_bp.lanes(code), 2)
+    if clocked:
+        assert args[28] == cuda_bp.slot_counter("cpu", 0).data_ptr() and args[29] == 660
+    else:
+        assert args[28] is None and args[29] == 0 and cuda_bp._slot_counters == {}
+
+
+def test_multi_edge_code_runs_unclocked():
+    code = wimax(576, "1/2")
+    code = type(code)(name="me", base=code.base, z=code.z, extra_blocks=((0, 1, 5),))
+    assert cuda_bp.group_slots(code) > 0
+    assert not cuda_bp.clocked(code, DecoderConfig())
+
+
+def test_run_calls_the_library_inside_the_launch_span(monkeypatch):
+    """Under a profiler a launch is ``myldpc.short.prepare``, ``.launch``
+    (holding the library call) and ``.finish``, one after another; it counts
+    one launch and returns the largest block sweep count; a failed launch
+    raises."""
+    lib = FakeLib()
+    monkeypatch.setattr(cuda_bp._build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    code, cfg = wifi(1944, "5/6"), DecoderConfig(normalization=0.75)
+    executed = torch.tensor([3, 9], dtype=torch.int32)
+    result = cuda_bp.DecodeResult(torch.empty((3, code.n), dtype=torch.uint8),
+                                  torch.empty(3, dtype=torch.bool),
+                                  torch.empty(3, dtype=torch.int32), executed)
+    for counter in ("launches", "soft_launches", "bf16_launches", "xor_launches",
+                    "multi_edge_launches"):  # other tests read them: restored after
+        monkeypatch.setattr(cuda_bp.decode_qc_cuda, counter,
+                            getattr(cuda_bp.decode_qc_cuda, counter))
+    before = cuda_bp.decode_qc_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with cuda_bp.span("short.prepare"):
+            args = (1, 2)
+        res = cuda_bp._run(code, cfg, result, args)
+    assert lib.calls == [("ldpc_bp_layered", (1, 2))]
+    assert cuda_bp.decode_qc_cuda.launches == before + 1 and int(res.total_iters) == 9
+    assert res.bits is result.bits and res.posteriors is None
+    assert cuda_bp._run(code, cfg, result, None) is result  # an empty batch: no launch
+    events = prof.events()
+    spans = sorted((e for e in events if e.name.startswith("myldpc.short.")),
+                   key=lambda e: e.time_range.start)
+    assert [e.name for e in spans] == ["myldpc.short.prepare", "myldpc.short.launch",
+                                       "myldpc.short.finish"]
+    op, = [e for e in events if e.name == "aten::ones"]
+    assert spans[1].time_range.start <= op.time_range.start
+    assert op.time_range.end <= spans[1].time_range.end
+    assert all(a.time_range.end <= b.time_range.start for a, b in zip(spans, spans[1:]))
+    monkeypatch.setattr(cuda_bp._build, "load",
+                        lambda: types.SimpleNamespace(ldpc_bp_layered=lambda *a: 700))
+    with pytest.raises(RuntimeError, match="bp_layered kernel launch failed: CUDA error 700"):
+        cuda_bp._run(code, cfg, result, args)
+
+
+def test_occupancy_reader_finds_nothing_without_a_counter(monkeypatch):
+    from portbench.spec import metric_reader
+
+    read = metric_reader("bp_layered_slot_occupancy")
+    monkeypatch.setattr(cuda_bp, "_slot_counters", {})
+    assert read({}) is None
+    counter = cuda_bp.slot_counter("cpu", 0)
+    assert read({}) is None  # a counter that counted no launch
+    counter[:6] = torch.tensor([600, 1000, 9, 9, 2, 1])
+    assert read({}) == pytest.approx(60.0)
+    monkeypatch.delattr(cuda_bp, "slot_clocks")  # a program without the clocks
+    assert read({}) is None
+
+
+def test_fold_matches_the_kernels_slot_order():
+    got = cuda_bp.fold_slot_clocks(np.array([1]), np.array([2]), 1, [1], [1], 1)
+    assert tuple(got) == cuda_bp.SLOT_CLOCKS

@@ -1,6 +1,8 @@
 """The program's spans (``utils/profiling.py``): ranges named ``myldpc.*``
 that exist only while a torch profiler records, and cost a flag read and a
-shared null context otherwise."""
+shared null context otherwise.
+
+About 5 s alone, on one thread."""
 import contextlib
 
 import numpy as np
@@ -11,6 +13,8 @@ from torch.profiler import ProfilerActivity, profile
 from myldpccppapi_torch import Decoder, DecoderConfig
 from myldpccppapi_torch.codes import wimax
 from myldpccppapi_torch.utils import profiling, recording, span
+
+torch.set_num_threads(1)
 
 
 def _cpu_profile():
@@ -56,4 +60,19 @@ def test_decoder_call_records_the_decode_span(implementation):
         res = dec(llr)
     names = [e.name for e in prof.events() if e.name.startswith("myldpc.")]
     assert names == ["myldpc.decode"]
+    assert bool(res.converged.all())
+
+
+def test_short_code_wrapper_opens_no_span_on_the_cpu():
+    """Kernel A's wrapper on a CPU tensor runs its plain version and opens
+    none of its ``myldpc.short.*`` spans (they are the CUDA branch's)."""
+    from myldpccppapi_torch.codes import wifi
+    from myldpccppapi_torch.ops import cuda_bp
+
+    code = wifi(1944, "5/6")
+    cfg = DecoderConfig(normalization=0.75, max_iters=3)
+    llr = torch.full((2, code.n), 2.0)
+    with _cpu_profile() as prof:
+        res = cuda_bp.decode_qc_cuda(code, cfg, llr)
+    assert not [e.name for e in prof.events() if e.name.startswith("myldpc.")]
     assert bool(res.converged.all())
