@@ -33,7 +33,8 @@
 //   of two up to kMaxLanes, from the code's widest row: ops/cuda_bp.py::
 //   lanes); lane l of the group for (check row r, codeword c) takes edges
 //   l, l + L, ... of the row, at most K (4, or 8 for codes of wide z whose
-//   rows would need more lanes), held in registers between
+//   rows would need more lanes; 5, the fitted instantiation, where such a
+//   code's layered min-sum needs no more), held in registers between
 //   the row's two passes.  Shuffles within the group (width L, every
 //   thread of the warp taking part) merge the row's fold exactly, in any order:
 //   m1 and m2 with multiplicity, the first edge at m1, the sign parity and
@@ -133,9 +134,23 @@
 // nearest even, as torch's .to(bfloat16)); the check update computes in
 // f32 on the upcast q and rounds r_new (_check_update_rows, :177-182).
 //
+// FITTED (K = 5): layered min-sum on a cyclic code without multi-edge
+// cells whose rows would take the wide instantiation but need at most five
+// edges a lane (802.11n 1944 r5/6 and 802.16e r5/6: rows of 20 over 4
+// lanes) takes an instantiation of five slots a lane, under a register
+// budget that holds three blocks of up to 384 threads on an SM.  Every slot
+// past a row's end re-reads its last edge, so the wide one's eight slots
+// cost those rows 16 of a lane's 42 shared-memory loads a row, and its 64
+// registers left 2 blocks of 352 threads an SM (PERF.md).  Its budget is a
+// second launch bound, which only the fitted instantiations carry: ptxas
+// compiles a kernel with an explicit bound of even one block an SM
+// otherwise than one without (the wide f32 layered min-sum: 71 registers
+// against 64), so they are built alone, as part 4, and every other
+// instantiation keeps its code.
+//
 // SLOT CLOCKS (a template parameter, CLOCKED: the layered min-sum
 // instantiations of the cyclic group without multi-edge cells, f32 and
-// bf16, narrow and wide; the library runs them when the caller passes a
+// bf16, narrow, fitted and wide; the library runs them when the caller passes a
 // slot counter).  The same sweep, with thread 0 of each block reading
 // %globaltimer at the block's entry and, after a last barrier, at its exit,
 // and adding to the counter, int64 [kClockSlots] on the device: the block's
@@ -172,15 +187,20 @@ constexpr int kScms = 4;
 // A lane's edges of one row, held in registers between the row's passes
 // (the instantiation's K: kNarrow, or kWide for codes whose rows would
 // otherwise need more lanes than the batch's blocks can hold threads,
-// ops/cuda_bp.py::lanes), the widest lane group, the widest row (the
-// record's 6-bit index) and a block's threads under each K.
+// ops/cuda_bp.py::lanes, or kFitted where such a code's layered min-sum
+// rows need no more), the widest lane group, the widest row (the record's
+// 6-bit index) and a block's threads under each K.
 constexpr int kNarrow = 4;
+constexpr int kFitted = 5;
 constexpr int kWide = 8;
 constexpr int kMaxLanes = 16;
 constexpr int kMaxDeg = 64;
 constexpr int kMaxThreads = 1024;
+constexpr int kFittedThreads = 384;
 __host__ __device__ constexpr int max_threads(int per_lane) {
-  return per_lane == kNarrow ? kMaxThreads : kMaxThreads / 2;
+  return per_lane == kNarrow   ? kMaxThreads
+         : per_lane == kFitted ? kFittedThreads
+                               : kMaxThreads / 2;
 }
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 // an edge word: its block column's first variable (col * z) above the
@@ -300,9 +320,20 @@ __device__ void add_slot_clocks(unsigned long long* k, int slots, unsigned long 
   }
 }
 
+// The kernel's launch bounds: its threads, and the blocks an SM that the
+// fitted instantiations' registers leave room for (three blocks of 384
+// threads: at most 56 registers a thread), given only in the object that
+// holds nothing else (part 4; or the one object of a build without parts)
+#if defined(BP_LAYERED_PART) && BP_LAYERED_PART != 4
+#define BP_LAYERED_BOUNDS(K) __launch_bounds__(max_threads(K))
+#else
+constexpr int kFittedBlocks = 3;
+#define BP_LAYERED_BOUNDS(K) __launch_bounds__(max_threads(K), (K) == kFitted ? kFittedBlocks : 1)
+#endif
+
 template <typename T, int K, bool FLOODING, bool SUM_PRODUCT, bool SCMS, bool XOR, bool MULTI,
           bool CLOCKED = false>
-__global__ void __launch_bounds__(max_threads(K)) bp_layered_kernel(const Params p) {
+__global__ void BP_LAYERED_BOUNDS(K) bp_layered_kernel(const Params p) {
   static_assert(!CLOCKED || !(FLOODING || SUM_PRODUCT || SCMS || XOR || MULTI),
                 "the clocks are layered min-sum's, cyclic, without multi-edge cells");
   extern __shared__ __align__(16) char smem[];
@@ -518,15 +549,16 @@ __global__ void __launch_bounds__(max_threads(K)) bp_layered_kernel(const Params
     }
     // pass 2: each edge's message and, layered, its delta (no other
     // thread touches a lone circulant's variable within this layer; a
-    // cell's are written after a barrier).  The wide instantiation loads
-    // its edges' P and r_old again rather than keep them in registers
-    // across the merges (more codewords an SM for wide-z codes)
+    // cell's are written after a barrier).  The wide and the fitted
+    // instantiations load their edges' P and r_old again rather than keep
+    // them in registers across the merges (more codewords an SM for wide-z
+    // codes)
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int pos = lane + (k << log_lanes);
       if (pos < deg && !ghost) {
         const int e = p0 + pos;
-        if (K == kWide && !FLOODING) {
+        if (K != kNarrow && !FLOODING) {
           vi[k] = var_of(s_edge[e]);
           pv[k] = to_f32(P[vi[k]]);
           ro[k] = SUM_PRODUCT ? to_f32(R[e * z + r]) : record_message(old, pos);
@@ -726,18 +758,26 @@ KernelFn clocked_instance(bool wide) {
   return wide ? bp_layered_kernel<T, kWide, false, false, false, false, false, true>
               : bp_layered_kernel<T, kNarrow, false, false, false, false, false, true>;
 }
+// The fitted instantiation, clocked or not: layered min-sum only, cyclic,
+// without multi-edge cells.
+template <typename T>
+KernelFn fitted_instance(bool clocked) {
+  return clocked ? bp_layered_kernel<T, kFitted, false, false, false, false, false, true>
+                 : bp_layered_kernel<T, kFitted, false, false, false, false, false, false>;
+}
 
 }  // namespace
 
-// The build compiles this file three times, side by side, with
+// The build compiles this file four times, side by side, with
 // BP_LAYERED_PART = 1 (the cyclic group's twenty-eight instantiations,
 // eight of them the layered modes' multi-edge ones, and the exported
-// functions), 2 (the xor group's twenty) and 3 (the four clocked ones);
-// without BP_LAYERED_PART one object holds all fifty-two.  The parts meet
-// in these three functions.
+// functions), 2 (the xor group's twenty), 3 (the four clocked ones) and 4
+// (the four fitted ones, clocked or not); without BP_LAYERED_PART one
+// object holds all fifty-six.  The parts meet in these four functions.
 KernelFn bp_layered_cyclic(int mode, bool bf16, bool multi, bool wide);
 KernelFn bp_layered_xor(int mode, bool bf16, bool multi, bool wide);
 KernelFn bp_layered_clocked(bool bf16, bool wide);
+KernelFn bp_layered_fitted(bool bf16, bool clocked);
 
 #if !defined(BP_LAYERED_PART) || BP_LAYERED_PART == 1
 KernelFn bp_layered_cyclic(int mode, bool bf16, bool multi, bool wide) {
@@ -758,27 +798,48 @@ KernelFn bp_layered_clocked(bool bf16, bool wide) {
 }
 #endif
 
+#if !defined(BP_LAYERED_PART) || BP_LAYERED_PART == 4
+KernelFn bp_layered_fitted(bool bf16, bool clocked) {
+  return bf16 ? fitted_instance<__nv_bfloat16>(clocked) : fitted_instance<float>(clocked);
+}
+#endif
+
 #if !defined(BP_LAYERED_PART) || BP_LAYERED_PART == 1
 namespace {
 
 // Threads of a block: z * lanes * tile rounded up to whole warps.
 int block_threads(int z, int lanes, int tile) { return (z * lanes * tile + 31) / 32 * 32; }
 
+// The edges a lane of the instantiation that serves a launch: kNarrow
+// where the widest row leaves each lane at most that many; else kFitted
+// for layered min-sum on a cyclic code without multi-edge cells whose
+// widest row leaves each lane at most kFitted and whose block stays within
+// kFittedThreads; else kWide.  ops/cuda_bp.py::edges_per_lane is the same
+// rule on the host.
+int edges_per_lane(int z, int max_deg, int mode, bool xor_group, bool multi, int lanes,
+                   int tile) {
+  if (max_deg <= lanes * kNarrow) return kNarrow;
+  const bool fitted = mode == 0 && !xor_group && !multi && max_deg <= lanes * kFitted &&
+                      (size_t)z * lanes * tile <= (size_t)kFittedThreads;
+  return fitted ? kFitted : kWide;
+}
+
 // The kernel for a launch, or nullptr for one it does not serve: lanes a
-// power of two up to kMaxLanes that leaves each lane at most kNarrow
-// edges of the widest row (the narrow instantiation) or at most kWide (the
-// wide one), rows of at most kMaxDeg edges, a block of at most the
+// power of two up to kMaxLanes that leaves each lane at most kWide edges of
+// the widest row, rows of at most kMaxDeg edges, a block of at most the
 // instantiation's threads; clocked where asked and such an instantiation
 // exists (layered min-sum, cyclic, no multi-edge cells).
 KernelFn pick(int z, int max_deg, int mode, bool bf16, bool xor_group, int group_slots,
               int lanes, int tile, bool clocked) {
-  const bool wide = max_deg > lanes * kNarrow;
   if (lanes < 1 || lanes > kMaxLanes || (lanes & (lanes - 1)) != 0 ||
-      max_deg > lanes * kWide || max_deg > kMaxDeg || tile < 1 ||
-      (size_t)z * lanes * tile > (size_t)max_threads(wide ? kWide : kNarrow)) {
+      max_deg > lanes * kWide || max_deg > kMaxDeg || tile < 1) {
     return nullptr;
   }
   const bool multi = group_slots > 0;
+  const int per_lane = edges_per_lane(z, max_deg, mode, xor_group, multi, lanes, tile);
+  if ((size_t)z * lanes * tile > (size_t)max_threads(per_lane)) return nullptr;
+  if (per_lane == kFitted) return bp_layered_fitted(bf16, clocked);
+  const bool wide = per_lane == kWide;
   if (clocked && mode == 0 && !xor_group && !multi) return bp_layered_clocked(bf16, wide);
   return xor_group ? bp_layered_xor(mode, bf16, multi, wide)
                    : bp_layered_cyclic(mode, bf16, multi, wide);
@@ -805,8 +866,10 @@ extern "C" {
 // -1 for a lone circulant, then each layer's count of such rows).
 // max_deg is the widest row (at most 64), lanes the lanes per row (a power
 // of two: max_deg <= 4 lanes takes the narrow instantiation, up to 1024
-// threads a block; max_deg <= 8 lanes the wide one, up to 512), tile the
-// codewords per block (z * lanes * tile threads at most).  Unless
+// threads a block; max_deg <= 8 lanes the wide one, up to 512, or, for
+// layered min-sum on a cyclic code without multi-edge cells with max_deg <=
+// 5 lanes and z * lanes * tile <= 384, the fitted one), tile the codewords
+// per block (z * lanes * tile threads at most).  Unless
 // slot_clocks is null, a layered min-sum decode of a cyclic code without
 // multi-edge cells runs the clocked instantiation, which adds its slot
 // clocks to slot_clocks, int64 [9] on the device (resident ns, slot-ns,

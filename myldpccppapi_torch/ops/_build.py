@@ -2,8 +2,9 @@
 
 The sources have a plain ``extern "C"`` interface and include no PyTorch
 header, so ``nvcc`` compiles each in seconds; :func:`build` starts one
-``nvcc`` per object, all together (``bp_layered.cu`` as three objects, its
-cyclic and xor groups and its clocked instantiations; ``bp_long.cu`` and ``bp_stream.cu`` as four each,
+``nvcc`` per object, all together (``bp_layered.cu`` as four objects, its
+cyclic and xor groups, its clocked instantiations and its fitted ones;
+``bp_long.cu`` and ``bp_stream.cu`` as four each,
 their f32 and bf16 min-sum and sum-product instantiations; ``op_rate.cu``),
 and links the objects into one shared library that :mod:`ctypes` loads.
 The decode kernels' objects (``bp_layered.cu``, ``bp_long.cu``,
@@ -38,13 +39,14 @@ SOURCES = ("bp_layered.cu", "bp_long.cu", "bp_stream.cu", "op_rate.cu")
 #: the headers they include from csrc
 HEADERS = ("async_copy.cuh", "phi.cuh", "record.cuh", "storage.cuh")
 #: the objects, (source, its own flags), each compiled by its own nvcc
-#: process: bp_layered.cu's three parts (BP_LAYERED_PART: the cyclic and the
-#: xor group's instantiations, and the clocked ones), bp_long.cu's four (BP_LONG_PART: its f32
+#: process: bp_layered.cu's four parts (BP_LAYERED_PART: the cyclic and the
+#: xor group's instantiations, the clocked ones and the fitted ones),
+#: bp_long.cu's four (BP_LONG_PART: its f32
 #: and bf16 min-sum and sum-product instantiations) and bp_stream.cu's four
 #: (BP_STREAM_PART, the same split) take comparable times, so the build
 #: takes the longest one
 _OBJECTS = (*(("bp_layered.cu", (f"-DBP_LAYERED_PART={part}", "-Xptxas", "-v"))
-              for part in (1, 2, 3)),
+              for part in (1, 2, 3, 4)),
             *(("bp_long.cu", (f"-DBP_LONG_PART={part}", "-Xptxas", "-v"))
               for part in (1, 2, 3, 4)),
             *(("bp_stream.cu", (f"-DBP_STREAM_PART={part}", "-Xptxas", "-v"))

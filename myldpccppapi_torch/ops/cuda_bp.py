@@ -24,7 +24,12 @@ The wrapper decides the launch's shape: :func:`lanes`, the lanes that
 split each check row (from the code's widest row), and :func:`tile_size`,
 the codewords per thread block, which :func:`choose_tile` picks from the
 batch and the kernel library's occupancy query so that a batch spreads
-over every SM in small blocks.
+over every SM in small blocks.  :func:`edges_per_lane` names the
+instantiation that serves a launch: four edges a lane (narrow), eight
+(wide), or five (fitted: layered min-sum on a cyclic code without
+multi-edge cells whose rows would take the wide one but need no more than
+five a lane, 802.11n 1944 r5/6's and 802.16e r5/6's rows of 20 over 4
+lanes, in blocks of at most 384 threads, three an SM).
 
 :func:`decode_qc_cuda` launches the kernel for a CUDA tensor and raises if
 it cannot; for a CPU tensor it runs the plain version,
@@ -34,7 +39,8 @@ counts kernel launches in every mode, ``decode_qc_cuda.soft_launches``
 those with soft output, ``decode_qc_cuda.bf16_launches`` those with bf16
 messages, ``decode_qc_cuda.xor_launches`` those on an xor-group code and
 ``decode_qc_cuda.multi_edge_launches`` those on a code with multi-edge
-cells.
+cells and ``decode_qc_cuda.fitted_launches`` those of the fitted
+instantiation.
 
 While a torch profiler records, a CUDA decode shows as three consecutive
 spans (``utils.profiling.span``): ``myldpc.short.prepare`` (checks,
@@ -75,8 +81,8 @@ from .bp import DecodeResult, decode_qc, layer_weights, msg_dtype, weights_mode
 from .cuda_long import MIN_Z as _LONG_MIN_Z
 
 __all__ = ["REQUIREMENTS", "SLOT_CLOCKS", "choose_tile", "clocked", "decode_qc_cuda",
-           "decode_qc_cuda_plain", "fold_slot_clocks", "lanes", "launch_args", "mode",
-           "slot_clocks", "slot_counter", "supported", "tile_size"]
+           "decode_qc_cuda_plain", "edges_per_lane", "fold_slot_clocks", "lanes",
+           "launch_args", "mode", "slot_clocks", "slot_counter", "supported", "tile_size"]
 
 #: the TPU kernels' split (pallas_bp._DYN_BLOCK_THRESHOLD): up to this many
 #: circulants kernel A's statically unrolled body, above it kernel B's
@@ -87,11 +93,12 @@ _MAX_BLOCKS = 120
 _MAX_XOR_BLOCKS = 256
 #: mode bits, as csrc/bp_layered.cu reads them
 FLOODING, SUM_PRODUCT, SCMS = 1, 2, 4
-#: the kernel's edges of a row per lane (its kNarrow and kWide
+#: the kernel's edges of a row per lane (its kNarrow, kFitted and kWide
 #: instantiations), its widest lane group (kMaxLanes) and row (kMaxDeg)
-_NARROW, _WIDE, _MAX_LANES, _MAX_ROW_DEGREE = 4, 8, 16, 64
-#: the threads of a narrow instantiation's block (a wide one's: half)
-_MAX_THREADS = 1024
+_NARROW, _FITTED, _WIDE, _MAX_LANES, _MAX_ROW_DEGREE = 4, 5, 8, 16, 64
+#: the threads of a narrow instantiation's block (a wide one's: half; a
+#: fitted one's: kFittedThreads)
+_MAX_THREADS, _FITTED_THREADS = 1024, 384
 #: the most threads a codeword's lanes may take before the wrapper takes
 #: the wide instantiation (8 edges a lane, half the lanes)
 _NARROW_THREADS = 128
@@ -181,10 +188,37 @@ def lanes(code) -> int:
     return _pow2_lanes(code.max_row_degree, _WIDE)
 
 
-def _max_threads(code) -> int:
-    """The block thread limit of the instantiation :func:`lanes` takes."""
-    wide = code.max_row_degree > _NARROW * lanes(code)
-    return _MAX_THREADS // 2 if wide else _MAX_THREADS
+@functools.lru_cache(maxsize=256)
+def edges_per_lane(code, mode_bits: int = 0, tile: int = 1) -> int:
+    """The edges a lane of the kernel's instantiation that serves a launch
+    of ``code`` in ``mode_bits`` (:func:`mode`; 0 = layered min-sum) with
+    ``tile`` codewords a block (csrc/bp_layered.cu's ``edges_per_lane``):
+    4 (narrow) where :func:`lanes` leaves a lane at most four edges of the
+    widest row; else 5 (fitted) for layered min-sum on a cyclic code without
+    multi-edge cells whose widest row leaves a lane at most five and whose
+    block stays within 384 threads (802.11n 1944 r5/6, 802.16e r5/6 and
+    r2/3A at z > 32); else 8 (wide).  By the code's shape alone; 0 for rows
+    past 64."""
+    width = lanes(code)
+    if not width:
+        return 0
+    if code.max_row_degree <= _NARROW * width:
+        return _NARROW
+    if (mode_bits == 0 and not _xor(code) and group_slots(code) == 0
+            and code.max_row_degree <= _FITTED * width
+            and code.z * width * tile <= _FITTED_THREADS):
+        return _FITTED
+    return _WIDE
+
+
+def _max_threads(code, mode_bits: int) -> int:
+    """The block thread limit of the instantiation that serves ``code`` in
+    ``mode_bits`` at one codeword a block; for the fitted one its own, so
+    that every tile the wrapper picks runs it."""
+    per_lane = edges_per_lane(code, mode_bits)
+    if per_lane == _FITTED:
+        return _FITTED_THREADS
+    return _MAX_THREADS if per_lane == _NARROW else _MAX_THREADS // 2
 
 
 def choose_tile(batch: int, sms: int, blocks_per_sm) -> int:
@@ -214,7 +248,7 @@ def _blocks_per_sm(code, device_index: int, mode_bits: int, itemsize: int) -> tu
     lib = _build.load()
     width = lanes(code)
     out = []
-    for tile in range(1, _max_threads(code) // max(1, code.z * width) + 1):
+    for tile in range(1, _max_threads(code, mode_bits) // max(1, code.z * width) + 1):
         blocks = lib.ldpc_bp_layered_blocks_per_sm(
             code.n, code.z, code.m_b, code.num_blocks, group_slots(code),
             code.max_row_degree, mode_bits, itemsize, int(_xor(code)), width, tile,
@@ -270,13 +304,13 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
         return False
     elif code.num_blocks > _MAX_BLOCKS and not _route_b(code, cfg):
         return False
-    if not lanes(code) or code.z * lanes(code) > _max_threads(code):
+    mode_bits = 0 if cfg is None else mode(cfg)
+    if not lanes(code) or code.z * lanes(code) > _max_threads(code, mode_bits):
         return False
     if cfg is not None and not (cfg.crc is None and cfg.outer is None):
         return False
     if cfg is not None and weights_mode(cfg, code.m_b) == "iter":
         return False  # the weight tables hold one row (pallas_bp.py:145-158)
-    mode_bits = 0 if cfg is None else mode(cfg)
     return device is None or len(_blocks_per_sm(
         code, cuda_index(device), mode_bits, msg_dtype(cfg).itemsize)) >= 1
 
@@ -358,7 +392,7 @@ def decode_qc_cuda(code, cfg: DecoderConfig,
         tile = tile_size(code, llr.device.index, llr.shape[0], mode(cfg),
                          msg_dtype(cfg).itemsize)
         result, args = _prepare(code, cfg, llr, tile)
-    return _run(code, cfg, result, args)
+    return _run(code, cfg, result, args, tile)
 
 
 def clocked(code, cfg: DecoderConfig) -> bool:
@@ -466,11 +500,11 @@ def _prepare(code, cfg: DecoderConfig, llr: torch.Tensor, tile: int):
             launch_args(code, cfg, llr_k, bits, conv, iters, executed, post, tile, stream))
 
 
-def _run(code, cfg: DecoderConfig, result: DecodeResult, args) -> DecodeResult:
-    """Make the library call of :func:`_prepare`'s launch inside the
-    ``myldpc.short.launch`` span, then count it and return its result
-    (``total_iters`` the largest block sweep count) inside
-    ``myldpc.short.finish``; raises if the launch fails."""
+def _run(code, cfg: DecoderConfig, result: DecodeResult, args, tile: int) -> DecodeResult:
+    """Make the library call of :func:`_prepare`'s launch (``tile``
+    codewords a block) inside the ``myldpc.short.launch`` span, then count
+    it and return its result (``total_iters`` the largest block sweep count)
+    inside ``myldpc.short.finish``; raises if the launch fails."""
     if args is None:
         return result
     with torch.cuda.device(result.bits.device):
@@ -484,6 +518,7 @@ def _run(code, cfg: DecoderConfig, result: DecodeResult, args) -> DecodeResult:
         decode_qc_cuda.bf16_launches += cfg.msg_dtype == "bfloat16"
         decode_qc_cuda.xor_launches += _xor(code)
         decode_qc_cuda.multi_edge_launches += group_slots(code) > 0
+        decode_qc_cuda.fitted_launches += edges_per_lane(code, mode(cfg), tile) == _FITTED
         return DecodeResult(result.bits, result.converged, result.iterations,
                             result.total_iters.max(), posteriors=result.posteriors)
 
@@ -495,7 +530,7 @@ def _launch(code, cfg: DecoderConfig, llr: torch.Tensor,
     result)."""
     with span("short.prepare"):
         result, args = _prepare(code, cfg, llr, tile)
-    return _run(code, cfg, result, args)
+    return _run(code, cfg, result, args, tile)
 
 
 decode_qc_cuda.launches = 0
@@ -503,3 +538,4 @@ decode_qc_cuda.soft_launches = 0
 decode_qc_cuda.bf16_launches = 0
 decode_qc_cuda.xor_launches = 0
 decode_qc_cuda.multi_edge_launches = 0
+decode_qc_cuda.fitted_launches = 0

@@ -19,11 +19,16 @@ tested here:
   plain version) in f32 and bf16 at L = 1, 2, 4, 8 and at each code's own
   L (wimax 576 r1/2, r3/4B, r5/6; rs_ldpc(4, 4, 8) on the xor group; a
   multi-edge wimax code; nr_code(32, 1) on kernel B's route), and, f32
-  min-sum, against the JAX package's jnp path;
+  min-sum, against the JAX package's jnp path; with a lane's K edge slots
+  walked as the kernel walks them (slots past the row's end re-read its
+  last edge and are masked), the fitted instantiation's five on rows of 17
+  to 20 over 4 lanes (802.11n 1944 r5/6 among them);
 * the record built from the lanes' merge on ties at m1, every |q| past
   1e30, -0.0 and bf16;
 * the tile chooser (``cuda_bp.choose_tile``) at batch 1, 70, 1024 and 8192
-  on a 132-SM, 227 KB device description, and the lanes rule.
+  on a 132-SM, 227 KB device description, the lanes rule, and the rule
+  that names the instantiation (``cuda_bp.edges_per_lane``) of each shipped
+  code.
 """
 from functools import partial
 
@@ -38,7 +43,7 @@ from myldpccppapi_tpu.codes import nr as ref_nr
 from myldpccppapi_tpu.codes.rs_ldpc import rs_ldpc as ref_rs_ldpc
 from myldpccppapi_tpu.ops.bp import decode_qc as ref_decode_qc
 
-from myldpccppapi_torch import DecoderConfig, QCCode, interop, nr_code, rs_ldpc, wimax
+from myldpccppapi_torch import DecoderConfig, QCCode, interop, nr_code, rs_ldpc, wifi, wimax
 from myldpccppapi_torch.codes import encode_numpy, ru_precompute
 from myldpccppapi_torch.ops import bp, cuda_bp, cuda_stream
 from myldpccppapi_torch.ops.bp import DecodeResult
@@ -56,12 +61,21 @@ def raw(x: torch.Tensor) -> torch.Tensor:
 
 # -- the group's merges --------------------------------------------------------
 
-def lane_fold(q: torch.Tensor, lanes: int):
+def lane_slots(deg: int, lanes: int, slots=None) -> int:
+    """The edge slots a lane walks: the kernel's K (``slots``), which must
+    hold the lane's share of the row, or just that share."""
+    need = -(-deg // lanes)
+    assert slots is None or need <= slots, (deg, lanes, slots)
+    return need if slots is None else slots
+
+
+def lane_fold(q: torch.Tensor, lanes: int, slots=None):
     """The fold of a row's |q| ([deg, z, B] f32) as the kernel's lane group
     computes it: each lane's running m1, m2 and first edge at m1 over its
-    edges k L + l in order, then an xor butterfly over the lanes (the
-    shuffles).  Returns (m1, m2, idx) of lane 0 after checking that every
-    lane holds the same."""
+    edges k L + l in order (K ``slots`` of them, a slot past the row's end
+    re-reading its last edge and masked out), then an xor butterfly over the
+    lanes (the shuffles).  Returns (m1, m2, idx) of lane 0 after checking
+    that every lane holds the same."""
     deg = q.shape[0]
     a = q.abs()
     shape = (lanes,) + a.shape[1:]
@@ -69,7 +83,7 @@ def lane_fold(q: torch.Tensor, lanes: int):
     m2 = torch.full(shape, INF)
     idx = torch.full(shape, -1, dtype=torch.int64)
     lane = torch.arange(lanes).view(-1, 1, 1)
-    for k in range(-(-deg // lanes)):
+    for k in range(lane_slots(deg, lanes, slots)):
         pos = k * lanes + lane
         valid = pos < deg
         ak = a[torch.clamp(pos, max=deg - 1).view(-1)]
@@ -91,13 +105,17 @@ def lane_fold(q: torch.Tensor, lanes: int):
     return m1[0], m2[0], idx[0]
 
 
-def lane_parity(bits: torch.Tensor, lanes: int) -> torch.Tensor:
+def lane_parity(bits: torch.Tensor, lanes: int, slots=None) -> torch.Tensor:
     """XOR over a row's edges ([deg, z, B] bool): each lane's parity of its
-    edges, then the xor butterfly."""
+    edges (K ``slots`` of them, walked as :func:`lane_fold` walks them),
+    then the xor butterfly."""
     deg = bits.shape[0]
-    pad = torch.zeros((-deg % lanes,) + bits.shape[1:], dtype=torch.bool)
-    per_lane = torch.cat([bits, pad]).view(-1, lanes, *bits.shape[1:])
-    par = per_lane.sum(dim=0) & 1  # [lanes, z, B]
+    lane = torch.arange(lanes).view(-1, 1, 1)
+    par = torch.zeros((lanes,) + bits.shape[1:], dtype=torch.int64)
+    for k in range(lane_slots(deg, lanes, slots)):
+        pos = k * lanes + lane
+        bk = bits[torch.clamp(pos, max=deg - 1).view(-1)]
+        par = par ^ ((pos < deg) & bk).to(torch.int64)  # [lanes, z, B]
     off = 1
     while off < lanes:
         par = par ^ par[torch.arange(lanes) ^ off]
@@ -107,19 +125,19 @@ def lane_parity(bits: torch.Tensor, lanes: int) -> torch.Tensor:
 
 
 def lane_record(q: torch.Tensor, alpha: float, beta: float, dtype: torch.dtype,
-                max_row_degree: int, lanes: int) -> torch.Tensor:
+                max_row_degree: int, lanes: int, slots=None) -> torch.Tensor:
     """The record words ([words, z, B] int32) the kernel's lane group
     stores for a row's q: its merged fold, alpha/beta on m1 and m2 (m2s =
     m1s where no edge is at m1), the first edge at m1 and each edge's sign
     (the row's sign parity XOR its own), packed as record.cuh packs them."""
     deg = q.shape[0]
-    m1, m2, idx = lane_fold(q, lanes)
+    m1, m2, idx = lane_fold(q, lanes, slots)
     al = torch.tensor(alpha, dtype=torch.float32)
     be = torch.tensor(beta, dtype=torch.float32)
     m1s = al * torch.clamp(m1 - be, min=0.0)
     m2s = torch.where(idx < 0, m1s, al * torch.clamp(m2 - be, min=0.0))
     neg = q < 0
-    parity = lane_parity(neg, lanes)
+    parity = lane_parity(neg, lanes, slots)
     if dtype == torch.float32:
         words = [m1s.view(torch.int32).to(torch.int64), m2s.view(torch.int32).to(torch.int64)]
     else:
@@ -136,9 +154,11 @@ def lane_record(q: torch.Tensor, alpha: float, beta: float, dtype: torch.dtype,
 
 # -- the sweep -----------------------------------------------------------------
 
-def lane_decode(code, cfg: DecoderConfig, llr: torch.Tensor, lanes: int) -> DecodeResult:
+def lane_decode(code, cfg: DecoderConfig, llr: torch.Tensor, lanes: int,
+                slots=None) -> DecodeResult:
     """Kernel A's sweep in torch, every row of every codeword at once: q of
-    each edge from P and r_old (or SCMS's Q), the lanes' fold and merges,
+    each edge from P and r_old (or SCMS's Q), the lanes' fold and merges
+    (over K ``slots`` a lane where given),
     min-sum messages only through records (each checked against the
     codec), sum-product's phi(|q|) cached for phi(total - phi(|q|)), the
     layered delta write-back in block order or the flooding rebuild from the
@@ -190,11 +210,11 @@ def lane_decode(code, cfg: DecoderConfig, llr: torch.Tensor, lanes: int) -> Deco
             for k in range(len(edges)):  # the group's fold in edge order
                 total = total + ph[k]
             mag = bp._phi(total.unsqueeze(0) - ph)
-            neg = lane_parity(q < 0, lanes).unsqueeze(0) ^ (q < 0)
+            neg = lane_parity(q < 0, lanes, slots).unsqueeze(0) ^ (q < 0)
             R[ptr[i]:ptr[i + 1]] = rnd(torch.where(neg, -mag, mag))
         else:
             rec[i] = lane_record(q, float(alphas[i]), float(betas[i]), dt,
-                                 code.max_row_degree, lanes)
+                                 code.max_row_degree, lanes, slots)
             want = cuda_stream.compress_min_sum(q, float(alphas[i]), float(betas[i]), dt,
                                                 code.max_row_degree)
             assert torch.equal(rec[i], want), f"layer {i}: record != codec"
@@ -231,7 +251,7 @@ def lane_decode(code, cfg: DecoderConfig, llr: torch.Tensor, lanes: int) -> Deco
         for i in range(m_b):
             edges = range(ptr[i], ptr[i + 1])
             p = torch.stack([P[bc[e]][var(sh[e])] for e in edges])
-            fail |= lane_parity(p <= 0, lanes).any(dim=0)
+            fail |= lane_parity(p <= 0, lanes, slots).any(dim=0)
             if scms:
                 q_new = rnd(p - messages(i))
                 q_old = Q[ptr[i]:ptr[i + 1]]
@@ -355,6 +375,46 @@ def test_route_b_lane_sweep_equals_plain_version(dtype, cases):
     cfg = DecoderConfig(normalization=0.8, max_iters=6, msg_dtype=dtype, soft_output=True)
     assert_same(lane_decode(code, cfg, torch.from_numpy(llr), 4),
                 cuda_bp.decode_qc_cuda_plain(code, cfg, torch.from_numpy(llr)))
+
+
+def trimmed_wimax_r56(deg: int) -> QCCode:
+    """wimax 576 r5/6 (rows of 20 circulants, z = 24) with each row cut to
+    ``deg`` circulants: a different few of its information blocks nulled
+    in each row, the parity part kept."""
+    base = np.array(wimax(576, "5/6").base)
+    for i in range(base.shape[0]):
+        info = np.flatnonzero(base[i, :20] >= 0)
+        base[i, info[i::4][:20 - deg]] = -1
+    return QCCode(name=f"wimax_n576_r56_rows{deg}", base=base, z=24)
+
+
+FITTED_CODES = {  # name -> code: rows of 17 to 20 over 4 lanes, five slots a lane
+    "rows17": lambda: trimmed_wimax_r56(17),
+    "rows18": lambda: trimmed_wimax_r56(18),
+    "rows19": lambda: trimmed_wimax_r56(19),
+    "w56": lambda: wimax(576, "5/6"),
+    "wifi1944r56": lambda: wifi(1944, "5/6"),  # rows of 20, 20, 20 and 19
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["layered", "per-layer", "offset"])
+@pytest.mark.parametrize("name", list(FITTED_CODES))
+def test_fitted_lane_sweep_equals_plain_version(name, mode, dtype):
+    """The fitted instantiation's sweep: 4 lanes of five edge slots (the
+    slots past a row of 17 to 19 re-read its last edge, masked), layered
+    min-sum on cyclic codes without multi-edge cells, f32 and bf16,
+    posteriors included; all-zero codeword LLRs from hopeless to easy."""
+    code = FITTED_CODES[name]()
+    assert code.max_row_degree == (int(name[4:]) if name.startswith("rows") else 20)
+    assert cuda_bp.lanes(code) == 4 and cuda_bp.edges_per_lane(code) == 5
+    rng = np.random.default_rng(code.max_row_degree + code.z)
+    m = np.linspace(1.0, 4.0, 6, dtype=np.float32)[:, None]
+    llr = torch.from_numpy(
+        (m + np.sqrt(2 * m) * rng.standard_normal((6, code.n))).astype(np.float32))
+    cfg = config(code, mode, dtype, early_exit=mode != "offset")
+    assert_same(lane_decode(code, cfg, llr, 4, slots=5),
+                cuda_bp.decode_qc_cuda_plain(code, cfg, llr))
 
 
 JNP_CASES = {  # (code, config fields)
@@ -504,6 +564,49 @@ def test_lanes_rule():
         assert code.max_row_degree <= 8 * cuda_bp.lanes(code)
     wide = QCCode(name="wide", base=np.zeros((2, 65), np.int32), z=4)
     assert cuda_bp.lanes(wide) == 0 and not cuda_bp.supported(wide)
+
+
+def multi_edge_wimax_r56() -> QCCode:
+    code = wimax(576, "5/6")
+    return QCCode(name="wimax_n576_r56_cell", base=code.base, z=code.z,
+                  extra_blocks=((1, 1, 7),))
+
+
+@pytest.mark.parametrize("make,mode_bits,tile,want", [
+    (lambda: wifi(1944, "5/6"), 0, 1, 5),        # the wifi cell's code: rows of 20 over 4 lanes
+    (lambda: wifi(1944, "5/6"), 1, 1, 8),        # flooding
+    (lambda: wifi(1944, "5/6"), 2, 1, 8),        # sum-product
+    (lambda: wifi(1944, "5/6"), 5, 1, 8),        # SCMS
+    (lambda: wifi(1944, "3/4"), 0, 1, 8),        # rows of 15 over 2 lanes: 8 slots
+    (lambda: wifi(1944, "2/3"), 0, 1, 8),        # rows of 11 over 2 lanes: 6 slots
+    (lambda: wimax(576, "3/4B"), 0, 1, 4),       # narrow
+    (lambda: wimax(2304, "5/6"), 0, 1, 5),       # 4 lanes x 96 = 384 threads
+    (lambda: wimax(2304, "2/3A"), 0, 2, 5),      # rows of 10 over 2 lanes, 384 threads
+    (lambda: wimax(576, "5/6"), 0, 4, 5),        # 384 threads
+    (lambda: wimax(576, "5/6"), 0, 5, 8),        # 480 threads: past the fitted cap
+    (multi_edge_wimax_r56, 0, 1, 8),             # a multi-edge cell
+    (rs_ldpc, 0, 1, 8),                          # the xor group, rows of 32
+    (lambda: nr_code(32, 1), 0, 1, 8),           # kernel B's route: rows of 21, 6 slots
+], ids=["wifi1944r56", "flooding", "sum-product", "scms", "wifi1944r34", "wifi1944r23",
+        "wimax576r34B", "wimax2304r56", "wimax2304r23A", "wimax576r56-tile4",
+        "wimax576r56-tile5", "multi-edge", "rs_ldpc", "route-b"])
+def test_instantiation_rule(make, mode_bits, tile, want):
+    """The instantiation of each shipped code, by its shape: five slots a
+    lane only for layered min-sum on a cyclic code without multi-edge cells
+    that the wide rule takes, whose rows need at most five a lane, in blocks
+    of at most 384 threads; the host's thread cap is the fitted one's there,
+    so the tiles the occupancy query offers all run it."""
+    code = make()
+    assert (cuda_bp.group_slots(code) > 0) == (code.name == "wimax_n576_r56_cell")
+    assert cuda_bp.edges_per_lane(code, mode_bits, tile) == want
+    width = cuda_bp.lanes(code)
+    cap = cuda_bp._max_threads(code, mode_bits)
+    if cuda_bp.edges_per_lane(code, mode_bits) == 5:
+        assert cap == 384
+        for t in range(1, cap // (code.z * width) + 1):
+            assert cuda_bp.edges_per_lane(code, mode_bits, t) == 5
+    else:
+        assert cap == (1024 if want == 4 else 512)
 
 
 def test_edge_and_column_words():

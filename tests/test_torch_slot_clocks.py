@@ -3,8 +3,11 @@ CPU: the fold of a launch's per-block entry and exit times, tile, sweeps
 and iterations into the counter's slots, pinned on hand-made launches; the
 counter and its pointer go to the library only while a profiler records a
 decode that has a clocked instantiation; the library call lies inside the
-``myldpc.short.launch`` span; and the benchmark's reader of the slots finds
-nothing where no counter exists.  The kernel itself runs on the card only
+``myldpc.short.launch`` span; the benchmark's reader of the slots finds
+nothing where no counter exists; a launch of the fitted instantiation is
+counted, and the benchmark's reader of the fitted share reads the counts;
+the occupancy query offers the fitted code only the tiles its instantiation
+holds.  The kernel itself runs on the card only
 (``portbench/tests/test_portbench_wifi_card.py``).
 
 About 6 s alone, on one thread."""
@@ -151,18 +154,18 @@ def test_run_calls_the_library_inside_the_launch_span(monkeypatch):
                                   torch.empty(3, dtype=torch.bool),
                                   torch.empty(3, dtype=torch.int32), executed)
     for counter in ("launches", "soft_launches", "bf16_launches", "xor_launches",
-                    "multi_edge_launches"):  # other tests read them: restored after
+                    "multi_edge_launches", "fitted_launches"):  # restored after
         monkeypatch.setattr(cuda_bp.decode_qc_cuda, counter,
                             getattr(cuda_bp.decode_qc_cuda, counter))
     before = cuda_bp.decode_qc_cuda.launches
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with cuda_bp.span("short.prepare"):
             args = (1, 2)
-        res = cuda_bp._run(code, cfg, result, args)
+        res = cuda_bp._run(code, cfg, result, args, 1)
     assert lib.calls == [("ldpc_bp_layered", (1, 2))]
     assert cuda_bp.decode_qc_cuda.launches == before + 1 and int(res.total_iters) == 9
     assert res.bits is result.bits and res.posteriors is None
-    assert cuda_bp._run(code, cfg, result, None) is result  # an empty batch: no launch
+    assert cuda_bp._run(code, cfg, result, None, 1) is result  # an empty batch: no launch
     events = prof.events()
     spans = sorted((e for e in events if e.name.startswith("myldpc.short.")),
                    key=lambda e: e.time_range.start)
@@ -175,7 +178,69 @@ def test_run_calls_the_library_inside_the_launch_span(monkeypatch):
     monkeypatch.setattr(cuda_bp._build, "load",
                         lambda: types.SimpleNamespace(ldpc_bp_layered=lambda *a: 700))
     with pytest.raises(RuntimeError, match="bp_layered kernel launch failed: CUDA error 700"):
-        cuda_bp._run(code, cfg, result, args)
+        cuda_bp._run(code, cfg, result, args, 1)
+
+
+@pytest.mark.parametrize("code,cfg,tile,fitted", [
+    (wifi(1944, "5/6"), DecoderConfig(normalization=0.75), 1, 1),
+    (wifi(1944, "5/6"), DecoderConfig(normalization=0.75, msg_dtype="bfloat16"), 1, 1),
+    (wifi(1944, "5/6"), DecoderConfig(schedule="flooding"), 1, 0),
+    (wifi(1944, "3/4"), DecoderConfig(normalization=0.75), 1, 0),
+    (wimax(576, "5/6"), DecoderConfig(), 4, 1),
+    (wimax(576, "5/6"), DecoderConfig(), 5, 0),
+    (wimax(576, "3/4B"), DecoderConfig(), 1, 0),
+], ids=["wifi", "wifi-bf16", "flooding", "wifi-r34", "wimax-tile4", "wimax-tile5", "narrow"])
+def test_run_counts_fitted_launches(monkeypatch, code, cfg, tile, fitted):
+    """``decode_qc_cuda.fitted_launches`` counts a launch that the fitted
+    instantiation serves, beside ``launches``."""
+    monkeypatch.setattr(cuda_bp._build, "load", lambda: FakeLib())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    for counter in ("launches", "soft_launches", "bf16_launches", "xor_launches",
+                    "multi_edge_launches", "fitted_launches"):
+        monkeypatch.setattr(cuda_bp.decode_qc_cuda, counter, 0)
+    result = cuda_bp.DecodeResult(torch.empty((1, code.n), dtype=torch.uint8),
+                                  torch.empty(1, dtype=torch.bool),
+                                  torch.empty(1, dtype=torch.int32),
+                                  torch.tensor([4], dtype=torch.int32))
+    cuda_bp._run(code, cfg, result, (1, 2), tile)
+    assert cuda_bp.decode_qc_cuda.launches == 1
+    assert cuda_bp.decode_qc_cuda.fitted_launches == fitted
+
+
+def test_fitted_share_reader(monkeypatch):
+    """The share of launches the fitted instantiation ran, in %: None
+    without the counter (a program before it) or without a launch."""
+    from portbench.spec import metric_reader
+
+    read = metric_reader("bp_layered_fitted_share")
+    decode = cuda_bp.decode_qc_cuda
+    monkeypatch.setattr(decode, "launches", 0)
+    monkeypatch.setattr(decode, "fitted_launches", 0)
+    assert read({}) is None  # no launch counted
+    monkeypatch.setattr(decode, "launches", 19)
+    monkeypatch.setattr(decode, "fitted_launches", 19)
+    assert read({}) == 100.0
+    monkeypatch.setattr(decode, "fitted_launches", 0)
+    assert read({}) == 0.0
+    monkeypatch.delattr(decode, "fitted_launches")
+    assert read({}) is None
+
+
+@pytest.mark.parametrize("code,mode_bits,tiles", [
+    (wifi(1944, "5/6"), 0, [1]),                 # 324 threads a codeword
+    (wimax(576, "5/6"), 0, [1, 2, 3, 4]),        # fitted: up to 384 threads
+    (wimax(576, "5/6"), 1, [1, 2, 3, 4, 5]),     # flooding, wide: up to 512
+    (wimax(576, "3/4B"), 0, list(range(1, 11))),  # narrow: up to 1024
+], ids=["wifi", "wimax-r56", "wimax-r56-flooding", "narrow"])
+def test_occupancy_query_asks_the_tiles_of_the_instantiation(monkeypatch, code, mode_bits,
+                                                            tiles):
+    lib = FakeLib()
+    lib.ldpc_bp_layered_blocks_per_sm = lambda *a: lib.calls.append(a) or 3
+    monkeypatch.setattr(cuda_bp._build, "load", lambda: lib)
+    got = cuda_bp._blocks_per_sm.__wrapped__(code, 0, mode_bits, 4)
+    assert [a[10] for a in lib.calls] == tiles and got == (3,) * len(tiles)
+    assert all(cuda_bp.edges_per_lane(code, mode_bits, t) == cuda_bp.edges_per_lane(code, mode_bits)
+               for t in tiles)
 
 
 def test_occupancy_reader_finds_nothing_without_a_counter(monkeypatch):
