@@ -182,7 +182,7 @@ class QCCode:
         sel = br == i
         return bc[sel], sh[sel]
 
-    @property
+    @cached_property
     def row_degrees(self) -> np.ndarray:
         """Block degree per base row (circulant count, incl. extras)."""
         return np.bincount(self.blocks[0], minlength=self.m_b)
@@ -192,7 +192,7 @@ class QCCode:
         """Block degree per base column (circulant count, incl. extras)."""
         return np.bincount(self.blocks[1], minlength=self.n_b)
 
-    @property
+    @cached_property
     def max_row_degree(self) -> int:
         return int(self.row_degrees.max())
 

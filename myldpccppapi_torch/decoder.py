@@ -1,11 +1,13 @@
 """High-level decoder facade.
 
 Counterpart of ``myldpccppapi_tpu/decoder.py``: construction resolves the
-implementation and wires the decode callable once; calls then decode
-arbitrary batches on the decoder's device.
+implementation, on a kernel its launch plan (``ops/cuda_launch.py``), and
+wires the decode callable once; calls then decode arbitrary batches on the
+decoder's device.
 
-The device defaults to the card (``"cuda"``); without CUDA that raises,
-and ``device="cpu"`` is the only way onto the CPU.
+The device defaults to the card (``"cuda"``: the card current at
+construction, whose tables and SMs a kernel's plan holds); without CUDA
+that raises, and ``device="cpu"`` is the only way onto the CPU.
 
 Dispatch, in the reference's order (``myldpccppapi_tpu/decoder.py::
 _implementation``): a code without block structure (any object exposing
@@ -24,25 +26,16 @@ to its jnp path (XLA ops on the same device).  The choice is made from
 the gates before any launch and is reported in :attr:`Decoder.implementation`;
 a kernel that fails to build or launch raises, it is never replaced.
 
-The short-code kernel serves the layered and flooding schedules,
-min-sum, sum-product, SCMS and soft output on codes of up to 120
-circulants (multi-edge cells included) and on RS-LDPC codes (the xor
-group, up to 256 blocks) whose state fits a thread block, and layered
-min-sum on the small-z 5G NR codes (z < 64, kernel B's route).  The
-long-code kernel serves the layered schedule on 5G NR and DVB-S2
-(min-sum or sum-product, soft output, multi-edge cells, masked rows, the
-exact or the lazy syndrome), with the posterior in shared memory where
-it fits (NR, DVB-S2 16200) and in global memory otherwise (DVB-S2 64800).
-So the torch path serves on the card, as the reference's jnp path does
-on its device: per-iteration (learned) weight schedules; RS-LDPC codes
-whose state does not fit a thread block (``rs_ldpc_from_n(8192)``);
-soft output, sum-product, per-layer weights and SCMS where neither
-kernel serves them (NR with z < 64); and flooding, SCMS and flooding
-sum-product on the long codes.  The table differs from the TPU's in two
-places, each where the port's kernel serves more (named in
-tests/test_torch_dispatch_parity.py): kernel B's route takes the small-z
-NR layered min-sum that the reference gives its streaming kernel, and
-the same in bf16, which that kernel refuses.
+What each kernel serves is its module's ``REQUIREMENTS``.  The torch path
+serves on the card what neither admits, as the reference's jnp path does on
+its device: per-iteration (learned) weight schedules; RS-LDPC codes whose
+state does not fit a thread block (``rs_ldpc_from_n(8192)``); soft output,
+sum-product, per-layer weights and SCMS on NR with z < 64; and flooding,
+SCMS and flooding sum-product on the long codes.  The table differs from
+the TPU's in two places, each where the port's kernel serves more (named in
+tests/test_torch_dispatch_parity.py): kernel B's route takes the small-z NR
+layered min-sum that the reference gives its streaming kernel, in f32 and
+in bf16, which that kernel refuses.
 
 An explicit ``"cuda"`` or ``"cuda_long"`` that does not serve the code
 raises at construction, as the reference's explicit ``"pallas"`` does.
@@ -75,14 +68,14 @@ import torch
 
 from .codes.qc import QCCode
 from .codes.rs_ldpc import RSLDPCCode
-from .ops import cuda_bp, cuda_long
+from .ops import cuda_bp, cuda_launch, cuda_long
 from .ops.bitflip import GDBFConfig, decode_gdbf
 from .ops.bp import DecodeResult, accept_fail_fn, decode_qc
 from .ops.bp_edgelist import build_edge_index, decode_edgelist
 from .ops.crc_accept import decode_with_crc_accept
 from .ops.triage import decode_two_phase
 from .utils.config import DecoderConfig, check_edgelist_config
-from .utils.device import DEFAULT_DEVICE, resolve_device
+from .utils.device import DEFAULT_DEVICE, indexed, resolve_device
 from .utils.profiling import span
 
 __all__ = ["Decoder", "DecodeResult", "resolve_device"]
@@ -160,7 +153,7 @@ class Decoder:
             config = DecoderConfig()
         if overrides:
             config = dataclasses.replace(config, **overrides)
-        device = resolve_device(device)
+        device = indexed(resolve_device(device))
         if isinstance(config, GDBFConfig):
             if not hasattr(code, "blocks"):
                 raise ValueError(
@@ -224,10 +217,10 @@ class Decoder:
             # the check runs in the edge list's own latch
             return partial(decode_edgelist, self._edge_index(), cfg,
                            crc_fail=accept_fail_fn(self.code, cfg))
-        if self.implementation == "cuda":
-            return partial(cuda_bp.decode_qc_cuda, self.code, _syndrome_only(cfg))
-        if self.implementation == "cuda_long":
-            return partial(cuda_long.decode_qc_long, self.code, _syndrome_only(cfg))
+        if self.implementation in _KERNELS:
+            # the kernel's plan, resolved once: a call launches it
+            return partial(cuda_launch.launch, _KERNELS[self.implementation].plan(
+                self.code, _syndrome_only(cfg), self.device))
         # the torch path runs cfg's acceptance check in its own latch
         return partial(decode_qc, self.code, cfg)
 

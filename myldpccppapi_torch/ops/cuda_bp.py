@@ -20,52 +20,34 @@ keeps its state in bf16, rounding after every operation as kernel A and
 the jnp path do; its plain version is the torch path's bf16 decode
 (ops/bp.py), which rounds at the same points.
 
-The wrapper decides the launch's shape: :func:`lanes`, the lanes that
-split each check row (from the code's widest row), and :func:`tile_size`,
-the codewords per thread block, which :func:`choose_tile` picks from the
-batch and the kernel library's occupancy query so that a batch spreads
-over every SM in small blocks.  :func:`edges_per_lane` names the
-instantiation that serves a launch: four edges a lane (narrow), eight
-(wide), or five (fitted: layered min-sum on a cyclic code without
-multi-edge cells whose rows would take the wide one but need no more than
-five a lane, 802.11n 1944 r5/6's and 802.16e r5/6's rows of 20 over 4
-lanes, in blocks of at most 384 threads, three an SM).
+The wrapper decides the launch's shape: :func:`lanes` split each check row,
+:func:`tile_size` picks the codewords a thread block from the batch and the
+occupancy, and :func:`edges_per_lane` names the instantiation: four edges a
+lane (narrow), eight (wide) or five (fitted, 802.11n 1944 r5/6's and
+802.16e r5/6's rows of 20 over 4 lanes, three blocks an SM).
 
-:func:`decode_qc_cuda` launches the kernel for a CUDA tensor and raises if
-it cannot; for a CPU tensor it runs the plain version,
-:func:`decode_qc_cuda_plain` (the torch path of ops/bp.py).  There is no
-fallback from a failed build or launch.  ``decode_qc_cuda.launches``
-counts kernel launches in every mode, ``decode_qc_cuda.soft_launches``
-those with soft output, ``decode_qc_cuda.bf16_launches`` those with bf16
-messages, ``decode_qc_cuda.xor_launches`` those on an xor-group code and
-``decode_qc_cuda.multi_edge_launches`` those on a code with multi-edge
-cells and ``decode_qc_cuda.fitted_launches`` those of the fitted
-instantiation.
-
-While a torch profiler records, a CUDA decode shows as three consecutive
-spans (``utils.profiling.span``): ``myldpc.short.prepare`` (checks,
-``supported()``, the tile, outputs, the cast, tables, the argument list),
-``myldpc.short.launch`` (the library call) and ``myldpc.short.finish``
-(counters, ``executed.max()``, the result).
+:func:`plan` resolves a launch once per (code, config, device), and
+``ops/cuda_launch.py`` launches it.  :func:`decode_qc_cuda` launches the
+kernel for a CUDA tensor and raises if it cannot (there is no fallback); for
+a CPU tensor it runs the plain version, :func:`decode_qc_cuda_plain`.
+``decode_qc_cuda.launches`` counts launches in every mode; ``.soft_``,
+``.bf16_``, ``.xor_``, ``.multi_edge_`` and ``.fitted_launches`` those with
+soft output, bf16 messages, an xor-group code, multi-edge cells and the
+fitted instantiation.
 
 **The slot clocks** (:func:`slot_counter`, :func:`slot_clocks`,
 :func:`fold_slot_clocks`).  While a torch profiler records
-(``utils.profiling.recording``), a layered min-sum launch on a cyclic code
-without multi-edge cells (:func:`clocked`) passes its device and stream's
-slot counter and the launch's slots (SMs times the blocks of its tile
-that one SM holds), and the library runs the kernel's clocked
-instantiation: thread 0 of each block reads ``%globaltimer`` at the
-block's entry and exit, and the counter sums, over every clocked launch,
-each block's resident ns, each launch's slot-ns (its slots times the span
-from its first block's entry to its last block's exit), the frame-sweeps
-(the codewords' iterations), the block-sweeps (each block's sweeps times
-the tile), the blocks and the launches (:data:`SLOT_CLOCKS`).  Resident ns
+(``utils.profiling.recording``), a launch that has a clocked instantiation
+(:func:`clocked`) passes its device and stream's slot counter and its slots
+(SMs times the blocks of its tile that one SM holds), and thread 0 of each
+block reads ``%globaltimer`` at the block's entry and exit; the counter sums
+the slots of :data:`SLOT_CLOCKS` over every clocked launch.  Resident ns
 over slot-ns is the share of the card's block slots that the launches kept
-busy.  The counter lives on the device and no launch reads it back;
-otherwise the launch passes null and runs the unclocked kernel.
+busy.  Otherwise the launch passes null and runs the unclocked kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -74,15 +56,15 @@ import torch
 from ..codes.qc import QCCode
 from ..codes.rs_ldpc import RSLDPCCode
 from ..utils.config import DecoderConfig
-from ..utils.device import cuda_index
-from ..utils.profiling import recording, span
-from . import _build
+from ..utils.device import cuda_index, indexed
+from ..utils.profiling import recording
+from . import _build, cuda_launch
 from .bp import DecodeResult, decode_qc, layer_weights, msg_dtype, weights_mode
-from .cuda_long import MIN_Z as _LONG_MIN_Z
+from .cuda_launch import MIN_Z, choose_tile, dev, group_slots
 
-__all__ = ["REQUIREMENTS", "SLOT_CLOCKS", "choose_tile", "clocked", "decode_qc_cuda",
-           "decode_qc_cuda_plain", "edges_per_lane", "fold_slot_clocks", "lanes",
-           "launch_args", "mode", "slot_clocks", "slot_counter", "supported", "tile_size"]
+__all__ = ["REQUIREMENTS", "SLOT_CLOCKS", "Plan", "choose_tile", "clocked", "decode_qc_cuda",
+           "decode_qc_cuda_plain", "edges_per_lane", "fold_slot_clocks", "lanes", "mode",
+           "plan", "slot_clocks", "slot_counter", "supported", "tile_size"]
 
 #: the TPU kernels' split (pallas_bp._DYN_BLOCK_THRESHOLD): up to this many
 #: circulants kernel A's statically unrolled body, above it kernel B's
@@ -123,7 +105,7 @@ REQUIREMENTS = (
     f"{_MAX_BLOCKS} circulants (multi-edge cells allowed) or "
     f"{_MAX_XOR_BLOCKS} xor blocks under any schedule and algorithm, with "
     "soft output or not, or more circulants, none multi-edge, with z < "
-    f"{_LONG_MIN_Z} under layered min-sum with scalar alpha/beta and no "
+    f"{MIN_Z} under layered min-sum with scalar alpha/beta and no "
     "soft output (kernel B's domain); scalar or per-layer min-sum weights, "
     "not a per-iteration schedule (the torch path serves that); CRC or "
     "outer-code acceptance wraps it (Decoder)"
@@ -159,12 +141,6 @@ def cell_table(code) -> np.ndarray:
         rows[i] = grouped.sum()
         slot[ptr[i]:ptr[i + 1]][grouped] = np.arange(rows[i])
     return np.concatenate([slot, rows])
-
-
-def group_slots(code) -> int:
-    """The most circulants of multi-edge cells in any one layer: the rows
-    of the kernel's layered delta table (0 without such cells)."""
-    return int(cell_table(code)[code.num_blocks:].max(initial=0))
 
 
 def _pow2_lanes(max_row_degree: int, per_lane: int) -> int:
@@ -221,23 +197,6 @@ def _max_threads(code, mode_bits: int) -> int:
     return _MAX_THREADS if per_lane == _NARROW else _MAX_THREADS // 2
 
 
-def choose_tile(batch: int, sms: int, blocks_per_sm) -> int:
-    """Codewords per thread block for ``batch`` codewords on ``sms`` SMs,
-    where ``blocks_per_sm[t - 1]`` blocks of ``t`` codewords fit on one SM
-    at once: the smallest tile at which the whole batch is resident at once
-    (``sms * blocks * tile >= batch``), so that it spreads over every SM in
-    the smallest blocks; else the tile that holds the most codewords at once
-    (the smallest of equals).  0 if not even one codeword fits."""
-    best, most = 0, 0
-    for tile, blocks in enumerate(blocks_per_sm, start=1):
-        resident = sms * blocks * tile
-        if resident >= batch:
-            return tile
-        if resident > most:
-            best, most = tile, resident
-    return best
-
-
 @functools.lru_cache(maxsize=64)
 def _blocks_per_sm(code, device_index: int, mode_bits: int, itemsize: int) -> tuple:
     """The kernel library's occupancy query for ``code`` in ``mode_bits``
@@ -275,9 +234,9 @@ def tile_size(code, device_index: int, batch: int, mode_bits: int = 0,
 def _route_b(code: QCCode, cfg: DecoderConfig | None) -> bool:
     """Kernel B's domain (``pallas_bp._build_kernel_dyn`` refuses the rest,
     ``pallas_bp.py:424-430,534-538``), on the cyclic codes without
-    multi-edge cells that kernel C leaves (z below ``cuda_long.MIN_Z``), so
-    auto dispatch keeps every code kernel C serves on it."""
-    if code.z >= _LONG_MIN_Z or code.extra_blocks:
+    multi-edge cells that kernel C leaves (z below ``MIN_Z``), so auto
+    dispatch keeps every code kernel C serves on it."""
+    if code.z >= MIN_Z or code.extra_blocks:
         return False
     return cfg is None or (
         cfg.schedule == "layered" and cfg.algorithm == "min-sum"
@@ -294,9 +253,9 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
     output (kernel A), with more only kernel B's layered min-sum on a
     cyclic code without multi-edge cells with z < 64.  A config with CRC
     or outer-code acceptance is refused (the kernel is syndrome-only;
-    ``Decoder`` wraps it), and so is a per-iteration weight schedule.  When a CUDA ``device`` is given, the
-    per-codeword state of the config's mode must also fit a thread block's
-    shared memory there (:func:`tile_size`)."""
+    ``Decoder`` wraps it), and so is a per-iteration weight schedule.  When
+    a CUDA ``device`` is given, the per-codeword state of the config's mode
+    must also fit a thread block's shared memory there (:func:`tile_size`)."""
     if isinstance(code, RSLDPCCode):  # z = 2^s: r ^ s stays in [0, z)
         if code.num_blocks > _MAX_XOR_BLOCKS:
             return False
@@ -348,51 +307,15 @@ def column_edges(code) -> tuple[np.ndarray, np.ndarray]:
     return col_ptr, words
 
 
-@functools.lru_cache(maxsize=32)
 def _device_tables(code: QCCode, normalization, offset, device: torch.device):
     """Code structure (edge words, layer pointers), per-column edge lists,
-    the cell table and per-layer weights as device arrays, cached per
-    (code, weights, device) so a launch copies nothing from the host."""
+    the cell table and per-layer weights as device arrays (a plan's
+    tables, so that a launch copies nothing from the host)."""
     alphas, betas = layer_weights(normalization, offset, code.m_b)
     col_ptr, col_edge = column_edges(code)
-
-    def dev(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=device)
-
-    return (dev(edge_words(code), np.int32), dev(code.layer_ptr, np.int32),
-            dev(col_ptr, np.int32), dev(col_edge, np.int32),
-            dev(cell_table(code), np.int32),
-            dev(alphas, np.float32), dev(betas, np.float32))
-
-
-def decode_qc_cuda(code, cfg: DecoderConfig,
-                   llr: torch.Tensor) -> DecodeResult:
-    """Decode [B, n] float32 LLRs (positive => bit 0) with the kernel in
-    ``cfg``'s mode.  Returns the same DecodeResult as ops/bp.py, posteriors
-    included (in the message dtype) with ``cfg.soft_output``; ``total_iters`` is the largest sweep
-    count of any thread block, which equals the batch's loop count of the
-    single-loop torch path."""
-    if llr.ndim != 2 or llr.shape[1] != code.n:
-        raise ValueError(f"expected llr of shape [batch, {code.n}], got "
-                         f"{tuple(llr.shape)}")
-    if llr.dtype != torch.float32:
-        raise ValueError(f"expected float32 llr, got {llr.dtype}")
-    if llr.device.type == "cpu":
-        return decode_qc_cuda_plain(code, cfg, llr)
-    with span("short.prepare"):
-        if llr.device.type != "cuda":
-            raise ValueError(f"unsupported device {llr.device}")
-        if not llr.is_contiguous():
-            raise ValueError("llr must be contiguous")
-        if not supported(code, cfg, llr.device):
-            raise ValueError(
-                f"the CUDA short-code kernel does not serve {code.name} under "
-                f"this config: it needs {REQUIREMENTS}"
-            )
-        tile = tile_size(code, llr.device.index, llr.shape[0], mode(cfg),
-                         msg_dtype(cfg).itemsize)
-        result, args = _prepare(code, cfg, llr, tile)
-    return _run(code, cfg, result, args, tile)
+    return (*(dev(a, np.int32, device) for a in (edge_words(code), code.layer_ptr, col_ptr,
+                                                  col_edge, cell_table(code))),
+            dev(alphas, np.float32, device), dev(betas, np.float32, device))
 
 
 def clocked(code, cfg: DecoderConfig) -> bool:
@@ -440,97 +363,77 @@ def fold_slot_clocks(entry_ns, exit_ns, tile: int, executed, iterations,
             "blocks": int(entry.size), "launches": 1}
 
 
-def _slots(code, cfg: DecoderConfig, device, tile: int) -> int:
-    """The launch's slots: the device's SMs times the blocks of ``tile``
-    codewords that one SM holds in ``cfg``'s mode."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class Plan(cuda_launch.Plan):
+    """Kernel A's launches (:func:`plan`): ``ldpc_bp_layered``'s integers
+    between the batch and the tile (``shape``) and after it (``flags``), and
+    whether a launch may run clocked (:func:`clocked`)."""
+
+    kind, entry = "short", "ldpc_bp_layered"
+    device_tables = staticmethod(_device_tables)
+
+    shape: tuple
+    flags: tuple
+    clockable: bool
+
+    def args(self, outs, llr_k, tile, stream) -> tuple:
+        """Last come the slot counter while a profiler records a clockable
+        launch (else None) and the launch's slots (else 0)."""
+        clock = recording() and self.clockable
+        return (*outs, *(t.data_ptr() for t in self.tables), llr_k.shape[0], *self.shape, tile,
+                *self.flags, stream,
+                slot_counter(llr_k.device, stream).data_ptr() if clock else None,
+                self.sms * self.occupancy[tile - 1] if clock else 0)
+
+
+def plan(code, cfg: DecoderConfig, device) -> Plan:
+    """Kernel A's plan for ``code`` under ``cfg`` on CUDA ``device`` (the
+    current device where it names none), made once: the occupancy
+    (:func:`_blocks_per_sm`), the device's SMs and the tiles the fitted
+    instantiation serves (:func:`edges_per_lane`); ValueError where
+    :func:`supported` refuses it."""
+    return _plan(code, cfg, indexed(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(code, cfg: DecoderConfig, device: torch.device) -> Plan:
+    if not supported(code, cfg, device):
+        raise ValueError(
+            f"the CUDA short-code kernel does not serve {code.name} under "
+            f"this config: it needs {REQUIREMENTS}")
+    mode_bits = mode(cfg)
+    bf16 = cfg.msg_dtype == "bfloat16"
     index = cuda_index(device)
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return sms * _blocks_per_sm(code, index, mode(cfg), msg_dtype(cfg).itemsize)[tile - 1]
+    occupancy = _blocks_per_sm(code, index, mode_bits, msg_dtype(cfg).itemsize)
+    counts = tuple(name for name, on in (
+        ("launches", True), ("soft_launches", cfg.soft_output), ("bf16_launches", bf16),
+        ("xor_launches", _xor(code)), ("multi_edge_launches", group_slots(code) > 0)) if on)
+    return Plan(code, cfg, device, decode_qc_cuda, counts,
+                (code.n_b, code.z, code.m_b, code.num_blocks, group_slots(code),
+                 code.max_row_degree, lanes(code)),
+                (cfg.max_iters, int(cfg.early_exit), mode_bits, int(bf16), int(_xor(code))),
+                clocked(code, cfg),
+                sms=torch.cuda.get_device_properties(index).multi_processor_count,
+                occupancy=occupancy,
+                fitted=frozenset(t for t in range(1, len(occupancy) + 1)
+                                 if edges_per_lane(code, mode_bits, t) == _FITTED))
 
 
-def launch_args(code, cfg: DecoderConfig, llr_k: torch.Tensor, bits, conv, iters,
-                executed, post, tile: int, stream: int) -> tuple:
-    """The arguments of the library's ``ldpc_bp_layered`` for a decode of
-    ``llr_k`` (in the message dtype) into outputs the caller has checked and
-    allocated, ``tile`` codewords a block, on ``stream``.  Last come the
-    device and stream's slot counter while a profiler records and the
-    decode has a clocked instantiation (else None) and the launch's slots
-    (else 0)."""
-    dev = llr_k.device
-    edge, ptr, col_ptr, col_edge, cell, alpha, beta = _device_tables(
-        code, cfg.normalization, cfg.offset, dev)
-    clock = recording() and clocked(code, cfg)
-    return (
-        llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-        executed.data_ptr(), None if post is None else post.data_ptr(),
-        edge.data_ptr(), ptr.data_ptr(), col_ptr.data_ptr(), col_edge.data_ptr(),
-        cell.data_ptr(), alpha.data_ptr(), beta.data_ptr(), llr_k.shape[0], code.n_b,
-        code.z, code.m_b, code.num_blocks, group_slots(code),
-        code.max_row_degree, lanes(code), tile, cfg.max_iters,
-        int(cfg.early_exit), mode(cfg), int(llr_k.dtype == torch.bfloat16),
-        int(_xor(code)), stream,
-        slot_counter(dev, stream).data_ptr() if clock else None,
-        _slots(code, cfg, dev, tile) if clock else 0,
-    )
+def decode_qc_cuda(code, cfg: DecoderConfig,
+                   llr: torch.Tensor) -> DecodeResult:
+    """Decode [B, n] float32 LLRs (positive => bit 0) with the kernel in
+    ``cfg``'s mode.  Returns the same DecodeResult as ops/bp.py, posteriors
+    included (in the message dtype) with ``cfg.soft_output``; ``total_iters``
+    is the largest sweep count of any thread block, the batch's loop count
+    of the single-loop torch path."""
+    if cuda_launch.check_llr(code, llr):
+        return decode_qc_cuda_plain(code, cfg, llr)
+    return cuda_launch.decode("short", lambda: plan(code, cfg, cuda_launch.card(llr)), llr)
 
 
 def _prepare(code, cfg: DecoderConfig, llr: torch.Tensor, tile: int):
-    """A launch on a checked, contiguous CUDA ``llr`` with ``tile``
-    codewords per thread block: (result, args), the DecodeResult of its
-    outputs with each block's sweep count (``executed``) for
-    ``total_iters``, and the library call's arguments; args None for an
-    empty batch, whose result is final."""
-    batch = llr.shape[0]
-    dev = llr.device
-    dt = msg_dtype(cfg)
-    bits = torch.empty((batch, code.n), dtype=torch.uint8, device=dev)
-    conv = torch.empty((batch,), dtype=torch.bool, device=dev)
-    iters = torch.empty((batch,), dtype=torch.int32, device=dev)
-    post = (torch.empty((batch, code.n), dtype=dt, device=dev)
-            if cfg.soft_output else None)
-    if batch == 0:
-        return DecodeResult(bits, conv, iters,
-                            torch.zeros((), dtype=torch.int32, device=dev),
-                            posteriors=post), None
-    llr_k = llr.to(dt)  # bf16: cast on the card (the reference casts first)
-    executed = torch.empty(((batch + tile - 1) // tile,), dtype=torch.int32,
-                           device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    return (DecodeResult(bits, conv, iters, executed, posteriors=post),
-            launch_args(code, cfg, llr_k, bits, conv, iters, executed, post, tile, stream))
-
-
-def _run(code, cfg: DecoderConfig, result: DecodeResult, args, tile: int) -> DecodeResult:
-    """Make the library call of :func:`_prepare`'s launch (``tile``
-    codewords a block) inside the ``myldpc.short.launch`` span, then count
-    it and return its result (``total_iters`` the largest block sweep count)
-    inside ``myldpc.short.finish``; raises if the launch fails."""
-    if args is None:
-        return result
-    with torch.cuda.device(result.bits.device):
-        with span("short.launch"):
-            err = _build.load().ldpc_bp_layered(*args)
-    if err != 0:
-        raise RuntimeError(f"bp_layered kernel launch failed: CUDA error {err}")
-    with span("short.finish"):
-        decode_qc_cuda.launches += 1
-        decode_qc_cuda.soft_launches += result.posteriors is not None
-        decode_qc_cuda.bf16_launches += cfg.msg_dtype == "bfloat16"
-        decode_qc_cuda.xor_launches += _xor(code)
-        decode_qc_cuda.multi_edge_launches += group_slots(code) > 0
-        decode_qc_cuda.fitted_launches += edges_per_lane(code, mode(cfg), tile) == _FITTED
-        return DecodeResult(result.bits, result.converged, result.iterations,
-                            result.total_iters.max(), posteriors=result.posteriors)
-
-
-def _launch(code, cfg: DecoderConfig, llr: torch.Tensor,
-            tile: int) -> DecodeResult:
-    """Launch the kernel on a checked, contiguous CUDA ``llr`` with ``tile``
-    codewords per thread block (any tile that fits gives the same
-    result)."""
-    with span("short.prepare"):
-        result, args = _prepare(code, cfg, llr, tile)
-    return _run(code, cfg, result, args, tile)
+    """(result, ``ldpc_bp_layered``'s arguments) of a launch, ``tile`` a block."""
+    return cuda_launch.prepare(plan(code, cfg, llr.device), llr, tile)
 
 
 decode_qc_cuda.launches = 0

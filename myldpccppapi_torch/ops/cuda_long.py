@@ -13,14 +13,10 @@ placements of the posterior:
   one record per row and layer in a device-memory scratch whose size the
   kernel library gives (:func:`scratch_bytes`).
 * ``myldpccppapi_tpu/ops/pallas_stream.py`` (``decode_qc_stream``, kernel
-  D), which serves codes whose posterior does not fit on chip: the
-  posterior in a global-memory scratch, each layer staged in shared memory
-  by bulk copies, min-sum messages compressed to a record per row (the
-  *global* placement, ``bp_stream.cu``, whose stage plan and launch are in
-  ``ops/cuda_stream.py``): DVB-S2 64800, whose bf16 posterior would fit a
-  block's shared memory but leave one block to an SM.  The TPU's D
-  refuses sum-product and soft output; the global placement serves every
-  mode of kernel C's sweep.
+  D), for codes whose posterior does not fit on chip: the *global*
+  placement (``bp_stream.cu``, host side in ``ops/cuda_stream.py``), DVB-S2
+  64800.  The TPU's D refuses sum-product and soft output; the global
+  placement serves every mode of kernel C's sweep.
 
 The kernel library's fit query (:func:`placement`) picks the placement from
 its own shared-memory layout and the message item size: shared where as
@@ -28,19 +24,14 @@ many blocks fit an SM as the serving instantiation is built for.  Under bf16 the
 wrapper casts the LLRs to bf16 on the card, the kernel stores R, P and the
 posterior output in bf16 with kernel C's rounding points, and the plain
 version is the torch layered decode with the same points
-(``group_rounding``, ops/bp.py).  :func:`decode_qc_long` launches the kernel
-for a CUDA tensor and raises if it cannot; for a CPU tensor it runs the
-plain version, :func:`decode_qc_long_plain`.  There is no fallback from a
-failed build or launch.  ``decode_qc_long.launches`` counts launches in the
-shared placement and ``decode_qc_long.global_launches`` those in the
-global one; ``decode_qc_long.soft_launches``, ``.sp_launches`` and
-``.bf16_launches`` count, across placements, those with soft output, those
-of sum-product and those with bf16 messages.  While a torch profiler
-records, a CUDA decode shows as three consecutive spans
-(``utils.profiling.span``): ``myldpc.long.prepare`` (every host step before
-the library call: checks, placement, outputs, the cast, scratches, tables,
-arguments), ``myldpc.long.launch`` (the library call) and
-``myldpc.long.finish`` (counters, ``executed.max()``, the result).
+(``group_rounding``, ops/bp.py).  :func:`plan` resolves a launch once per
+(code, config, device, placement), and ``ops/cuda_launch.py`` launches it.
+:func:`decode_qc_long` launches the kernel for a CUDA tensor and raises if
+it cannot (there is no fallback); for a CPU tensor it runs the plain
+version, :func:`decode_qc_long_plain`.  ``decode_qc_long.launches`` and
+``.global_launches`` count launches in the shared and the global placement;
+``.soft_launches``, ``.sp_launches`` and ``.bf16_launches``, across
+placements, those with soft output, of sum-product and with bf16 messages.
 
 The lazy syndrome is per codeword here: a codeword latches on a sweep only
 if its on-the-fly parity check passed on that sweep and then its exact
@@ -52,6 +43,7 @@ exact iterations).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -59,21 +51,16 @@ import torch
 
 from ..codes.qc import QCCode
 from ..utils.config import DecoderConfig
-from ..utils.device import cuda_index
-from ..utils.profiling import span
-from . import _build
+from ..utils.device import cuda_index, indexed
+from . import _build, cuda_launch, cuda_stream
 from .bp import DecodeResult, _decode_layered, layer_weights, msg_dtype, weights_mode
-from . import cuda_stream
-from .cuda_stream import MULTI_EDGE, group_slots, layer_flags, live_words, n_masks
+from .cuda_launch import (MIN_Z, MULTI_EDGE, dev, group_slots, layer_flags, live_rows,
+                          mask_slots, n_masks)
 
-__all__ = ["GLOBAL", "MIN_Z", "REQUIREMENTS", "SHARED", "blocks_per_sm",
-           "decode_qc_long", "decode_qc_long_plain", "placement", "scratch_bytes",
+__all__ = ["GLOBAL", "MIN_Z", "REQUIREMENTS", "SHARED", "Plan", "blocks_per_sm",
+           "decode_qc_long", "decode_qc_long_plain", "placement", "plan", "scratch_bytes",
            "supported"]
 
-#: the reference kernel's gate (pallas_zlane.zlane_supported): below half a
-#: 128-lane tile the TPU layout wastes the VPU, and small-z codes go to the
-#: short-code kernels there (ops/cuda_bp.py serves kernel B's route below it)
-MIN_Z = 64
 #: posterior placements, as the kernel library's fit query reports them
 SHARED, GLOBAL = 2, 1
 #: what :func:`supported` asks of a code and a config, for error messages;
@@ -96,9 +83,9 @@ def placement(code: QCCode, device_index: int, itemsize: int = 4) -> int:
     :data:`SHARED` when it fits a thread block's shared memory with the
     tables, :data:`GLOBAL` when only the global kernel's stage ring and
     tables do, 0 when neither kernel can serve the code (z threads or the
-    widest row past the kernels' bounds).
-    The kernel library answers from its own layout and the device's limits,
-    so this builds the kernel at first use."""
+    widest row past the kernels' bounds).  The kernel library answers from
+    its own layout and the device's limits, so this builds the kernel at
+    first use."""
     got = _build.load().ldpc_bp_long_fits(
         code.n, code.z, code.m_b, code.num_blocks, n_masks(code),
         group_slots(code), code.max_row_degree, itemsize, device_index)
@@ -137,11 +124,10 @@ def supported(code, cfg: DecoderConfig | None = None, device=None) -> bool:
     syndrome-only; ``Decoder`` wraps it, ops/crc_accept.py), and a
     per-iteration weight schedule in either placement (the tables hold one
     weight per layer, as ``pallas_zlane``'s and ``pallas_stream.py:77-83``
-    do).  The flooding
-    schedule, and SCMS with it, is the TPU short-code kernel's, as here
-    (ops/cuda_bp.py).  So is the xor group: the kernel aligns circulants
-    only, as the TPU's z-lane kernel does, so an xor-group code is refused
-    whatever its class."""
+    do).  The flooding schedule, and SCMS with it, is the TPU short-code
+    kernel's, as here (ops/cuda_bp.py).  So is the xor group: the kernel
+    aligns circulants only, as the TPU's z-lane kernel does, so an
+    xor-group code is refused whatever its class."""
     if getattr(code, "group", "cyclic") == "xor":
         return False
     if not isinstance(code, QCCode) or code.z < MIN_Z:
@@ -167,32 +153,17 @@ def decode_qc_long_plain(code: QCCode, cfg: DecoderConfig,
                            group_rounding=True)
 
 
-@functools.lru_cache(maxsize=32)
 def _device_tables(code: QCCode, normalization, offset, device: torch.device):
-    """The kernel's tables as device arrays, cached per (code, weights,
-    device) so a launch copies nothing from the host: block columns, shift
+    """The kernel's tables as device arrays (a plan's tables, so that a
+    launch copies nothing from the host): block columns, shift
     words (shift | mask slot << 16), layer pointers, layer flags, the
-    masked blocks' live-row bits, alpha and beta; and whether any layer is
-    multi-edge."""
+    masked blocks' live-row bits, alpha and beta."""
     _, bc, sh = code.blocks
-    words = (code.z + 31) // 32
-    shift = sh.astype(np.int32)
-    live = []
-    for e, mask in enumerate(code.block_row_masks):
-        if mask is not None:
-            live.append(live_words(mask, words))
-            shift[e] |= len(live) << 16
-    flags = layer_flags(code)
+    shift = sh | mask_slots(code) << 16
     alphas, betas = layer_weights(normalization, offset, code.m_b)
-
-    def dev(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=device)
-
-    live_rows = np.concatenate(live) if live else np.zeros(1, np.int32)
-    tables = tuple(dev(a, np.int32)
-                   for a in (bc, shift, code.layer_ptr, flags, live_rows))
-    tables += (dev(alphas, np.float32), dev(betas, np.float32))
-    return tables, bool((flags & MULTI_EDGE).any())
+    return (*(dev(a, np.int32, device) for a in (bc, shift, code.layer_ptr, layer_flags(code),
+                                                  live_rows(code))),
+            dev(alphas, np.float32, device), dev(betas, np.float32, device))
 
 
 @functools.lru_cache(maxsize=64)
@@ -209,89 +180,73 @@ def scratch_bytes(code: QCCode, sum_product: bool, itemsize: int) -> int:
     return got
 
 
-def _shared_args(code: QCCode, cfg: DecoderConfig, llr_k: torch.Tensor, bits, conv,
-                 iters, executed, post, stream: int) -> tuple:
-    """The arguments of the library's ``ldpc_bp_long`` (csrc/bp_long.cu, the
-    shared placement) for a decode on checked CUDA tensors; ``llr_k`` in
-    the message dtype.  Allocates the R scratch."""
-    dt = llr_k.dtype
+@dataclasses.dataclass(frozen=True, eq=False)
+class Plan(cuda_launch.Plan):
+    """Kernel C's launches in the shared placement (:func:`plan`):
+    ``ints``, ``ldpc_bp_long``'s integer arguments after the batch."""
+
+    kind, entry = "long", "ldpc_bp_long"
+    device_tables = staticmethod(_device_tables)
+
+    ints: tuple
+
+    def args(self, outs, llr_k, tile, stream) -> tuple:
+        """Allocates the R scratch."""
+        # the messages R, records or per edge: written before they are read
+        per_codeword = scratch_bytes(self.code, self.cfg.algorithm == "sum-product",
+                                     llr_k.dtype.itemsize)
+        r_scratch = torch.empty((llr_k.shape[0] * per_codeword,), dtype=torch.uint8,
+                                device=llr_k.device)
+        return (*outs, r_scratch.data_ptr(), *(t.data_ptr() for t in self.tables),
+                llr_k.shape[0], *self.ints, stream)
+
+
+def plan(code: QCCode, cfg: DecoderConfig, device, place: int = 0) -> cuda_launch.Plan:
+    """The plan for ``code`` under ``cfg`` on CUDA ``device`` (the current
+    device where it names none) in the placement of the fit query
+    (:func:`placement`) or ``place``, made once: kernel C's :class:`Plan`
+    (shared) or kernel D's (global); ValueError where :func:`supported`
+    refuses it."""
+    return _plan(code, cfg, indexed(device), place)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(code: QCCode, cfg: DecoderConfig, device: torch.device,
+          place: int) -> cuda_launch.Plan:
+    if not supported(code, cfg, device):
+        raise ValueError(
+            f"the CUDA long-code kernel does not serve {code.name} under "
+            f"this config: it needs {REQUIREMENTS}")
+    dt = msg_dtype(cfg)
     sum_product = cfg.algorithm == "sum-product"
-    # the messages R, records or per edge: written before they are read
-    per_codeword = scratch_bytes(code, sum_product, dt.itemsize)
-    r_scratch = torch.empty((llr_k.shape[0] * per_codeword,), dtype=torch.uint8,
-                            device=llr_k.device)
-    tables, multi_edge = _device_tables(code, cfg.normalization, cfg.offset, llr_k.device)
-    return (
-        llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-        executed.data_ptr(), None if post is None else post.data_ptr(),
-        r_scratch.data_ptr(), *(t.data_ptr() for t in tables),
-        llr_k.shape[0], code.n_b, code.z, code.m_b, code.num_blocks, n_masks(code),
-        int(multi_edge), group_slots(code), code.max_row_degree,
-        cfg.max_iters, int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
-        int(sum_product), int(dt == torch.bfloat16), stream)
+    place = place or placement(code, cuda_index(device), dt.itemsize)
+    counts = tuple(name for name, on in (
+        ("global_launches" if place == GLOBAL else "launches", True),
+        ("soft_launches", cfg.soft_output), ("sp_launches", sum_product),
+        ("bf16_launches", dt == torch.bfloat16)) if on)
+    if place == GLOBAL:
+        return cuda_stream.plan(code, cfg, device, decode_qc_long, counts)
+    return Plan(code, cfg, device, decode_qc_long, counts,
+                (code.n_b, code.z, code.m_b, code.num_blocks, n_masks(code),
+                 int((layer_flags(code) & MULTI_EDGE).any()), group_slots(code),
+                 code.max_row_degree, cfg.max_iters, int(cfg.early_exit),
+                 int(cfg.syndrome_mode == "lazy"), int(sum_product),
+                 int(dt == torch.bfloat16)))
 
 
 def decode_qc_long(code: QCCode, cfg: DecoderConfig, llr: torch.Tensor, *,
                    _place: int = 0) -> DecodeResult:
     """Decode [B, n] float32 LLRs (positive => bit 0) with the long-code
     kernels, one thread block per codeword, the posterior where the fit
-    query places it (``_place``, :data:`SHARED` or :data:`GLOBAL`, puts it
-    there instead, for tests and probes; a launch that does not fit
-    raises).  Returns the same
-    DecodeResult as ops/bp.py, posteriors included (in the message dtype)
-    with ``cfg.soft_output``; ``total_iters`` is the largest sweep count of
-    any codeword's block, which equals the batch's loop count of the
-    single-loop torch path."""
-    if llr.ndim != 2 or llr.shape[1] != code.n:
-        raise ValueError(f"expected llr of shape [batch, {code.n}], got "
-                         f"{tuple(llr.shape)}")
-    if llr.dtype != torch.float32:
-        raise ValueError(f"expected float32 llr, got {llr.dtype}")
-    if llr.device.type == "cpu":
+    query places it or in ``_place`` (for tests and probes; a launch that
+    does not fit raises).  Returns the same DecodeResult as ops/bp.py,
+    posteriors included (in the message dtype) with ``cfg.soft_output``;
+    ``total_iters`` is the largest sweep count of any codeword's block, the
+    batch's loop count of the single-loop torch path."""
+    if cuda_launch.check_llr(code, llr):
         return decode_qc_long_plain(code, cfg, llr)
-    with span("long.prepare"):
-        if llr.device.type != "cuda":
-            raise ValueError(f"unsupported device {llr.device}")
-        if not llr.is_contiguous():
-            raise ValueError("llr must be contiguous")
-        if not supported(code, cfg, llr.device):
-            raise ValueError(
-                f"the CUDA long-code kernel does not serve {code.name} under "
-                f"this config: it needs {REQUIREMENTS}"
-            )
-        dt = msg_dtype(cfg)
-        place = _place or placement(code, cuda_index(llr.device), msg_dtype(cfg).itemsize)
-        batch = llr.shape[0]
-        dev = llr.device
-        bits = torch.empty((batch, code.n), dtype=torch.uint8, device=dev)
-        conv = torch.empty((batch,), dtype=torch.bool, device=dev)
-        iters = torch.empty((batch,), dtype=torch.int32, device=dev)
-        post = (torch.empty((batch, code.n), dtype=dt, device=dev)
-                if cfg.soft_output else None)
-        if batch == 0:
-            return DecodeResult(bits, conv, iters,
-                                torch.zeros((), dtype=torch.int32, device=dev),
-                                posteriors=post)
-        llr_k = llr.to(dt)  # bf16: cast on the card (the reference casts first)
-        executed = torch.empty((batch,), dtype=torch.int32, device=dev)
-        sum_product = cfg.algorithm == "sum-product"
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        operands = (code, cfg, llr_k, bits, conv, iters, executed, post, stream)
-        if place == GLOBAL:
-            name, args = "ldpc_bp_stream", cuda_stream.launch_args(*operands)
-        else:
-            name, args = "ldpc_bp_long", _shared_args(*operands)
-    with torch.cuda.device(dev):
-        cuda_stream.launch(name, args)
-    with span("long.finish"):
-        if place == GLOBAL:
-            decode_qc_long.global_launches += 1
-        else:
-            decode_qc_long.launches += 1
-        decode_qc_long.soft_launches += post is not None
-        decode_qc_long.sp_launches += sum_product
-        decode_qc_long.bf16_launches += dt == torch.bfloat16
-        return DecodeResult(bits, conv, iters, executed.max(), posteriors=post)
+    return cuda_launch.decode("long", lambda: plan(code, cfg, cuda_launch.card(llr), _place),
+                              llr)
 
 
 decode_qc_long.launches = 0

@@ -1,10 +1,8 @@
 """Host side of the global-posterior kernel (``csrc/bp_stream.cu``, the
 port of ``myldpccppapi_tpu/ops/pallas_stream.py``'s kernel D): its stage
-plan, its compressed min-sum messages, its tables and its launch.
-
-``ops/cuda_long.py`` calls :func:`launch` for every code in the
-:data:`~myldpccppapi_torch.ops.cuda_long.GLOBAL` placement; the function
-is the long-code kernel's, ``cuda_long.decode_qc_long_plain``.
+plan, its compressed min-sum messages, its tables and its launch's
+:class:`Plan`, which ``ops/cuda_long.py`` resolves in the global placement.
+Its plain version is the long-code kernel's, ``decode_qc_long_plain``.
 
 **The stage plan** (:func:`stage_plan`).  The kernel brings each layer's
 distinct block columns of the posterior into a ring of two shared-memory
@@ -30,39 +28,23 @@ two functions are the record's encoder and decoder in torch, bit-exact
 with the per-edge messages of ``ops/bp.py``'s check update.
 
 **Persistent blocks and turns** (:func:`turn_sweeps`, :func:`queue_entries`,
-:func:`workspace`).  The kernel's grid is ``min(batch, slots)`` blocks,
-``slots`` the blocks the device holds at once (its SMs times the kernel's
-occupancy, which the library asks once per instantiation, shared bytes and
-device).  A block decodes a codeword in turns: it takes a ticket from a
-device-side FIFO, runs at most
-:data:`TURN_SWEEPS` sweeps of the ticket's codeword from its saved sweep
-count, and puts an unfinished codeword back at the queue's tail.  P and R
-live in device memory and every column ends each sweep written back, so a
-codeword resumes on any block from them, its sweep count, its iterations
-and its latch (the ``executed``, ``iterations`` and ``converged`` outputs
-hold them between turns).  This ends the in-order grid's tail, where the
-last blocks started ran on an emptying card.  Turns engage only when the
-batch exceeds the slots; a batch that fits takes one turn a codeword (its
-whole decode).  The queue (four counters and :func:`queue_entries` codeword
-entries, int32) is a workspace per device and stream, zeros when made; the
-kernel's last block to leave returns it to zeros, so a launch needs no
-clearing of its own.  :func:`turn_sweeps` mirrors the library's rule for
-the CPU tests.
+:func:`workspace`).  The kernel's grid is ``min(batch, slots)`` blocks, the
+blocks the device holds at once.  A block takes a ticket from a device-side
+FIFO, runs at most :data:`TURN_SWEEPS` sweeps of the ticket's codeword from
+its saved sweep count, and puts an unfinished codeword back at the queue's
+tail; P, R, the sweep count, the iterations and the latch (the
+``executed``, ``iterations`` and ``converged`` outputs) live in device
+memory between turns, so a codeword resumes on any block.  This ends the
+in-order grid's tail on an emptying card.  Turns engage only when the batch
+exceeds the slots.  The queue is a workspace per device and stream that the
+kernel's last block returns to zeros.  :func:`turn_sweeps` mirrors the
+library's rule for the CPU tests.
 
 **The phase counter** (:func:`phase_counter`, :func:`phase_cycles`).
 While a torch profiler records (``utils.profiling.recording``), a min-sum
 launch passes its device's counter and the library runs the kernel's
-clocked instantiation, whose thread 0 of each block adds the cycles of a
-layer's stage wait, pass 1 and pass 2 and of each sweep's end, its
-resident cycles (from taking a turn to its end: the wait on an empty queue
-is not counted), its sweeps and its turns (:data:`PHASE_SLOTS`).  The
-counter lives on the device and no launch reads it back; otherwise the
-launch passes null and runs the unclocked kernel.  Sum-product always runs
-unclocked.
-
-:func:`launch` makes a long-code kernel's library call (this kernel's and
-``ops/cuda_long.py``'s shared placement) inside the ``myldpc.long.launch``
-span; :func:`launch_args` builds this kernel's arguments.
+clocked instantiation (:data:`PHASE_SLOTS`); otherwise the launch passes
+null and runs the unclocked kernel.  Sum-product always runs unclocked.
 """
 from __future__ import annotations
 
@@ -73,16 +55,16 @@ import numpy as np
 import torch
 
 from ..codes.qc import QCCode
-from ..utils.profiling import recording, span
-from . import _build
-from .bp import layer_weights
+from ..utils.config import DecoderConfig
+from ..utils.profiling import recording
+from . import _build, cuda_launch
+from .bp import layer_weights, msg_dtype
+from .cuda_launch import dev, group_slots, layer_flags, live_rows, mask_slots, n_masks
 
-__all__ = ["DISTANCE", "HAS_MASK", "MULTI_EDGE", "PHASES", "PHASE_SLOTS", "QUEUE_COUNTERS",
-           "StagePlan", "TURN_SWEEPS", "blocks_per_sm", "compress_min_sum",
-           "expand_min_sum", "group_slots", "launch", "launch_args",
-           "layer_flags", "live_words", "n_masks", "pad_z", "phase_counter", "phase_cycles",
-           "queue_entries", "record_words", "stage_plan", "stream_bytes", "turn_sweeps",
-           "workspace"]
+__all__ = ["DISTANCE", "PHASES", "PHASE_SLOTS", "Plan", "QUEUE_COUNTERS", "StagePlan",
+           "TURN_SWEEPS", "blocks_per_sm", "compress_min_sum", "expand_min_sum", "pad_z",
+           "phase_counter", "phase_cycles", "plan", "queue_entries", "record_words",
+           "stage_plan", "stream_bytes", "turn_sweeps", "workspace"]
 
 #: the kernel's prefetch distance in layers (its ring holds two stages)
 DISTANCE = 1
@@ -122,58 +104,6 @@ def record_words(max_row_degree: int, itemsize: int) -> int:
     """32-bit words of a min-sum record: m1s and m2s (two f32 or two packed
     bf16), then the index and sign bits."""
     return (2 if itemsize == 4 else 1) + (IDX_BITS + max_row_degree + 31) // 32
-
-
-def n_masks(code: QCCode) -> int:
-    """Blocks of ``code`` with row-masked (partial) circulants."""
-    return sum(m is not None for m in code.block_row_masks)
-
-
-#: layer flag bits, as both long-code kernels read them
-MULTI_EDGE, HAS_MASK = 1, 2
-
-
-def layer_flags(code: QCCode) -> np.ndarray:
-    """[m_b] int32: MULTI_EDGE where two circulants share a (layer, column)
-    cell (they are adjacent in block order, QCCode.blocks), HAS_MASK where
-    the layer has a row-masked block."""
-    _, bc, _ = code.blocks
-    masks = code.block_row_masks
-    ptr = code.layer_ptr
-    flags = np.zeros(code.m_b, dtype=np.int32)
-    for i in range(code.m_b):
-        cols = bc[ptr[i]:ptr[i + 1]]
-        if len(np.unique(cols)) < len(cols):
-            flags[i] |= MULTI_EDGE
-        if any(masks[e] is not None for e in range(ptr[i], ptr[i + 1])):
-            flags[i] |= HAS_MASK
-    return flags
-
-
-@functools.lru_cache(maxsize=64)
-def group_slots(code: QCCode) -> int:
-    """Circulants of multi-edge cells (adjacent blocks of one layer and
-    column) in the layer that has the most: the rows of the kernel's
-    shared delta table."""
-    _, bc, _ = code.blocks
-    ptr = code.layer_ptr
-    most = 0
-    for i in range(code.m_b):
-        cols = bc[ptr[i]:ptr[i + 1]]
-        same = cols[1:] == cols[:-1]
-        grouped = np.zeros(len(cols), dtype=bool)
-        grouped[1:] |= same
-        grouped[:-1] |= same
-        most = max(most, int(grouped.sum()))
-    return most
-
-
-def live_words(mask: np.ndarray, words: int) -> np.ndarray:
-    """bool[z] live rows -> [words] int32 bit words (bit r of word w is row
-    32 w + r), as both long-code kernels read them."""
-    bits = np.zeros(words * 32, dtype=bool)
-    bits[:len(mask)] = mask
-    return np.packbits(bits, bitorder="little").view("<u4").view(np.int32)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -342,16 +272,12 @@ def _table_words(code: QCCode, plan: StagePlan) -> tuple[np.ndarray, np.ndarray]
     and column words (column | loaded << 16 | forward slot << 17 |
     forwarded << 23) of a plan at distance 1."""
     _, _, sh = code.blocks
-    n_masks = 0
-    shift = sh.astype(np.int64) | plan.edge_slot.astype(np.int64) << _SLOT_SHIFT
-    for e, mask in enumerate(code.block_row_masks):
-        if mask is not None:
-            n_masks += 1
-            shift[e] |= n_masks << _MASK_SHIFT
+    shift = (sh.astype(np.int64) | plan.edge_slot.astype(np.int64) << _SLOT_SHIFT
+             | mask_slots(code) << _MASK_SHIFT)
     if plan.distance != DISTANCE:
         raise ValueError(f"the kernel runs at prefetch distance {DISTANCE}, "
                          f"not {plan.distance}")
-    if (code.z > 1 << _SLOT_SHIFT or plan.max_cols > 64 or n_masks >= 1 << 12
+    if (code.z > 1 << _SLOT_SHIFT or plan.max_cols > 64 or n_masks(code) >= 1 << 12
             or code.n_b > 1 << _LOAD_BIT):
         raise ValueError(f"{code.name} passes the global kernel's table fields")
     col = (plan.cols.astype(np.int64) | plan.loaded.astype(np.int64) << _LOAD_BIT
@@ -361,24 +287,16 @@ def _table_words(code: QCCode, plan: StagePlan) -> tuple[np.ndarray, np.ndarray]
     return wrap(shift), col.astype(np.int32)
 
 
-@functools.lru_cache(maxsize=32)
 def _device_tables(code: QCCode, normalization, offset, device: torch.device):
-    """The kernel's tables on ``device``, cached per (code, weights,
-    device): shift words, layer pointers, layer flags, column pointers,
-    column words, the masked blocks' live-row bits, alpha and beta."""
+    """The kernel's tables on ``device`` (a plan's tables): shift words,
+    layer pointers, layer flags, column pointers, column words, the masked
+    blocks' live-row bits, alpha and beta."""
     plan = stage_plan(code)
     shift, col = _table_words(code, plan)
-    words = (code.z + 31) // 32
-    live = [live_words(m, words) for m in code.block_row_masks if m is not None]
-    live_rows = np.concatenate(live) if live else np.zeros(1, np.int32)
     alphas, betas = layer_weights(normalization, offset, code.m_b)
-
-    def dev(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=device)
-
-    return (*(dev(a, np.int32) for a in (shift, code.layer_ptr, layer_flags(code),
-                                          plan.col_ptr, col, live_rows)),
-            dev(alphas, np.float32), dev(betas, np.float32))
+    return (*(dev(a, np.int32, device) for a in (shift, code.layer_ptr, layer_flags(code),
+                                                  plan.col_ptr, col, live_rows(code))),
+            dev(alphas, np.float32, device), dev(betas, np.float32, device))
 
 
 def blocks_per_sm(code: QCCode, sum_product: bool, itemsize: int) -> int:
@@ -444,50 +362,47 @@ def phase_cycles() -> "dict | None":
     return dict(zip(PHASE_SLOTS, total.tolist()))
 
 
-def launch_args(code: QCCode, cfg, llr_k: torch.Tensor, bits, conv, iters, executed,
-                post, stream: int) -> tuple:
-    """The arguments of the library's ``ldpc_bp_stream`` for a decode on
-    CUDA tensors the caller (cuda_long.decode_qc_long) has checked and
-    allocated; ``llr_k`` in the message dtype.  Allocates the P and R
-    scratches.  After the stream come the device's phase counter while a
-    profiler records and the decode is min-sum (else None), then the turn
-    queue's workspace of the device and stream and its entries."""
-    dt = llr_k.dtype
-    item = dt.itemsize
-    batch, dev = llr_k.shape[0], llr_k.device
-    zp = pad_z(code.z)
+@dataclasses.dataclass(frozen=True, eq=False)
+class Plan(cuda_launch.Plan):
+    """Kernel D's launches (:func:`plan`): ``ints``, ``ldpc_bp_stream``'s
+    integer arguments after the batch; ``r_shape``, a codeword's R scratch
+    (records, or under sum-product messages per block)."""
+
+    kind, entry = "long", "ldpc_bp_stream"
+    device_tables = staticmethod(_device_tables)
+
+    ints: tuple
+    r_shape: tuple
+
+    def args(self, outs, llr_k, tile, stream) -> tuple:
+        """Allocates P and R.  After the stream: the phase counter while a
+        profiler records min-sum (else None), the turn queue and its entries."""
+        batch, device = llr_k.shape[0], llr_k.device
+        sum_product = self.cfg.algorithm == "sum-product"
+        # uninitialised: the kernel copies the LLRs into P and reads no R in
+        # sweep 0
+        p_scratch = torch.empty((batch, self.code.n_b, pad_z(self.code.z)), dtype=llr_k.dtype,
+                                device=device)
+        r_scratch = torch.empty((batch, *self.r_shape),
+                                dtype=llr_k.dtype if sum_product else torch.int32, device=device)
+        entries = queue_entries(batch, self.cfg.max_iters)
+        return (*outs, r_scratch.data_ptr(), p_scratch.data_ptr(),
+                *(t.data_ptr() for t in self.tables), batch, *self.ints, stream,
+                phase_counter(device).data_ptr() if recording() and not sum_product else None,
+                workspace(device, stream, entries).data_ptr(), entries)
+
+
+def plan(code: QCCode, cfg: DecoderConfig, device, counter, counts: tuple) -> Plan:
+    """Kernel D's plan, whose launches bump ``counts`` on ``counter``
+    (``cuda_long.plan`` checks the request and caches it)."""
+    stages = stage_plan(code)
     sum_product = cfg.algorithm == "sum-product"
-    plan = stage_plan(code)
-    # uninitialised: the kernel copies the LLRs into P and reads no R in
-    # sweep 0
-    p_scratch = torch.empty((batch, code.n_b, zp), dtype=dt, device=dev)
-    r_scratch = (torch.empty((batch, code.num_blocks, zp), dtype=dt, device=dev)
-                 if sum_product else
-                 torch.empty((batch, code.m_b, record_words(code.max_row_degree, item), zp),
-                             dtype=torch.int32, device=dev))
-    tables = _device_tables(code, cfg.normalization, cfg.offset, dev)
-    clocked = recording() and not sum_product
-    entries = queue_entries(batch, cfg.max_iters)
-    return (
-        llr_k.data_ptr(), bits.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-        executed.data_ptr(), None if post is None else post.data_ptr(),
-        r_scratch.data_ptr(), p_scratch.data_ptr(), *(t.data_ptr() for t in tables),
-        batch, code.n_b, code.z, code.m_b, code.num_blocks, plan.total_cols,
-        plan.max_cols, n_masks(code), group_slots(code), code.max_row_degree,
-        cfg.max_iters, int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
-        int(sum_product), int(dt == torch.bfloat16), stream,
-        phase_counter(dev).data_ptr() if clocked else None,
-        workspace(dev, stream, entries).data_ptr(), entries)
-
-
-def launch(name: str, args: tuple) -> None:
-    """Call the kernel library's launcher ``name`` (``ldpc_bp_stream``, or
-    ``ldpc_bp_long`` for cuda_long's shared placement) with ``args``, inside
-    the ``myldpc.long.launch`` span, on the current CUDA device; raises if
-    the launch fails."""
-    fn = getattr(_build.load(), name)
-    with span("long.launch"):
-        err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name.removeprefix('ldpc_')} kernel launch failed: "
-                           f"CUDA error {err}")
+    item = msg_dtype(cfg).itemsize
+    r_shape = ((code.num_blocks, pad_z(code.z)) if sum_product else
+               (code.m_b, record_words(code.max_row_degree, item), pad_z(code.z)))
+    return Plan(code, cfg, device, counter, counts,
+                (code.n_b, code.z, code.m_b, code.num_blocks, stages.total_cols,
+                 stages.max_cols, n_masks(code), group_slots(code), code.max_row_degree,
+                 cfg.max_iters, int(cfg.early_exit), int(cfg.syndrome_mode == "lazy"),
+                 int(sum_product), int(cfg.msg_dtype == "bfloat16")),
+                r_shape)

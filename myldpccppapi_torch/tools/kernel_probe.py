@@ -105,10 +105,10 @@ import torch.profiler
 from .. import Decoder, DecoderConfig, Encoder, dvbs2, nr_code, rs_ldpc, wifi, wimax
 from ..codes.dvbs2 import ira_encode_fn
 from ..codes.nr import rate_match_bits, rate_match_llr, triangular_encode_fn
-from ..ops import _build, cuda_long, cuda_stream
+from ..ops import _build, cuda_bp, cuda_launch, cuda_long, cuda_stream
 from ..ops.bp import msg_dtype
 from ..ops.channel import transmit
-from ..ops.cuda_bp import _blocks_per_sm, _launch, decode_qc_cuda, lanes, mode, tile_size
+from ..ops.cuda_bp import _blocks_per_sm, decode_qc_cuda, lanes, mode, tile_size
 from ..ops.cuda_long import GLOBAL, SHARED, blocks_per_sm, decode_qc_long, placement
 from ..ops.triage import decode_two_phase
 
@@ -488,12 +488,13 @@ def probe_short(seed: int) -> dict:
 
     want = {snr: decode_qc_cuda(code, SINGLE, x) for snr, x in ((5, llr5), (2, llr2))}
     sweep = {}
+    plans = {cfg: cuda_bp.plan(code, cfg, llr5.device) for cfg in (SINGLE, FAST)}
     for t in sorted({x for x in TILES if x <= len(resident)} | {tile}):
         def single(x, t=t):
-            return _launch(code, SINGLE, x, t)
+            return cuda_launch.launch(plans[SINGLE], x, t)
 
         def triage(x, t=t):
-            return decode_two_phase(lambda y: _launch(code, FAST, y, t), single,
+            return decode_two_phase(lambda y: cuda_launch.launch(plans[FAST], y, t), single,
                                     x, cap)
 
         sweep[t] = {

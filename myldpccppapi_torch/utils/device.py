@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "cuda_index", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "cuda_index", "indexed", "resolve_device"]
 
 #: the device of every entry point unless the caller names another
 DEFAULT_DEVICE = "cuda"
@@ -33,3 +33,12 @@ def cuda_index(device) -> int:
     if device.type != "cuda":
         raise ValueError(f"expected a CUDA device, got {device}")
     return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def indexed(device) -> torch.device:
+    """``device`` as a torch.device that names its index: a CUDA device
+    without one as the current device, any other as it is."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -16,7 +16,7 @@ from myldpccppapi_tpu.ops.bp import decode_qc as ref_decode_qc
 
 from myldpccppapi_torch import interop
 from myldpccppapi_torch.codes import encode_numpy, ru_precompute, wimax
-from myldpccppapi_torch.ops import cuda_bp
+from myldpccppapi_torch.ops import cuda_bp, cuda_launch
 from myldpccppapi_torch.ops.bp import decode_layered
 from myldpccppapi_torch.utils.config import DecoderConfig
 
@@ -179,10 +179,10 @@ def test_cell_table_marks_each_cell_in_block_order():
         cell = [cols.count(j) > 1 for j in cols]
         assert slot[lo:hi][cell].tolist() == list(range(sum(cell)))
         assert (slot[lo:hi][~np.array(cell)] == -1).all()
-    assert cuda_bp.group_slots(mine) == 2
+    assert cuda_launch.group_slots(mine) == 2
     plain = cuda_bp.cell_table(CODE)
     assert (plain[:CODE.num_blocks] == -1).all() and not plain[CODE.num_blocks:].any()
-    assert cuda_bp.group_slots(CODE) == 0
+    assert cuda_launch.group_slots(CODE) == 0
 
 
 @pytest.mark.parametrize("schedule", ["layered", "flooding"])
@@ -194,7 +194,7 @@ def test_multi_edge_plain_matches_kernel_a_interpret(schedule):
     from myldpccppapi_tpu.ops.pallas_bp import decode_qc_pallas
 
     mine, theirs = _multi_edge_z8()
-    assert cuda_bp.group_slots(mine) == 2  # one two-circulant cell a layer
+    assert cuda_launch.group_slots(mine) == 2  # one two-circulant cell a layer
     llr = (1.0 + 2.0 * np.random.default_rng(12).standard_normal(
         (8, mine.n))).astype(np.float32)
     cfg = dict(schedule=schedule, normalization=0.75, max_iters=12)

@@ -25,7 +25,7 @@ from myldpccppapi_tpu.ops.pallas_bp import decode_qc_pallas
 from myldpccppapi_torch import Decoder, cli, interop
 from myldpccppapi_torch.codes import Encoder, encode_numpy
 from myldpccppapi_torch.codes.rs_ldpc import gf2m_tables, rs_ldpc, rs_ldpc_from_n
-from myldpccppapi_torch.ops import bp, cuda_bp, cuda_long
+from myldpccppapi_torch.ops import bp, cuda_bp, cuda_launch, cuda_long
 from myldpccppapi_torch.utils.config import DecoderConfig
 
 torch.set_num_threads(1)
@@ -237,7 +237,7 @@ def test_decoder_dispatch():
     assert not cuda_long.supported(code) and not cuda_long.supported(rs_ldpc())
     too_many = rs_ldpc(s=6, gamma=9, rho=32)  # 288 xor blocks
     assert too_many.num_blocks > 256 and not cuda_bp.supported(too_many)
-    assert cuda_bp.group_slots(code) == 0
+    assert cuda_launch.group_slots(code) == 0
 
 
 def test_interop_carries_rs_ldpc():

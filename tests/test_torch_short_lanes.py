@@ -45,7 +45,7 @@ from myldpccppapi_tpu.ops.bp import decode_qc as ref_decode_qc
 
 from myldpccppapi_torch import DecoderConfig, QCCode, interop, nr_code, rs_ldpc, wifi, wimax
 from myldpccppapi_torch.codes import encode_numpy, ru_precompute
-from myldpccppapi_torch.ops import bp, cuda_bp, cuda_stream
+from myldpccppapi_torch.ops import bp, cuda_bp, cuda_launch, cuda_stream
 from myldpccppapi_torch.ops.bp import DecodeResult
 
 torch.set_num_threads(1)
@@ -502,7 +502,7 @@ def model_smem(code, mode_bits: int, tile: int, itemsize: int = 4) -> int:
         return (x + 15) // 16 * 16
     flooding, sp, scms = mode_bits & 1, mode_bits & 2, mode_bits & 4
     z, n, m_b, blocks = code.z, code.n, code.m_b, code.num_blocks
-    gs = cuda_bp.group_slots(code)
+    gs = cuda_launch.group_slots(code)
     r = (blocks * z * itemsize if sp
          else m_b * cuda_stream.record_words(code.max_row_degree, itemsize) * z * 4)
     total = a16(tile * n * itemsize) + (a16(tile * n * itemsize) if flooding else 0)
@@ -597,7 +597,7 @@ def test_instantiation_rule(make, mode_bits, tile, want):
     of at most 384 threads; the host's thread cap is the fitted one's there,
     so the tiles the occupancy query offers all run it."""
     code = make()
-    assert (cuda_bp.group_slots(code) > 0) == (code.name == "wimax_n576_r56_cell")
+    assert (cuda_launch.group_slots(code) > 0) == (code.name == "wimax_n576_r56_cell")
     assert cuda_bp.edges_per_lane(code, mode_bits, tile) == want
     width = cuda_bp.lanes(code)
     cap = cuda_bp._max_threads(code, mode_bits)

@@ -2,8 +2,9 @@
 CPU: the fold of a launch's per-block entry and exit times, tile, sweeps
 and iterations into the counter's slots, pinned on hand-made launches; the
 counter and its pointer go to the library only while a profiler records a
-decode that has a clocked instantiation; the library call lies inside the
-``myldpc.short.launch`` span; the benchmark's reader of the slots finds
+decode that has a clocked instantiation (kernel A's plans, on the CPU with
+the card's answers stubbed: the ``cpu_plans`` fixture); the library call
+lies inside the ``myldpc.short.launch`` span; the benchmark's reader of the slots finds
 nothing where no counter exists; a launch of the fitted instantiation is
 counted, and the benchmark's reader of the fitted share reads the counts;
 the occupancy query offers the fitted code only the tiles its instantiation
@@ -21,8 +22,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from myldpccppapi_torch.codes import wifi, wimax
 from myldpccppapi_torch.codes.rs_ldpc import rs_ldpc
-from myldpccppapi_torch.ops import cuda_bp
+from myldpccppapi_torch.ops import cuda_bp, cuda_launch
 from myldpccppapi_torch.utils.config import DecoderConfig
+from myldpccppapi_torch.utils.profiling import span
+from test_torch_launch import cpu_plans  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -94,12 +97,9 @@ class FakeLib:
         return call
 
 
-def _args(code, cfg, batch=3, tile=2):
+def _args(code, cfg, device, batch=3, tile=2):
     llr = torch.zeros((batch, code.n), dtype=torch.float32)
-    outs = (torch.empty((batch, code.n), dtype=torch.uint8), torch.empty(batch, dtype=torch.bool),
-            torch.empty(batch, dtype=torch.int32),
-            torch.empty((batch + tile - 1) // tile, dtype=torch.int32), None)
-    return cuda_bp.launch_args(code, cfg, llr, *outs, tile, 0)
+    return cuda_launch.prepare(cuda_bp.plan(code, cfg, device), llr, tile)[1]
 
 
 @pytest.mark.parametrize("recording,code,cfg,clocked", [
@@ -111,21 +111,20 @@ def _args(code, cfg, batch=3, tile=2):
     (True, rs_ldpc(4, 4, 8), DecoderConfig(), False),
 ], ids=["idle", "wifi", "wimax-bf16", "flooding", "sum-product", "xor"])
 def test_launch_passes_the_slot_counter_while_a_profiler_records(
-        monkeypatch, recording, code, cfg, clocked):
-    """The slot counter's pointer and the launch's slots go to the library
-    only while a torch profiler records a layered min-sum decode of a
-    cyclic code without multi-edge cells; else null and 0, and the library
-    runs the unclocked kernel."""
+        monkeypatch, cpu_plans, recording, code, cfg, clocked):
+    """The slot counter's pointer and the launch's slots (132 SMs times 5
+    blocks of the tile an SM) go to the library only while a torch profiler
+    records a layered min-sum decode of a cyclic code without multi-edge
+    cells; else null and 0, and the library runs the unclocked kernel."""
     monkeypatch.setattr(cuda_bp, "_slot_counters", {})
-    monkeypatch.setattr(cuda_bp, "_slots", lambda code, cfg, dev, tile: 660)
     with contextlib.ExitStack() as held:
         if recording:
             held.enter_context(profile(activities=[ProfilerActivity.CPU]))
-        args = _args(code, cfg)
+        args = _args(code, cfg, cpu_plans)
     argtypes, _ = cuda_bp._build._SIGNATURES["ldpc_bp_layered"]
     assert len(args) == len(argtypes) == 30
     assert args[13:22] == (3, code.n_b, code.z, code.m_b, code.num_blocks,
-                           cuda_bp.group_slots(code), code.max_row_degree,
+                           cuda_launch.group_slots(code), code.max_row_degree,
                            cuda_bp.lanes(code), 2)
     if clocked:
         assert args[28] == cuda_bp.slot_counter("cpu", 0).data_ptr() and args[29] == 660
@@ -136,19 +135,19 @@ def test_launch_passes_the_slot_counter_while_a_profiler_records(
 def test_multi_edge_code_runs_unclocked():
     code = wimax(576, "1/2")
     code = type(code)(name="me", base=code.base, z=code.z, extra_blocks=((0, 1, 5),))
-    assert cuda_bp.group_slots(code) > 0
+    assert cuda_launch.group_slots(code) > 0
     assert not cuda_bp.clocked(code, DecoderConfig())
 
 
-def test_run_calls_the_library_inside_the_launch_span(monkeypatch):
+def test_run_calls_the_library_inside_the_launch_span(monkeypatch, cpu_plans):
     """Under a profiler a launch is ``myldpc.short.prepare``, ``.launch``
     (holding the library call) and ``.finish``, one after another; it counts
     one launch and returns the largest block sweep count; a failed launch
     raises."""
     lib = FakeLib()
-    monkeypatch.setattr(cuda_bp._build, "load", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(cuda_launch._build, "load", lambda: lib)
     code, cfg = wifi(1944, "5/6"), DecoderConfig(normalization=0.75)
+    plan = cuda_bp.plan(code, cfg, cpu_plans)
     executed = torch.tensor([3, 9], dtype=torch.int32)
     result = cuda_bp.DecodeResult(torch.empty((3, code.n), dtype=torch.uint8),
                                   torch.empty(3, dtype=torch.bool),
@@ -159,13 +158,13 @@ def test_run_calls_the_library_inside_the_launch_span(monkeypatch):
                             getattr(cuda_bp.decode_qc_cuda, counter))
     before = cuda_bp.decode_qc_cuda.launches
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        with cuda_bp.span("short.prepare"):
+        with span("short.prepare"):
             args = (1, 2)
-        res = cuda_bp._run(code, cfg, result, args, 1)
+        res = cuda_launch.run(plan, result, args, 1)
     assert lib.calls == [("ldpc_bp_layered", (1, 2))]
     assert cuda_bp.decode_qc_cuda.launches == before + 1 and int(res.total_iters) == 9
     assert res.bits is result.bits and res.posteriors is None
-    assert cuda_bp._run(code, cfg, result, None, 1) is result  # an empty batch: no launch
+    assert cuda_launch.run(plan, result, None, 1) is result  # an empty batch: no launch
     events = prof.events()
     spans = sorted((e for e in events if e.name.startswith("myldpc.short.")),
                    key=lambda e: e.time_range.start)
@@ -175,10 +174,10 @@ def test_run_calls_the_library_inside_the_launch_span(monkeypatch):
     assert spans[1].time_range.start <= op.time_range.start
     assert op.time_range.end <= spans[1].time_range.end
     assert all(a.time_range.end <= b.time_range.start for a, b in zip(spans, spans[1:]))
-    monkeypatch.setattr(cuda_bp._build, "load",
+    monkeypatch.setattr(cuda_launch._build, "load",
                         lambda: types.SimpleNamespace(ldpc_bp_layered=lambda *a: 700))
     with pytest.raises(RuntimeError, match="bp_layered kernel launch failed: CUDA error 700"):
-        cuda_bp._run(code, cfg, result, args, 1)
+        cuda_launch.run(plan, result, args, 1)
 
 
 @pytest.mark.parametrize("code,cfg,tile,fitted", [
@@ -190,11 +189,10 @@ def test_run_calls_the_library_inside_the_launch_span(monkeypatch):
     (wimax(576, "5/6"), DecoderConfig(), 5, 0),
     (wimax(576, "3/4B"), DecoderConfig(), 1, 0),
 ], ids=["wifi", "wifi-bf16", "flooding", "wifi-r34", "wimax-tile4", "wimax-tile5", "narrow"])
-def test_run_counts_fitted_launches(monkeypatch, code, cfg, tile, fitted):
+def test_run_counts_fitted_launches(monkeypatch, cpu_plans, code, cfg, tile, fitted):
     """``decode_qc_cuda.fitted_launches`` counts a launch that the fitted
     instantiation serves, beside ``launches``."""
-    monkeypatch.setattr(cuda_bp._build, "load", lambda: FakeLib())
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(cuda_launch._build, "load", lambda: FakeLib())
     for counter in ("launches", "soft_launches", "bf16_launches", "xor_launches",
                     "multi_edge_launches", "fitted_launches"):
         monkeypatch.setattr(cuda_bp.decode_qc_cuda, counter, 0)
@@ -202,7 +200,7 @@ def test_run_counts_fitted_launches(monkeypatch, code, cfg, tile, fitted):
                                   torch.empty(1, dtype=torch.bool),
                                   torch.empty(1, dtype=torch.int32),
                                   torch.tensor([4], dtype=torch.int32))
-    cuda_bp._run(code, cfg, result, (1, 2), tile)
+    cuda_launch.run(cuda_bp.plan(code, cfg, cpu_plans), result, (1, 2), tile)
     assert cuda_bp.decode_qc_cuda.launches == 1
     assert cuda_bp.decode_qc_cuda.fitted_launches == fitted
 

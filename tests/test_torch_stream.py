@@ -26,7 +26,10 @@ here:
   the written-back P and R and the codeword's sweep count, iterations and
   latch, equals the uninterrupted emulation and the plain version; the
   launcher's rule (grid, turn length, queue entries) through its Python
-  mirror, and the queue's workspace.
+  mirror, and the queue's workspace;
+* the launch's plan (``cuda_stream.Plan``, through ``cuda_long.plan`` on
+  the CPU with the card's answers stubbed: the ``cpu_plans`` fixture) and
+  its argument list, against a fake library.
 """
 import collections
 import contextlib
@@ -47,9 +50,10 @@ from myldpccppapi_tpu.codes.qc import QCCode as RefQCCode
 
 from myldpccppapi_torch import DecoderConfig, QCCode, dvbs2, nr_code
 from myldpccppapi_torch.codes import ira_encode_numpy
-from myldpccppapi_torch.ops import bp, cuda_long, cuda_stream
+from myldpccppapi_torch.ops import bp, cuda_launch, cuda_long, cuda_stream
 from myldpccppapi_torch.ops.bp import DecodeResult
 from myldpccppapi_torch.utils import profiling
+from test_torch_launch import cpu_plans  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -643,32 +647,33 @@ class FakeLib:
         return call
 
 
-def _launch_inputs(msg_dtype="bfloat16", algorithm="min-sum"):
+def _launch_inputs(device, msg_dtype="bfloat16", algorithm="min-sum"):
+    """D's plan of DVB-S2 16200 r1/2 (forced to the global placement) and
+    two codewords' f32 LLRs."""
     code = dvbs2(16200, "1/2")
     cfg = DecoderConfig(normalization=0.85 if algorithm == "min-sum" else 1.0,
                         syndrome_mode="lazy", msg_dtype=msg_dtype, algorithm=algorithm)
-    llr = torch.zeros((2, code.n), dtype=bp.msg_dtype(cfg))
-    outs = (torch.empty((2, code.n), dtype=torch.uint8), torch.empty(2, dtype=torch.bool),
-            torch.empty(2, dtype=torch.int32), torch.empty(2, dtype=torch.int32))
-    return code, cfg, llr, outs
+    llr = torch.zeros((2, code.n), dtype=torch.float32)
+    return code, cfg, llr, cuda_long.plan(code, cfg, device, cuda_long.GLOBAL)
 
 
-def test_launch_passes_the_plan_to_the_kernel(monkeypatch):
-    """cuda_stream.launch hands ldpc_bp_stream the arguments its ctypes
+def test_launch_passes_the_plan_to_the_kernel(monkeypatch, cpu_plans):
+    """A launch of D's plan hands ldpc_bp_stream the arguments its ctypes
     signature declares: the plan's tables and sizes, padded scratches of
     the kernel's layouts, the mode flags, the stream, (no profiler
     recording) a null phase counter, and the stream's turn queue
     workspace with the entries the batch's turns need."""
     lib = FakeLib()
-    monkeypatch.setattr(cuda_stream._build, "load", lambda: lib)
-    code, cfg, llr, outs = _launch_inputs()
-    cuda_stream.launch("ldpc_bp_stream", cuda_stream.launch_args(code, cfg, llr, *outs, None, 0))
+    monkeypatch.setattr(cuda_launch._build, "load", lambda: lib)
+    code, cfg, llr, launch_plan = _launch_inputs(cpu_plans)
+    assert isinstance(launch_plan, cuda_stream.Plan)
+    cuda_launch.launch(launch_plan, llr)
     (name, args), = lib.calls
     argtypes, _ = cuda_stream._build._SIGNATURES[name]
     assert name == "ldpc_bp_stream" and len(args) == len(argtypes) == 35
     plan = cuda_stream.stage_plan(code)
     assert args[16:31] == (2, code.n_b, code.z, code.m_b, code.num_blocks, plan.total_cols,
-                           plan.max_cols, 1, cuda_stream.group_slots(code),
+                           plan.max_cols, 1, cuda_launch.group_slots(code),
                            code.max_row_degree, cfg.max_iters, 1, 1, 0, 1)
     assert args[5] is None and args[31] == 0 and args[32] is None
     entries = cuda_stream.queue_entries(2, cfg.max_iters)
@@ -679,17 +684,17 @@ def test_launch_passes_the_plan_to_the_kernel(monkeypatch):
 @pytest.mark.parametrize("recording,algorithm,clocked", [
     (False, "min-sum", False), (True, "min-sum", True), (True, "sum-product", False)])
 def test_launch_passes_the_phase_counter_while_a_profiler_records(
-        monkeypatch, recording, algorithm, clocked):
+        monkeypatch, cpu_plans, recording, algorithm, clocked):
     """The phase counter's pointer goes to the library only while a torch
     profiler records and only for min-sum (the clocked instantiations);
     else null, and the library runs the unclocked kernel."""
     monkeypatch.setattr(cuda_stream, "_phase_counters", {})
-    code, cfg, llr, outs = _launch_inputs("float32", algorithm)
+    code, cfg, llr, plan = _launch_inputs(cpu_plans, "float32", algorithm)
     with contextlib.ExitStack() as held:
         if recording:
             held.enter_context(torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]))
-        args = cuda_stream.launch_args(code, cfg, llr, *outs, None, 0)
+        args = cuda_launch.prepare(plan, llr, 1)[1]
     if clocked:
         counter = cuda_stream.phase_counter(llr.device)
         assert args[32] == counter.data_ptr()
@@ -698,27 +703,29 @@ def test_launch_passes_the_phase_counter_while_a_profiler_records(
         assert args[32] is None and cuda_stream._phase_counters == {}
 
 
-def test_launch_calls_the_library_inside_the_launch_span(monkeypatch):
+def test_launch_calls_the_library_inside_the_launch_span(monkeypatch, cpu_plans):
     """Under a profiler the library call lies inside ``myldpc.long.launch``,
-    and a failed launch raises."""
+    and a failed launch raises (D's plan, then C's)."""
     def call(*args):
         torch.ones(1)  # an operator the profiler records inside the call
         return 0
-    monkeypatch.setattr(cuda_stream._build, "load",
+    monkeypatch.setattr(cuda_launch._build, "load",
                         lambda: types.SimpleNamespace(ldpc_bp_stream=call,
                                                       ldpc_bp_long=lambda *a: 700))
+    code, cfg, llr, plan = _launch_inputs(cpu_plans)
+    result, _ = cuda_launch.prepare(plan, llr, 1)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        cuda_stream.launch("ldpc_bp_stream", (1, 2))
+        cuda_launch.run(plan, result, (1, 2), 1)
     events = prof.events()
     span, = [e for e in events if e.name == "myldpc.long.launch"]
     op, = [e for e in events if e.name == "aten::ones"]
     assert span.time_range.start <= op.time_range.start
     assert op.time_range.end <= span.time_range.end
     with pytest.raises(RuntimeError, match="bp_long kernel launch failed: CUDA error 700"):
-        cuda_stream.launch("ldpc_bp_long", ())
+        cuda_launch.run(cuda_long.plan(code, cfg, cpu_plans, cuda_long.SHARED), result, (), 1)
 
 
-def test_trace_writes_the_stream_phases_beside_the_trace(monkeypatch, tmp_path):
+def test_trace_writes_the_stream_phases_beside_the_trace(monkeypatch, cpu_plans, tmp_path):
     """``profiling.trace`` writes the phase cycles that clocked launches
     added during the block beside the Chrome trace, and no phase file for a
     block without one (nor do launches outside the block count)."""
@@ -728,13 +735,12 @@ def test_trace_writes_the_stream_phases_beside_the_trace(monkeypatch, tmp_path):
         if args[32] is not None:
             cuda_stream.phase_counter("cpu").add_(torch.tensor([10, 20, 30, 4, 70, 2, 1]))
         return 0
-    monkeypatch.setattr(cuda_stream._build, "load",
+    monkeypatch.setattr(cuda_launch._build, "load",
                         lambda: types.SimpleNamespace(ldpc_bp_stream=call))
-    code, cfg, llr, outs = _launch_inputs("float32")
+    code, cfg, llr, plan = _launch_inputs(cpu_plans, "float32")
 
     def decode():
-        cuda_stream.launch("ldpc_bp_stream",
-                           cuda_stream.launch_args(code, cfg, llr, *outs, None, 0))
+        cuda_launch.launch(plan, llr)
 
     with profiling.trace(str(tmp_path / "none")):
         torch.ones(1)
@@ -767,5 +773,5 @@ def test_blocks_per_sm_of_the_global_placement_asks_bp_stream(monkeypatch):
     assert got == 3
     assert lib.calls == [("ldpc_bp_stream_blocks_per_sm",
                           (code.n_b, code.z, code.m_b, code.num_blocks, plan.total_cols,
-                           plan.max_cols, 1, cuda_stream.group_slots(code),
+                           plan.max_cols, 1, cuda_launch.group_slots(code),
                            code.max_row_degree, 0, 2))]
