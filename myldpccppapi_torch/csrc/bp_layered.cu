@@ -148,6 +148,24 @@
 // against 64), so they are built alone, as part 4, and every other
 // instantiation keeps its code.
 //
+// THE SWEEP END, layered without multi-edge cells (MULTI and FLOODING
+// false: every mode, group, storage type and K but those): a value that the
+// last layer writes back is final for the sweep, as no other row of that
+// layer and no later layer writes it, so each lane XORs P <= 0 of the
+// values it stores there, and the group's merge gives its row's parity.
+// An odd row rules the codeword's convergence out: the exact syndrome pass
+// (its loads, its merges, the barrier that publishes s_fail, the latch and
+// the done vote) runs only in a sweep where some codeword of the block is
+// not done and found every last-layer row even, and then over the other
+// layers only.  At one codeword a block the last layer's barrier decides
+// (__syncthreads_or); at more, a codeword with an odd row marks s_fail
+// before that barrier, the warps whose codewords all stand ruled out skip
+// the pass, and one barrier makes the decision the block's.  Bits,
+// converged flags, iterations and posteriors are those of the full pass.
+// The multi-edge layered modes (a cell's deltas are added after the last
+// layer's barrier) and the flooding ones (SCMS forms its next Q in the
+// pass) keep the full pass.
+//
 // SLOT CLOCKS (a template parameter, CLOCKED: the layered min-sum
 // instantiations of the cyclic group without multi-edge cells, f32 and
 // bf16, narrow, fitted and wide; the library runs them when the caller passes a
@@ -156,7 +174,9 @@
 // and adding to the counter, int64 [kClockSlots] on the device: the block's
 // resident ns, its block-sweeps (sweeps run times the tile) and one block;
 // the thread that writes a codeword's iteration count adds it to the
-// frame-sweeps.  The last block to leave a launch adds the launch's slot-ns,
+// frame-sweeps; and the sweeps whose syndrome pass the block skipped (the
+// sweep end above), times the tile.  The last block to leave a launch adds
+// the launch's slot-ns,
 // the slots the host passes (SMs x resident blocks at the launch's tile)
 // times the span from the first block's entry to the last one's exit, and
 // one launch, and returns the counter's three scratch slots (first entry,
@@ -166,6 +186,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -220,11 +241,20 @@ constexpr int kFrameSweeps = 2;
 constexpr int kBlockSweeps = 3;
 constexpr int kBlocks = 4;
 constexpr int kLaunches = 5;
-constexpr int kFirstEntry = 6;
-constexpr int kLastExit = 7;
-constexpr int kBlocksLeft = 8;
+constexpr int kSyndromeSkips = 6;
+constexpr int kFirstEntry = 7;
+constexpr int kLastExit = 8;
+constexpr int kBlocksLeft = 9;
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) / 16 * 16; }
+
+// A flag given as a bool or as a std::bool_constant (whose own conversion
+// to bool is host code)
+__device__ __forceinline__ bool holds(bool b) { return b; }
+template <bool B>
+__device__ __forceinline__ constexpr bool holds(std::integral_constant<bool, B>) {
+  return B;
+}
 
 // Byte offsets of one block's arrays in shared memory, each [tile] per
 // codeword arrays (P [n]; C [n]; the records [m_b][record words][z] or R
@@ -299,15 +329,17 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-// Thread 0 of a clocked block, at its exit: the block's slot clocks, and
-// in the launch's last block out the launch's slot-ns and its launch.
-__device__ void add_slot_clocks(unsigned long long* k, int slots, unsigned long long entry,
-                                int sweeps, int tile) {
+// Thread 0 of a clocked block, at its exit: the block's slot clocks (its
+// entry time, taken from the resident ns at its entry, added back as its
+// exit), and in the launch's last block out the launch's slot-ns and its
+// launch.
+__device__ void add_slot_clocks(unsigned long long* k, int slots, int sweeps, int skips,
+                                int tile) {
   const unsigned long long exit = global_ns();
-  atomicAdd(k + kResidentNs, exit - entry);
+  atomicAdd(k + kResidentNs, exit);
   atomicAdd(k + kBlockSweeps, (unsigned long long)sweeps * tile);
+  atomicAdd(k + kSyndromeSkips, (unsigned long long)skips * tile);
   atomicAdd(k + kBlocks, 1ull);
-  atomicMin(k + kFirstEntry, entry);
   atomicMax(k + kLastExit, exit);
   __threadfence();
   if (atomicAdd(k + kBlocksLeft, 1ull) == gridDim.x - 1) {
@@ -337,9 +369,12 @@ __global__ void BP_LAYERED_BOUNDS(K) bp_layered_kernel(const Params p) {
   static_assert(!CLOCKED || !(FLOODING || SUM_PRODUCT || SCMS || XOR || MULTI),
                 "the clocks are layered min-sum's, cyclic, without multi-edge cells");
   extern __shared__ __align__(16) char smem[];
-  [[maybe_unused]] unsigned long long entry_ns = 0;
   if constexpr (CLOCKED) {
-    if (threadIdx.x == 0) entry_ns = global_ns();
+    if (threadIdx.x == 0) {  // (no register holds the entry through the decode)
+      const unsigned long long entry = global_ns();
+      atomicAdd(p.slot_clocks + kResidentNs, 0ull - entry);
+      atomicMin(p.slot_clocks + kFirstEntry, entry);
+    }
   }
   constexpr int mode = (FLOODING ? kFlooding : 0) | (SUM_PRODUCT ? kSumProduct : 0) |
                        (SCMS ? kScms : 0);
@@ -442,8 +477,11 @@ __global__ void BP_LAYERED_BOUNDS(K) bp_layered_kernel(const Params p) {
 
   // the check update of this group's row in layer i: r_new of every edge,
   // into the row's record or R (flooding), or as the delta write-back into
-  // P and the record or R (layered; a cell's deltas into D instead)
-  auto check_row = [&](int i) {
+  // P and the record or R (layered; a cell's deltas into D instead).  Where
+  // `parity` (a bool, or a std::bool_constant that compiles the other case
+  // out) holds it returns the lane's parity of P <= 0 over the values it
+  // wrote back (ghosts: 0), else 0
+  auto check_row = [&](int i, auto parity) -> uint32_t {
     const int p0 = s_ptr[i];
     const int deg = s_ptr[i + 1] - p0;
     const int per_lane = (deg + lanes - 1) >> log_lanes;  // the group's, <= K
@@ -553,6 +591,7 @@ __global__ void BP_LAYERED_BOUNDS(K) bp_layered_kernel(const Params p) {
     // instantiations load their edges' P and r_old again rather than keep
     // them in registers across the merges (more codewords an SM for wide-z
     // codes)
+    uint32_t odd = 0u;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int pos = lane + (k << log_lanes);
@@ -577,11 +616,14 @@ __global__ void BP_LAYERED_BOUNDS(K) bp_layered_kernel(const Params p) {
           if (slot >= 0) {
             D[slot * z + r] = from_f32<T>(delta);
           } else {
-            P[vi[k]] = from_f32<T>(pv[k] + delta);
+            const T stored = from_f32<T>(pv[k] + delta);
+            P[vi[k]] = stored;
+            if (holds(parity)) odd ^= to_f32(stored) <= 0.0f;
           }
         }
       }
     }
+    return odd;
   };
 
   // layered, multi-edge layer i, after a barrier: lane 0 of the group that
@@ -602,101 +644,193 @@ __global__ void BP_LAYERED_BOUNDS(K) bp_layered_kernel(const Params p) {
   bool done = !valid || ghost;  // the same value in every thread of a codeword
   int it = 0;
   int t = 0;
+  [[maybe_unused]] int skips = 0;  // clocked: sweeps whose syndrome pass the block skipped
   int all_done = __syncthreads_and(done);
   while (t < p.max_iters && !(p.early_exit && all_done)) {
-    if (FLOODING) {
-      for (int i = 0; i < m_b; ++i) check_row(i);
-      __syncthreads();
-      // rebuild P = C + sum of column-aligned R, per variable in edge order
-      for (int j = lane; j < n_b && !ghost; j += lanes) {
-        const int v = j * z + r;
-        float acc = to_f32(C[v]);
-        for (int k = s_cptr[j]; k < s_cptr[j + 1]; ++k) {
-          const int w = s_cedge[k];
-          const int e = w & ((1 << kEdgeBits) - 1);
-          const int row = align_col<XOR>(r, s_edge[e] & kShiftMask, z);
-          float msg;
-          if (SUM_PRODUCT) {
-            msg = to_f32(R[e * z + row]);
-          } else {
-            const int layer = (w >> kEdgeBits) & ((1 << kLayerBits) - 1);
-            msg = stored_message<T>(rec + layer * rec_words * z + row, z,
-                                    w >> (kEdgeBits + kLayerBits));
-          }
-          acc = round_to<T>(acc + msg);
-        }
-        P[v] = from_f32<T>(acc);
-      }
-      __syncthreads();
-    } else {
-      for (int i = 0; i < m_b; ++i) {
-        check_row(i);
+    if constexpr (FLOODING || MULTI) {
+      if (FLOODING) {
+        for (int i = 0; i < m_b; ++i) check_row(i, std::false_type{});
         __syncthreads();
-        if (MULTI && s_layer_slots[i] > 0) {  // (uniform branch)
-          add_cell_deltas(i);
+        // rebuild P = C + sum of column-aligned R, per variable in edge order
+        for (int j = lane; j < n_b && !ghost; j += lanes) {
+          const int v = j * z + r;
+          float acc = to_f32(C[v]);
+          for (int k = s_cptr[j]; k < s_cptr[j + 1]; ++k) {
+            const int w = s_cedge[k];
+            const int e = w & ((1 << kEdgeBits) - 1);
+            const int row = align_col<XOR>(r, s_edge[e] & kShiftMask, z);
+            float msg;
+            if (SUM_PRODUCT) {
+              msg = to_f32(R[e * z + row]);
+            } else {
+              const int layer = (w >> kEdgeBits) & ((1 << kLayerBits) - 1);
+              msg = stored_message<T>(rec + layer * rec_words * z + row, z,
+                                      w >> (kEdgeBits + kLayerBits));
+            }
+            acc = round_to<T>(acc + msg);
+          }
+          P[v] = from_f32<T>(acc);
+        }
+        __syncthreads();
+      } else {
+        for (int i = 0; i < m_b; ++i) {
+          check_row(i, std::false_type{});
+          __syncthreads();
+          if (MULTI && s_layer_slots[i] > 0) {  // (uniform branch)
+            add_cell_deltas(i);
+            __syncthreads();
+          }
+        }
+      }
+      // exact syndrome of the hard decisions (P <= 0) over this group's row
+      // in every layer, 32 layers' parities merged at a time; with SCMS also
+      // the next sent messages (kept apart from the sweep end below, which
+      // these instantiations do not take)
+      bool fail = false;
+      uint32_t parities = 0u;
+#pragma unroll 4
+      for (int i = 0; i < m_b; ++i) {
+        const int p0 = s_ptr[i];
+        const int deg = s_ptr[i + 1] - p0;
+        bool par = false;
+        const RowRecord sent = SCMS ? load_record<T>(rec_row(i), z, n_meta)
+                                    : RowRecord{0.0f, 0.0f, 0, 0u};
+        float pw[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int pos = lane + (k << log_lanes);
+          pw[k] = to_f32(P[var_of(s_edge[p0 + (pos < deg ? pos : (deg > 0 ? deg - 1 : 0))])]);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int pos = lane + (k << log_lanes);
+          if (pos < deg) {
+            const int e = p0 + pos;
+            const float pvv = pw[k];
+            par ^= (pvv <= 0.0f);
+            if (SCMS && !ghost) {
+              const int qi = e * z + r;
+              const float q_new = round_to<T>(pvv - record_message(sent, pos));
+              const float q_old = to_f32(Q[qi]);
+              const bool flip = q_old != 0.0f &&
+                                (bool)signbit(q_new) != (bool)signbit(q_old);
+              Q[qi] = from_f32<T>(flip ? 0.0f : q_new);
+            }
+          }
+        }
+        parities |= (uint32_t)par << (i & 31);
+        if ((i & 31) == 31 || i == m_b - 1) {
+          fail |= merge_xor(parities) != 0u;
+          parities = 0u;
+        }
+      }
+      if (fail && !ghost) s_fail[c] = 1;
+      __syncthreads();
+      if (!done) {
+        it = t + 1;
+        if (s_fail[c] == 0) {
+          // latch: write this codeword's bits (and posterior) as of its
+          // converging sweep
+          done = true;
+          for (int j = lane; j < n_b; j += lanes) {
+            const T pj = P[j * z + r];
+            p.bits[b * n + j * z + r] = to_f32(pj) <= 0.0f;
+            if (post_out != nullptr) post_out[b * n + j * z + r] = pj;
+          }
+        }
+      }
+      ++t;
+      all_done = __syncthreads_and(done);  // also: every s_fail read is done
+      if (r == 0 && lane == 0 && !ghost) s_fail[c] = 0;
+    } else {
+      // THE SWEEP END (the file's head).  s_fail[c] holds the last sweep
+      // (t + 1) in which codeword c was seen to fail, so it is never reset
+      bool odd = false;
+      if constexpr (K == kWide) {
+        // one copy of the layer's body, the parity asked of the last: a
+        // second copy takes the wide instantiation past 80 registers, and
+        // a block of 324 threads to one an SM
+        for (int i = 0; i < m_b; ++i) {
+          const bool last = i == m_b - 1;
+          const uint32_t lane_odd = check_row(i, last);
+          if (last) {
+            odd = merge_xor(lane_odd) != 0u;
+          } else {
+            __syncthreads();
+          }
+        }
+      } else {
+        for (int i = 0; i + 1 < m_b; ++i) {
+          check_row(i, std::false_type{});
           __syncthreads();
         }
+        odd = merge_xor(check_row(m_b - 1, std::true_type{})) != 0u;
       }
-    }
-    // exact syndrome of the hard decisions (P <= 0) over this group's row
-    // in every layer, 32 layers' parities merged at a time; with SCMS also
-    // the next sent messages
-    bool fail = false;
-    uint32_t parities = 0u;
+      const int stamp = t + 1;
+      // need: this thread's codeword may latch in this sweep (one codeword
+      // a block: the block's, from the last layer's barrier)
+      bool need;
+      if (tile == 1) {
+        need = !__syncthreads_or(!ghost && (done || odd));
+      } else {
+        if (odd && !ghost) s_fail[c] = stamp;
+        __syncthreads();
+        // (a pass that finds c failing may stamp it meanwhile: c then
+        // latches in no case)
+        need = !ghost && !done && s_fail[c] != stamp;
+      }
+      // the pass, in every warp that holds a codeword that needs it (whole
+      // warps, so that its shuffles name the full warp)
+      if (__any_sync(kFullMask, need)) {
+        bool fail = false;
+        uint32_t parities = 0u;
 #pragma unroll 4
-    for (int i = 0; i < m_b; ++i) {
-      const int p0 = s_ptr[i];
-      const int deg = s_ptr[i + 1] - p0;
-      bool par = false;
-      const RowRecord sent = SCMS ? load_record<T>(rec_row(i), z, n_meta)
-                                  : RowRecord{0.0f, 0.0f, 0, 0u};
-      float pw[K];
+        for (int i = 0; i + 1 < m_b; ++i) {
+          const int p0 = s_ptr[i];
+          const int deg = s_ptr[i + 1] - p0;
+          float pw[K];
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int pos = lane + (k << log_lanes);
-        pw[k] = to_f32(P[var_of(s_edge[p0 + (pos < deg ? pos : (deg > 0 ? deg - 1 : 0))])]);
-      }
+          for (int k = 0; k < K; ++k) {
+            const int pos = lane + (k << log_lanes);
+            pw[k] = to_f32(P[var_of(s_edge[p0 + (pos < deg ? pos : (deg > 0 ? deg - 1 : 0))])]);
+          }
+          bool par = false;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int pos = lane + (k << log_lanes);
-        if (pos < deg) {
-          const int e = p0 + pos;
-          const float pvv = pw[k];
-          par ^= (pvv <= 0.0f);
-          if (SCMS && !ghost) {
-            const int qi = e * z + r;
-            const float q_new = round_to<T>(pvv - record_message(sent, pos));
-            const float q_old = to_f32(Q[qi]);
-            const bool flip = q_old != 0.0f &&
-                              (bool)signbit(q_new) != (bool)signbit(q_old);
-            Q[qi] = from_f32<T>(flip ? 0.0f : q_new);
+          for (int k = 0; k < K; ++k) {
+            if (lane + (k << log_lanes) < deg) par ^= (pw[k] <= 0.0f);
+          }
+          parities |= (uint32_t)par << (i & 31);
+          if ((i & 31) == 31 || i + 2 == m_b) {
+            fail |= merge_xor(parities) != 0u;
+            parities = 0u;
           }
         }
+        if (fail && !ghost) s_fail[c] = stamp;
       }
-      parities |= (uint32_t)par << (i & 31);
-      if ((i & 31) == 31 || i == m_b - 1) {
-        fail |= merge_xor(parities) != 0u;
-        parities = 0u;
+      // whether any codeword of the block may latch, and s_fail published
+      bool any = need;
+      if (tile > 1) {
+        any = __syncthreads_or(need);
+      } else if (need) {
+        __syncthreads();
       }
-    }
-    if (fail && !ghost) s_fail[c] = 1;
-    __syncthreads();
-    if (!done) {
-      it = t + 1;
-      if (s_fail[c] == 0) {
-        // latch: write this codeword's bits (and posterior) as of its
-        // converging sweep
-        done = true;
-        for (int j = lane; j < n_b; j += lanes) {
-          const T pj = P[j * z + r];
-          p.bits[b * n + j * z + r] = to_f32(pj) <= 0.0f;
-          if (post_out != nullptr) post_out[b * n + j * z + r] = pj;
+      if (!done) it = t + 1;
+      if (any) {
+        if (!done && s_fail[c] != stamp) {  // the latch, as above
+          done = true;
+          for (int j = lane; j < n_b; j += lanes) {
+            const T pj = P[j * z + r];
+            p.bits[b * n + j * z + r] = to_f32(pj) <= 0.0f;
+            if (post_out != nullptr) post_out[b * n + j * z + r] = pj;
+          }
         }
+        all_done = __syncthreads_and(done);
+      } else {
+        // no done flag changed: all_done keeps its value
+        if constexpr (CLOCKED) ++skips;
       }
+      ++t;
     }
-    ++t;
-    all_done = __syncthreads_and(done);  // also: every s_fail read is done
-    if (r == 0 && lane == 0 && !ghost) s_fail[c] = 0;
   }
 
   if (valid && !ghost) {
@@ -717,7 +851,7 @@ __global__ void BP_LAYERED_BOUNDS(K) bp_layered_kernel(const Params p) {
   if (tid == 0) p.executed[blockIdx.x] = t;
   if constexpr (CLOCKED) {
     __syncthreads();  // the block's outputs are written: its exit
-    if (tid == 0) add_slot_clocks(p.slot_clocks, p.slots, entry_ns, t, tile);
+    if (tid == 0) add_slot_clocks(p.slot_clocks, p.slots, t, skips, tile);
   }
 }
 
@@ -872,8 +1006,9 @@ extern "C" {
 // per block (z * lanes * tile threads at most).  Unless
 // slot_clocks is null, a layered min-sum decode of a cyclic code without
 // multi-edge cells runs the clocked instantiation, which adds its slot
-// clocks to slot_clocks, int64 [9] on the device (resident ns, slot-ns,
-// frame-sweeps, block-sweeps, blocks, launches; then its scratch: all ones,
+// clocks to slot_clocks, int64 [10] on the device (resident ns, slot-ns,
+// frame-sweeps, block-sweeps, blocks, launches, syndrome skips; then its
+// scratch: all ones,
 // 0, 0 when idle, and the kernel leaves it so), with `slots` the launch's
 // slots (SMs x resident blocks at this tile); other decodes run unclocked
 // and leave it as it was.  Launches on `stream` and returns

@@ -43,7 +43,10 @@ fitted instantiation.
 block reads ``%globaltimer`` at the block's entry and exit; the counter sums
 the slots of :data:`SLOT_CLOCKS` over every clocked launch.  Resident ns
 over slot-ns is the share of the card's block slots that the launches kept
-busy.  Otherwise the launch passes null and runs the unclocked kernel.
+busy; syndrome skips over block-sweeps the share of sweeps whose exact
+syndrome pass the kernel skipped, because an odd row of the last layer
+ruled out every codeword of the block that was not done.  Otherwise the
+launch passes null and runs the unclocked kernel.
 """
 from __future__ import annotations
 
@@ -89,7 +92,7 @@ _NARROW_THREADS = 128
 _SHIFT_BITS, _EDGE_BITS, _LAYER_BITS = 10, 9, 11
 #: the slot counter's slots, in the kernel's order (csrc/bp_layered.cu)
 SLOT_CLOCKS = ("resident_ns", "slot_ns", "frame_sweeps", "block_sweeps", "blocks",
-               "launches")
+               "launches", "syndrome_skips")
 #: the counter's scratch after them, at its idle values: the launch's first
 #: entry (all ones, the identity of its min), last exit and blocks left
 _SLOT_SCRATCH = (-1, 0, 0)
@@ -349,18 +352,21 @@ def slot_clocks() -> "dict | None":
 
 
 def fold_slot_clocks(entry_ns, exit_ns, tile: int, executed, iterations,
-                     slots: int) -> dict:
+                     slots: int, skips=None) -> dict:
     """What one clocked launch adds to the slot counter, from each block's
     entry and exit times (ns), the tile, each block's sweeps (``executed``),
-    each codeword's iterations and the launch's slots: the kernel's own
-    fold (csrc/bp_layered.cu, ``add_slot_clocks``), on the host."""
+    each codeword's iterations, the launch's slots and each block's sweeps
+    whose syndrome pass it skipped (``skips``; None: none): the kernel's
+    own fold (csrc/bp_layered.cu, ``add_slot_clocks``), on the host."""
     entry = np.asarray(entry_ns, dtype=np.int64)
     leave = np.asarray(exit_ns, dtype=np.int64)
     return {"resident_ns": int((leave - entry).sum()),
             "slot_ns": int(slots) * int(leave.max() - entry.min()),
             "frame_sweeps": int(np.asarray(iterations, dtype=np.int64).sum()),
             "block_sweeps": int(np.asarray(executed, dtype=np.int64).sum()) * int(tile),
-            "blocks": int(entry.size), "launches": 1}
+            "blocks": int(entry.size), "launches": 1,
+            "syndrome_skips": 0 if skips is None
+            else int(np.asarray(skips, dtype=np.int64).sum()) * int(tile)}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

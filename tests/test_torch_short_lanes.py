@@ -23,6 +23,12 @@ tested here:
   walked as the kernel walks them (slots past the row's end re-read its
   last edge and are masked), the fitted instantiation's five on rows of 17
   to 20 over 4 lanes (802.11n 1944 r5/6 among them);
+* the sweep end of the layered modes without multi-edge cells: the last
+  layer's row parities from the values its write-back stores, the syndrome
+  pass over the other layers, and the sweeps whose pass a block of one
+  codeword skips, counted against the plain decode's hard decisions after
+  each sweep on 802.11n 1944 r5/6 below, at and far above the cell's
+  threshold;
 * the record built from the lanes' merge on ties at m1, every |q| past
   1e30, -0.0 and bf16;
 * the tile chooser (``cuda_bp.choose_tile``) at batch 1, 70, 1024 and 8192
@@ -30,6 +36,7 @@ tested here:
   that names the instantiation (``cuda_bp.edges_per_lane``) of each shipped
   code.
 """
+import dataclasses
 from functools import partial
 
 import jax
@@ -155,7 +162,7 @@ def lane_record(q: torch.Tensor, alpha: float, beta: float, dtype: torch.dtype,
 # -- the sweep -----------------------------------------------------------------
 
 def lane_decode(code, cfg: DecoderConfig, llr: torch.Tensor, lanes: int,
-                slots=None) -> DecodeResult:
+                slots=None, counts=None) -> DecodeResult:
     """Kernel A's sweep in torch, every row of every codeword at once: q of
     each edge from P and r_old (or SCMS's Q), the lanes' fold and merges
     (over K ``slots`` a lane where given),
@@ -163,7 +170,16 @@ def lane_decode(code, cfg: DecoderConfig, llr: torch.Tensor, lanes: int,
     codec), sum-product's phi(|q|) cached for phi(total - phi(|q|)), the
     layered delta write-back in block order or the flooding rebuild from the
     records via the column-list words, the syndrome by lane parities, the
-    latch of bits and posteriors at each codeword's converging sweep."""
+    latch of bits and posteriors at each codeword's converging sweep.
+
+    The sweep end of the layered modes without multi-edge cells: the last
+    layer's row parities from the lanes' parities of the values its
+    write-back stores (checked against the parities of the posterior after
+    the sweep); a codeword with an odd row fails, and the syndrome pass
+    covers the other layers.  With a ``counts`` dict, ``counts
+    ["syndrome_skips"]`` gets each codeword's sweeps whose pass its block
+    would skip at one codeword a block ([B] int64): the sweeps it ran in
+    which it was done or had an odd last-layer row."""
     dt = bp.msg_dtype(cfg)
     z, n_b, m_b = code.z, code.n_b, code.m_b
     batch = llr.shape[0]
@@ -220,6 +236,9 @@ def lane_decode(code, cfg: DecoderConfig, llr: torch.Tensor, lanes: int,
             assert torch.equal(rec[i], want), f"layer {i}: record != codec"
         return r_old
 
+    sweep_end = not flooding and cuda_launch.group_slots(code) == 0
+    last = range(ptr[m_b - 1], ptr[m_b])
+    skips = torch.zeros(batch, dtype=torch.int64)
     done = torch.zeros(batch, dtype=torch.bool)
     it = torch.zeros(batch, dtype=torch.int32)
     bits = torch.zeros((n_b, z, batch), dtype=torch.uint8)
@@ -245,10 +264,24 @@ def lane_decode(code, cfg: DecoderConfig, llr: torch.Tensor, lanes: int,
                 delta = rnd(r_new - r_old)
                 # in block order: a lone circulant's variable gets P_old +
                 # delta, a cell's its circulants' deltas one after another
+                stored = []
                 for k, e in enumerate(range(ptr[i], ptr[i + 1])):
-                    P[bc[e], var(sh[e])] = rnd(P[bc[e]][var(sh[e])] + delta[k])
+                    stored.append(rnd(P[bc[e]][var(sh[e])] + delta[k]))
+                    P[bc[e], var(sh[e])] = stored[-1]
         fail = torch.zeros(batch, dtype=torch.bool)
-        for i in range(m_b):
+        passed = m_b
+        if sweep_end:
+            # the last layer's rows from the values its write-back stored
+            # (``stored``: the last layer's), as final as the pass's reads
+            odd_rows = lane_parity(torch.stack(stored) <= 0, lanes, slots)
+            after = torch.stack([P[bc[e]][var(sh[e])] for e in last])
+            assert torch.equal(odd_rows, lane_parity(after <= 0, lanes, slots))
+            odd = odd_rows.any(dim=0)
+            running = ~done if cfg.early_exit else torch.ones_like(done)
+            skips += (running & (done | odd)).to(torch.int64)
+            fail |= odd
+            passed = m_b - 1
+        for i in range(passed):
             edges = range(ptr[i], ptr[i + 1])
             p = torch.stack([P[bc[e]][var(sh[e])] for e in edges])
             fail |= lane_parity(p <= 0, lanes, slots).any(dim=0)
@@ -265,6 +298,8 @@ def lane_decode(code, cfg: DecoderConfig, llr: torch.Tensor, lanes: int,
         t += 1
     bits[..., ~done] = ((P[..., ~done] <= 0) & (t > 0)).to(torch.uint8)
     post[..., ~done] = P[..., ~done]
+    if counts is not None:
+        counts["syndrome_skips"] = skips
     return DecodeResult(bp._from_blocks(bits), done, it, torch.tensor(t, dtype=torch.int32),
                         posteriors=bp._from_blocks(post).to(dt))
 
@@ -415,6 +450,63 @@ def test_fitted_lane_sweep_equals_plain_version(name, mode, dtype):
     cfg = config(code, mode, dtype, early_exit=mode != "offset")
     assert_same(lane_decode(code, cfg, llr, 4, slots=5),
                 cuda_bp.decode_qc_cuda_plain(code, cfg, llr))
+
+
+def plain_syndrome_skips(code, cfg: DecoderConfig, llr: torch.Tensor) -> int:
+    """The sweeps, summed over the frames, in which a frame has an odd row
+    in its code's last block row, up to its own sweep count (the sweep it
+    latched in, or its last): each sweep's hard decisions from a plain
+    decode (``decode_qc_cuda_plain``) of that many sweeps, its posterior
+    (a frame that has not latched yet returns it), the parity of each last
+    block row's variables over ``P <= 0``."""
+    iters = cuda_bp.decode_qc_cuda_plain(code, cfg, llr).iterations.to(torch.int64)
+    br, bc, sh = (np.asarray(x) for x in code.blocks)
+    rows = np.arange(code.z)
+    last = [bc[e] * code.z + (rows + sh[e]) % code.z for e in np.flatnonzero(br == code.m_b - 1)]
+    total = 0
+    for s in range(1, int(iters.max()) + 1):
+        few = dataclasses.replace(cfg, max_iters=s, soft_output=True)
+        hard = cuda_bp.decode_qc_cuda_plain(code, few, llr).posteriors <= 0  # [B, n]
+        odd = torch.zeros((llr.shape[0], code.z), dtype=torch.bool)
+        for cols in last:
+            odd ^= hard[:, torch.from_numpy(cols)]
+        total += int((odd.any(dim=1) & (iters >= s)).sum())
+    return total
+
+
+@pytest.mark.parametrize("snr_db,regime", [(2.0, "all 40"), (5.75, "the cell's"),
+                                           (9.0, "1 to 2")])
+def test_sweep_end_skips_equal_the_plain_count(snr_db, regime):
+    """802.11n 1944 r5/6 at the cell's decoder (layered min-sum, alpha 0.75,
+    40 sweeps, early exit), 16 frames of random codewords: the sweeps whose
+    syndrome pass the emulated kernel skips, at one codeword a block, equal
+    the count from the plain decode's hard decisions after each sweep, and
+    the decode stays bit-exact; below the threshold every frame runs 40
+    sweeps, far above it one or two."""
+    code = wifi(1944, "5/6")
+    rng = np.random.default_rng(int(snr_db * 100))
+    mats = ru_precompute(code)
+    c = encode_numpy(mats, rng.integers(0, 2, size=(16, mats.w.shape[1]), dtype=np.uint8))
+    sigma = np.float32(10 ** (-snr_db / 20))
+    y = 1 - 2 * c.astype(np.float32) + sigma * rng.standard_normal(c.shape).astype(np.float32)
+    llr = torch.from_numpy((y * np.float32(2 / sigma**2)).astype(np.float32))
+    cfg = DecoderConfig(normalization=0.75, max_iters=40, soft_output=True)
+    counts = {}
+    got = lane_decode(code, cfg, llr, 4, slots=5, counts=counts)
+    want = cuda_bp.decode_qc_cuda_plain(code, cfg, llr)
+    assert_same(got, want)
+    iters = want.iterations
+    if regime == "all 40":
+        assert bool((iters == 40).all())
+    elif regime == "1 to 2":
+        assert int(iters.max()) <= 2 and bool(want.converged.all())
+    else:
+        assert int(iters.min()) < int(iters.max())
+    skips = int(counts["syndrome_skips"].sum())
+    assert skips == plain_syndrome_skips(code, cfg, llr)
+    # a latching sweep is never skipped; below the threshold most are
+    assert skips <= int(iters.sum()) - int(want.converged.sum())
+    assert regime == "1 to 2" or skips > 0
 
 
 JNP_CASES = {  # (code, config fields)

@@ -1,11 +1,13 @@
 """Kernel A's slot clocks (``ops/cuda_bp.py``, ``csrc/bp_layered.cu``) on the
-CPU: the fold of a launch's per-block entry and exit times, tile, sweeps
-and iterations into the counter's slots, pinned on hand-made launches; the
+CPU: the fold of a launch's per-block entry and exit times, tile, sweeps,
+iterations and skipped syndrome passes into the counter's slots, pinned on
+hand-made launches; the
 counter and its pointer go to the library only while a profiler records a
 decode that has a clocked instantiation (kernel A's plans, on the CPU with
 the card's answers stubbed: the ``cpu_plans`` fixture); the library call
 lies inside the ``myldpc.short.launch`` span; the benchmark's reader of the slots finds
-nothing where no counter exists; a launch of the fitted instantiation is
+nothing where no counter exists, and the reader of the skip share nothing
+where the counter has no such slot; a launch of the fitted instantiation is
 counted, and the benchmark's reader of the fitted share reads the counts;
 the occupancy query offers the fitted code only the tiles its instantiation
 holds.  The kernel itself runs on the card only
@@ -40,7 +42,7 @@ def test_fold_one_wave():
     got = cuda_bp.fold_slot_clocks([100, 100, 100, 100], [900, 900, 900, 900], 1,
                                    [5, 5, 5, 5], [3, 5, 4, 2], slots=4)
     assert got == {"resident_ns": 3200, "slot_ns": 3200, "frame_sweeps": 14,
-                   "block_sweeps": 20, "blocks": 4, "launches": 1}
+                   "block_sweeps": 20, "blocks": 4, "launches": 1, "syndrome_skips": 0}
     assert _occupancy(got) == 100.0
 
 
@@ -63,7 +65,19 @@ def test_fold_partial_last_tile():
     got = cuda_bp.fold_slot_clocks([5, 7, 9], [25, 27, 19], 2, [3, 4, 2], [3, 2, 4, 1, 2],
                                    slots=3)
     assert got == {"resident_ns": 20 + 20 + 10, "slot_ns": 3 * (27 - 5),
-                   "frame_sweeps": 12, "block_sweeps": 18, "blocks": 3, "launches": 1}
+                   "frame_sweeps": 12, "block_sweeps": 18, "blocks": 3, "launches": 1,
+                   "syndrome_skips": 0}
+
+
+def test_fold_syndrome_skips():
+    """Three blocks of two codewords: each block's sweeps whose syndrome
+    pass it skipped count for both slots of its tile, the last block's
+    ghost too, as its block-sweeps do."""
+    got = cuda_bp.fold_slot_clocks([5, 7, 9], [25, 27, 19], 2, [3, 4, 2], [3, 2, 4, 1, 2],
+                                   slots=3, skips=[2, 3, 0])
+    assert got["syndrome_skips"] == 10 and got["block_sweeps"] == 18
+    assert cuda_bp.fold_slot_clocks([0], [9], 1, [40], [40], 1, skips=[38])[
+        "syndrome_skips"] == 38
 
 
 def test_slot_clocks_is_none_before_any_clocked_launch(monkeypatch):
@@ -78,9 +92,10 @@ def test_slot_counter_starts_idle_and_sums_over_streams(monkeypatch):
     assert a.dtype == torch.int64
     assert a.tolist() == [0] * len(cuda_bp.SLOT_CLOCKS) + [-1, 0, 0]
     b = cuda_bp.slot_counter("cpu", 7)
-    a[:6] = torch.arange(1, 7)
-    b[:6] = 10
-    assert cuda_bp.slot_clocks() == dict(zip(cuda_bp.SLOT_CLOCKS, [11, 12, 13, 14, 15, 16]))
+    a[:7] = torch.arange(1, 8)
+    b[:7] = 10
+    assert cuda_bp.slot_clocks() == dict(zip(cuda_bp.SLOT_CLOCKS,
+                                             [11, 12, 13, 14, 15, 16, 17]))
 
 
 class FakeLib:
@@ -252,6 +267,26 @@ def test_occupancy_reader_finds_nothing_without_a_counter(monkeypatch):
     counter[:6] = torch.tensor([600, 1000, 9, 9, 2, 1])
     assert read({}) == pytest.approx(60.0)
     monkeypatch.delattr(cuda_bp, "slot_clocks")  # a program without the clocks
+    assert read({}) is None
+
+
+def test_syndrome_skip_share_reader(monkeypatch):
+    """The share of block-sweeps whose syndrome pass was skipped, in %: None
+    without a counter, with a counter that counted no sweep, or from a
+    program whose counter has no such slot."""
+    from portbench.spec import metric_reader
+
+    read = metric_reader("bp_layered_syndrome_skip_share")
+    monkeypatch.setattr(cuda_bp, "_slot_counters", {})
+    assert read({}) is None
+    counter = cuda_bp.slot_counter("cpu", 0)
+    assert read({}) is None  # no sweep counted
+    counter[:7] = torch.tensor([600, 1000, 9, 40, 2, 1, 25])
+    assert read({}) == pytest.approx(62.5)
+    monkeypatch.setattr(cuda_bp, "slot_clocks",  # a program before the slot
+                        lambda: dict(zip(cuda_bp.SLOT_CLOCKS[:6], [600, 1000, 9, 40, 2, 1])))
+    assert read({}) is None
+    monkeypatch.delattr(cuda_bp, "slot_clocks")
     assert read({}) is None
 
 
